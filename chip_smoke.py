@@ -6,10 +6,15 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: the CUDA kernels, from ``horovod_tpu_torch/csrc`` (nvcc);
+2. build: the CUDA kernels, from ``horovod_tpu_torch/csrc`` (nvcc), and
+   a resource report of each kernel's bf16 D=64 instantiation: registers
+   and spills (``-Xptxas -v``), static and dynamic shared memory, and
+   resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. kernels: each flash-attention kernel against its plain PyTorch version
    on the card, at the training shape and at edges (D=128, non-causal,
-   H=HK, fp32), with kernel, plain and library times at the training shape;
+   GQA groups 1 and 8, S not a multiple of 128, fp32), dk/dv's bitwise
+   determinism, with kernel, plain and library times at the training shape
+   (the library backward, SDPA's, covers dq and dk/dv together);
 4. model: the ``mini`` Llama loss in bf16 with the kernels as ``attn_fn``
    against the same loss with the plain ``causal_attention``;
 5. train: the ``1b`` Llama at full width and depth, data-parallel through
@@ -29,6 +34,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -42,6 +48,14 @@ REPLACES = {
     "flash_fwd": "horovod_tpu/ops/flash_attention.py:47",
     "flash_bwd_dq": "horovod_tpu/ops/flash_attention.py:113",
     "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:163",
+}
+# kernel name -> (its bf16 D=64 instantiation's mangled-name fragment,
+# whether this kernel was redesigned for Hopper: register accumulators and
+# pipelined loads, held to no spills and two or more blocks per SM)
+INSTANCES = {
+    "flash_fwd": ("fwd_mma_kernelILi64E", True),
+    "flash_bwd_dq": ("dq_kernelI13__nv_bfloat16Li64E", False),
+    "flash_bwd_dkv": ("dkv_mma_kernelILi64E", True),
 }
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 WARMUP_STEPS, TIMED_STEPS = 2, 5
@@ -100,6 +114,55 @@ def bound(kind, shape, causal, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def parse_ptxas(text: str) -> dict:
+    """``{mangled kernel name: {"registers", "spill_bytes"}}`` from the
+    ``ptxas info`` lines of ``nvcc -Xptxas -v``; spill bytes are the spill
+    stores plus the spill loads."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {"registers": None, "spill_bytes": 0}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props in out:
+            out[props]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in out:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def phase_resources(_kernels, lib_path: str) -> None:
+    """Registers, shared memory, spills and blocks per SM of each kernel's
+    bf16 D=64 instantiation; the redesigned kernels must not spill and must
+    fit two or more blocks on an SM."""
+    with open(lib_path + ".log") as f:
+        ptxas = parse_ptxas(f.read())
+    for name, (fragment, redesigned) in INSTANCES.items():
+        found = [v for k, v in ptxas.items() if fragment in k]
+        require(len(found) == 1, f"ptxas output has {len(found)} entries "
+                                 f"for {fragment}")
+        info = found[0]
+        res = _kernels.resources(name, 64, True)
+        print(f"resources [{name} bf16 D=64]: {info['registers']} registers"
+              f", shared memory {res['static_smem']} static + "
+              f"{res['dynamic_smem']} dynamic bytes, spills "
+              f"{info['spill_bytes']} bytes, {res['threads']} threads, "
+              f"{res['blocks_per_sm']} blocks per SM", flush=True)
+        if redesigned:
+            require(info["spill_bytes"] == 0, f"{name} spills registers")
+            require(res["blocks_per_sm"] >= 2,
+                    f"{name} fits {res['blocks_per_sm']} block per SM")
+
+
 def tile_rel_err(got, ref, tile: int = 64) -> float:
     """Worst relative Frobenius error ``|got - ref| / |ref|`` over the
     blocks of ``tile`` sequence positions of one head of one batch entry
@@ -135,7 +198,7 @@ def check_output(name: str, got, ref, dtype) -> tuple:
                            f"tile_rel_err <= {rel_tile}")
 
 
-def phase_kernels(F, torch):
+def phase_kernels(F, torch, card: str):
     """Each kernel against its plain version; returns the kernels' rows at
     the training shape."""
     cases = [  # (label, B, S, H, HK, D, dtype, causal)
@@ -143,6 +206,11 @@ def phase_kernels(F, torch):
         ("D=128", 2, 1024, 16, 4, 128, torch.bfloat16, True),
         ("non-causal", 2, 1024, 32, 8, 64, torch.bfloat16, False),
         ("H=HK", 2, 1024, 8, 8, 64, torch.bfloat16, True),
+        ("GQA group 8", 2, 1024, 32, 4, 64, torch.bfloat16, True),
+        ("S=192", 2, 192, 8, 2, 64, torch.bfloat16, True),
+        ("S=320", 1, 320, 8, 4, 64, torch.bfloat16, True),
+        ("S=192 D=128 non-causal", 1, 192, 4, 2, 128, torch.bfloat16,
+         False),
         ("fp32", 2, 256, 8, 2, 64, torch.float32, True),
         ("fp32 D=128 non-causal", 1, 256, 4, 2, 128, torch.float32, False),
     ]
@@ -183,6 +251,13 @@ def phase_kernels(F, torch):
                             f"[{label}]: {', '.join(failed)}")
         if label != "train":
             continue
+        dk2, dv2 = F.flash_dkv_cuda(q, k, v, do, lse, delta, causal)
+        torch.cuda.synchronize()
+        require(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                "dk/dv differ between two launches on the same inputs")
+        print("kernels [train]: dk/dv bitwise equal across two launches",
+              flush=True)
+        del dk2, dv2
         shape = dict(B=B, S=S, H=H, HK=HK, D=D)
         calls = {
             "flash_fwd": (lambda: F.flash_forward_cuda(q, k, v, causal),
@@ -204,16 +279,34 @@ def phase_kernels(F, torch):
                           "max_abs_err": err, "ms": median_ms(kernel),
                           "plain_ms": median_ms(plain), "bound_ms": b_ms,
                           "bound_by": b_by, "library_ms": None}
-        # yardstick only: one PyTorch call computing the forward
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # yardsticks only: one PyTorch call computing the forward, and the
+        # same call's backward (dq, dk and dv together) on an output made
+        # once, outside the timed region
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         rows["flash_fwd"]["library_ms"] = median_ms(
             lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
+        lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        dkv = rows["flash_bwd_dkv"]
+        dkv["library_ms"] = median_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True))
+        dkv["library_covers"] = "dq+dkv"
+        dkv["kernel_sum_ms"] = rows["flash_bwd_dq"]["ms"] + dkv["ms"]
         for r in rows.values():
-            print(f"kernel {r['name']}: {r['ms']:.4f} ms, plain "
-                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"({r['bound_by']}), library {r['library_ms']}", flush=True)
-        del q, k, v, do, out, lse, delta, dq, dk, dv
+            lib = r["library_ms"]
+            vs = (f"library {lib:.4f} ms, kernel/library {r['ms'] / lib:.3f}"
+                  if lib is not None else "library none")
+            if "library_covers" in r:
+                vs = (f"library dq+dkv {lib:.4f} ms, kernels dq+dkv "
+                      f"{r['kernel_sum_ms']:.4f} ms, kernel/library "
+                      f"{r['kernel_sum_ms'] / lib:.3f}")
+            print(f"kernel {r['name']} [{card}]: kernel_ms {r['ms']:.4f}, "
+                  f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+                  f" ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it), "
+                  + vs, flush=True)
+        del q, k, v, do, out, lse, delta, dq, dk, dv, qt, kt, vt, lib_out
     torch.cuda.empty_cache()
     return rows
 
@@ -312,7 +405,9 @@ def phase_train(torch, np, hvd, llama, F):
             continue
         us = evt.self_device_time_total
         key = evt.key
-        if any(k in key for k in ("fwd_kernel", "dq_kernel", "dkv_kernel")):
+        if any(k in key for k in ("fwd_mma_kernel", "fwd_kernel",
+                                  "dq_kernel", "dkv_mma_kernel",
+                                  "dkv_kernel")):
             kinds["flash attention"] += us
         elif any(k in key.lower() for k in ("nvjet", "gemm", "xmma",
                                             "cutlass")):
@@ -357,13 +452,15 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(f"device: {name}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}; TF32 off for matmul and cuDNN", flush=True)
-    print(smi.splitlines()[0], flush=True)
+    card = smi.splitlines()[0]
+    print(card, flush=True)
 
     t0 = time.perf_counter()
     lib = _kernels.build()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib})", flush=True)
+    phase_resources(_kernels, lib)
 
-    rows = phase_kernels(F, torch)
+    rows = phase_kernels(F, torch, card)
     phase_model(torch, hvd, llama, L)
     launches = phase_train(torch, np, hvd, llama, F)
     for row in rows.values():

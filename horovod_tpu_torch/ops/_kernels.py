@@ -3,7 +3,9 @@
 ``horovod_tpu_torch/csrc/flash_attention.cu`` is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``: no PyTorch headers, so a build takes seconds.  It is
-built at first use, named by a digest of its source and flags, into
+built at first use, named by a digest of its source and flags, with the
+compiler's output (``-Xptxas -v``: registers, shared memory and spills of
+each kernel) kept beside it as ``<library>.log``, into
 
 * ``build/torch_kernels/`` at the root of a source checkout (a directory
   ``.gitignore`` lists), or
@@ -38,7 +40,10 @@ def _build_dir() -> str:
 BUILD_DIR = _build_dir()
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# hvd_kernel_resources' kernel numbers
+KERNEL_IDS = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -78,9 +83,12 @@ def build() -> str:
     tmp = f"{out}.{os.getpid()}.tmp"
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    log = proc.stdout.decode(errors="replace")
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed on flash_attention.cu:\n"
-                           + proc.stdout.decode(errors="replace"))
+        raise RuntimeError("nvcc failed on flash_attention.cu:\n" + log)
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", f"{out}.log")
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     return out
 
@@ -101,6 +109,9 @@ def load() -> ctypes.CDLL:
     lib.hvd_flash_bwd_dkv.argtypes = [ptr] * 8 + [i32] * 7 + [ptr]
     for f in (lib.hvd_flash_fwd, lib.hvd_flash_bwd_dq, lib.hvd_flash_bwd_dkv):
         f.restype = i32  # the launch's cudaError_t
+    # (kernel, D, bf16, int[4] out)
+    lib.hvd_kernel_resources.argtypes = [i32, i32, i32, ptr]
+    lib.hvd_kernel_resources.restype = i32
     lib.hvd_error_string.argtypes = [i32]
     lib.hvd_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -112,3 +123,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.hvd_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def resources(kernel: str, D: int, bf16: bool) -> dict:
+    """One kernel instantiation's launch resources on the current CUDA
+    device, as the runtime reports them: static and dynamic shared memory
+    per block, threads per block and resident blocks per SM."""
+    lib = load()
+    out = (ctypes.c_int * 4)()
+    check(lib, lib.hvd_kernel_resources(KERNEL_IDS[kernel], D, int(bf16),
+                                        ctypes.addressof(out)),
+          f"resources of {kernel}")
+    keys = ("static_smem", "dynamic_smem", "threads", "blocks_per_sm")
+    return dict(zip(keys, out))

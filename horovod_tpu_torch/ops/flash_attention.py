@@ -9,8 +9,9 @@ kernels, then runs the dq pass and the dk/dv pass.
 
 Each of the three passes has two implementations side by side:
 
-* a hand-written CUDA kernel for Hopper (``csrc/flash_attention.cu``),
-  which replaces one Pallas TPU kernel:
+* a hand-written CUDA kernel for Hopper (``csrc/flash_attention.cu``;
+  for bf16 the forward and dk/dv are tensor-core kernels with register
+  accumulators and pipelined loads), which replaces one Pallas TPU kernel:
 
   ====================  ==========================================
   ``flash_forward_cuda``  ``_attn_kernel``     (``_flash_forward``)
@@ -146,8 +147,36 @@ _KERNEL_HEAD_DIMS = (64, 128)
 
 
 def kernel_tile(dtype: torch.dtype) -> int:
-    """Rows of the kernels' q and kv tiles: S must be a multiple."""
+    """The kernels' sequence granule: S must be a multiple.  (The bf16
+    forward and dk/dv kernels tile by 128 rows and mask a last tile of 64.)"""
     return 64 if dtype == torch.bfloat16 else 32
+
+
+def kernel_shapes(q_shape, k_shape, v_shape,
+                  dtype: torch.dtype) -> Tuple[int, int, int, int, int]:
+    """The shapes the three kernels take, as a pure function of the shapes
+    and the dtype: ``(B, S, H, HK, D)``, or ValueError."""
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"flash attention kernel takes bf16 or fp32, "
+                         f"not {dtype}")
+    if len(q_shape) != 4 or len(k_shape) != 4 or tuple(k_shape) != tuple(
+            v_shape):
+        raise ValueError("flash attention kernel: q must be [B,S,H,D] and "
+                         "k, v [B,S,HK,D]")
+    B, S, H, D = q_shape
+    HK = k_shape[2]
+    if k_shape[0] != B or k_shape[1] != S or k_shape[3] != D:
+        raise ValueError(f"flash attention kernel: k/v shape {tuple(k_shape)}"
+                         f" does not match q {tuple(q_shape)}")
+    _check_gqa(H, HK)
+    if D not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash attention kernel: head dim {D} not in "
+                         f"{_KERNEL_HEAD_DIMS}")
+    tile = kernel_tile(dtype)
+    if S % tile:
+        raise ValueError(f"flash attention kernel: seq len {S} is not a "
+                         f"multiple of its {tile}-row tile")
+    return B, S, H, HK, D
 
 
 def _check_kernel_inputs(q: Tensor, k: Tensor, v: Tensor,
@@ -160,31 +189,15 @@ def _check_kernel_inputs(q: Tensor, k: Tensor, v: Tensor,
         if not t.is_contiguous():
             raise ValueError(f"flash attention kernel: {name} is not "
                              "contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash attention kernel: {name} is not 16-byte "
+                             "aligned")
         if t.device != q.device:
             raise ValueError("flash attention kernel: inputs on different "
                              "devices")
-    if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"flash attention kernel takes bf16 or fp32, "
-                         f"not {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash attention kernel: q, k, v dtypes differ")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError("flash attention kernel: q must be [B,S,H,D] and "
-                         "k, v [B,S,HK,D]")
-    B, S, H, D = q.shape
-    HK = k.shape[2]
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D:
-        raise ValueError(f"flash attention kernel: k/v shape {tuple(k.shape)}"
-                         f" does not match q {tuple(q.shape)}")
-    _check_gqa(H, HK)
-    if D not in _KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash attention kernel: head dim {D} not in "
-                         f"{_KERNEL_HEAD_DIMS}")
-    tile = kernel_tile(q.dtype)
-    if S % tile:
-        raise ValueError(f"flash attention kernel: seq len {S} is not a "
-                         f"multiple of its {tile}-row tile")
-    return B, S, H, HK, D
+    return kernel_shapes(q.shape, k.shape, v.shape, q.dtype)
 
 
 def _check_rows(B: int, H: int, S: int, *rows: Tensor) -> None:

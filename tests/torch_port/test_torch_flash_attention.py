@@ -5,6 +5,9 @@ the errors, and the dispatch rule (CPU tensors take the plain versions; any
 other tensor takes the kernel or raises).  Tolerances are those of
 tests/test_flash_attention.py."""
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -165,16 +168,20 @@ def test_kernel_build_dir_checkout_or_user_cache(monkeypatch, tmp_path):
     assert _kernels._build_dir() == str(tmp_path / "cache" / "horovod_tpu_torch")
 
 
-def test_chip_check_rejects_a_dropped_tile():
-    """chip_smoke.py's comparison of a kernel with its plain version fails
-    a dk/dv that misses every k tile past S/2: on a causal sequence those
-    rows are small against max|ref|, so only the per-tile error sees them."""
-    import importlib.util
-    import os
+def _chip_smoke():
+    """chip_smoke.py, the repository's card check, as a module."""
     path = os.path.join(os.path.dirname(__file__), "..", "..", "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def test_chip_check_rejects_a_dropped_tile():
+    """chip_smoke.py's comparison of a kernel with its plain version fails
+    a dk/dv that misses every k tile past S/2: on a causal sequence those
+    rows are small against max|ref|, so only the per-tile error sees them."""
+    cs = _chip_smoke()
     q, k, v = _torch(*_qkv(B=1, S=512, H=4, HK=2, D=64), dtype=torch.bfloat16)
     do = torch.tensor(np.random.RandomState(1).randn(1, 512, 4, 64),
                       dtype=torch.bfloat16)
@@ -187,3 +194,72 @@ def test_chip_check_rejects_a_dropped_tile():
         bad[:, 256:] = 0
         err, tile, ok, _ = cs.check_output(name, bad, good, torch.bfloat16)
         assert not ok and tile == pytest.approx(1.0)
+
+
+# Every shape the first kernels' wrapper accepted: bf16 with S a multiple of
+# 64, fp32 with S a multiple of 32, D in {64, 128}, H a multiple of HK.
+@pytest.mark.parametrize("dtype,B,S,H,HK,D", [
+    (torch.bfloat16, 4, 2048, 32, 8, 64),
+    (torch.bfloat16, 1, 64, 2, 1, 64),
+    (torch.bfloat16, 2, 192, 8, 2, 64),
+    (torch.bfloat16, 1, 320, 8, 4, 128),
+    (torch.bfloat16, 2, 1024, 8, 8, 128),
+    (torch.bfloat16, 2, 1024, 32, 4, 64),
+    (torch.float32, 2, 256, 8, 2, 64),
+    (torch.float32, 1, 32, 4, 2, 128),
+    (torch.float32, 1, 96, 2, 2, 64),
+])
+def test_kernel_shapes_accepts_every_supported_shape(dtype, B, S, H, HK, D):
+    assert TF.kernel_shapes((B, S, H, D), (B, S, HK, D), (B, S, HK, D),
+                            dtype) == (B, S, H, HK, D)
+
+
+@pytest.mark.parametrize("dtype,q,kv,match", [
+    (torch.bfloat16, (1, 96, 2, 64), (1, 96, 2, 64), "multiple of its 64"),
+    (torch.float32, (1, 48, 2, 64), (1, 48, 2, 64), "multiple of its 32"),
+    (torch.bfloat16, (1, 64, 2, 32), (1, 64, 2, 32), "head dim"),
+    (torch.bfloat16, (1, 64, 6, 64), (1, 64, 4, 64), "multiple of kv heads"),
+    (torch.float16, (1, 64, 2, 64), (1, 64, 2, 64), "bf16 or fp32"),
+    (torch.bfloat16, (1, 64, 2, 64), (1, 128, 2, 64), "does not match"),
+    (torch.bfloat16, (64, 2, 64), (1, 64, 2, 64), r"\[B,S,H,D\]"),
+])
+def test_kernel_shapes_refuses(dtype, q, kv, match):
+    with pytest.raises(ValueError, match=match):
+        TF.kernel_shapes(q, kv, kv, dtype)
+
+
+def test_kernel_wrapper_checks_device_before_shapes(monkeypatch):
+    """A CPU tensor never reaches the shape rules: the device check comes
+    first, whatever the shape."""
+    monkeypatch.setattr(_kernels, "load", lambda: None)
+    tq, tk, tv = _torch(*_qkv(S=96, D=64))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        TF.flash_dkv_cuda(tq, tk, tv, tq, None, None)
+
+
+PTXAS_SAMPLE = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114fwd_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114fwd_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 124 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_19dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_iiiif
+    24 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 2048 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compile time = 12.345 ms
+"""
+
+
+def test_parse_ptxas_reads_registers_and_spills():
+    cs = _chip_smoke()
+    info = cs.parse_ptxas(PTXAS_SAMPLE)
+    assert len(info) == 2
+    fwd = next(v for k, v in info.items() if "fwd_mma_kernelILi64E" in k)
+    dq = next(v for k, v in info.items()
+              if "dq_kernelI13__nv_bfloat16Li64E" in k)
+    assert fwd == {"registers": 124, "spill_bytes": 0}
+    assert dq == {"registers": 255, "spill_bytes": 28}
+    # every instantiation chip_smoke reports is named by one fragment
+    for fragment, _ in cs.INSTANCES.values():
+        assert sum(fragment in k for k in info) <= 1

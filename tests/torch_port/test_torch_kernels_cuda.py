@@ -22,14 +22,27 @@ def tile_rel_err(got, ref, tile=64):
     return (d.norm(dim=(2, 4)) / r.norm(dim=(2, 4)).clamp_min(1e-30)).max()
 
 
+def _inputs(dtype, B, S, H, HK, D):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+    return mk(B, S, H, D), mk(B, S, HK, D), mk(B, S, HK, D), mk(B, S, H, D)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,causal,H,HK", [
-    (torch.bfloat16, 64, True, 8, 2),
-    (torch.bfloat16, 128, False, 4, 4),
-    (torch.float32, 64, False, 4, 2),
-    (torch.float32, 128, True, 2, 1),
+@pytest.mark.parametrize("dtype,D,causal,H,HK,S", [
+    (torch.bfloat16, 64, True, 8, 2, 512),
+    (torch.bfloat16, 128, False, 4, 4, 512),
+    (torch.float32, 64, False, 4, 2, 512),
+    (torch.float32, 128, True, 2, 1, 512),
+    # S a multiple of 64 but not of the bf16 kernels' 128-row tiles
+    (torch.bfloat16, 64, True, 8, 2, 192),
+    (torch.bfloat16, 64, True, 8, 4, 320),
+    # GQA groups of 1 and 8
+    (torch.bfloat16, 64, True, 4, 4, 512),
+    (torch.bfloat16, 64, True, 16, 2, 512),
+    (torch.bfloat16, 128, True, 8, 2, 1024),
 ])
-def test_kernels_match_plain_on_card(dtype, D, causal, H, HK):
+def test_kernels_match_plain_on_card(dtype, D, causal, H, HK, S):
     """Each kernel against its plain version on the same tensors (which
     rounds p and ds to bf16 as the kernels do): the max error within 1e-2
     (bf16) or 1e-5 (fp32) of the reference's largest magnitude, and the
@@ -37,10 +50,7 @@ def test_kernels_match_plain_on_card(dtype, D, causal, H, HK):
     limit; lse to atol 1e-3 (bf16) or 1e-4 (fp32)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
-    q, k, v, do = mk(2, 512, H, D), mk(2, 512, HK, D), mk(2, 512, HK, D), \
-        mk(2, 512, H, D)
+    q, k, v, do = _inputs(dtype, 2, S, H, HK, D)
     before = dict(F.LAUNCHES)
     out, lse = F.flash_forward_cuda(q, k, v, causal)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -60,6 +70,21 @@ def test_kernels_match_plain_on_card(dtype, D, causal, H, HK):
         err = (got.float() - ref.float()).abs().max().item()
         assert err <= limit * ref.float().abs().max().item(), (name, err)
         assert tile_rel_err(got, ref).item() <= limit, name
+
+
+@pytest.mark.cuda
+def test_dkv_kernel_is_deterministic():
+    """dk/dv has one writer per tile and no atomics: two launches on the
+    same inputs give bitwise-equal results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do = _inputs(torch.bfloat16, 2, 1024, 16, 4, 64)
+    out, lse = F.flash_forward_cuda(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    first = F.flash_dkv_cuda(q, k, v, do, lse, delta, True)
+    second = F.flash_dkv_cuda(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
