@@ -12,9 +12,10 @@ Phases, in order; any failure exits non-zero before the result line:
    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. kernels: each flash-attention kernel against its plain PyTorch version
    on the card, at the training shape and at edges (D=128, non-causal,
-   GQA groups 1 and 8, S not a multiple of 128, fp32), dk/dv's bitwise
-   determinism, with kernel, plain and library times at the training shape
-   (the library backward, SDPA's, covers dq and dk/dv together);
+   GQA groups 1 and 8, S not a multiple of 128, fp32), dq's and dk/dv's
+   bitwise determinism, with kernel, plain and library times at the
+   training shape (the library backward, SDPA's, covers dq and dk/dv
+   together);
 4. model: the ``mini`` Llama loss in bf16 with the kernels as ``attn_fn``
    against the same loss with the plain ``causal_attention``;
 5. train: the ``1b`` Llama at full width and depth, data-parallel through
@@ -49,14 +50,15 @@ REPLACES = {
     "flash_bwd_dq": "horovod_tpu/ops/flash_attention.py:113",
     "flash_bwd_dkv": "horovod_tpu/ops/flash_attention.py:163",
 }
-# kernel name -> (its bf16 D=64 instantiation's mangled-name fragment,
-# whether this kernel was redesigned for Hopper: register accumulators and
-# pipelined loads, held to no spills and two or more blocks per SM)
+# kernel name -> its bf16 D=64 instantiation's mangled-name fragment
 INSTANCES = {
-    "flash_fwd": ("fwd_mma_kernelILi64E", True),
-    "flash_bwd_dq": ("dq_kernelI13__nv_bfloat16Li64E", False),
-    "flash_bwd_dkv": ("dkv_mma_kernelILi64E", True),
+    "flash_fwd": "fwd_mma_kernelILi64E",
+    "flash_bwd_dq": "dq_mma_kernelILi64E",
+    "flash_bwd_dkv": "dkv_mma_kernelILi64E",
 }
+# the CUDA kernels of flash_attention.cu, bf16 and fp32, by function name
+ATTENTION_KERNELS = ("fwd_mma_kernel", "fwd_kernel", "dq_mma_kernel",
+                     "dq_kernel", "dkv_mma_kernel", "dkv_kernel")
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 
@@ -142,11 +144,12 @@ def parse_ptxas(text: str) -> dict:
 
 def phase_resources(_kernels, lib_path: str) -> None:
     """Registers, shared memory, spills and blocks per SM of each kernel's
-    bf16 D=64 instantiation; the redesigned kernels must not spill and must
-    fit two or more blocks on an SM."""
+    bf16 D=64 instantiation.  Each is designed for Hopper (register
+    accumulators, pipelined loads), so it must not spill and must fit two
+    or more blocks on an SM."""
     with open(lib_path + ".log") as f:
         ptxas = parse_ptxas(f.read())
-    for name, (fragment, redesigned) in INSTANCES.items():
+    for name, fragment in INSTANCES.items():
         found = [v for k, v in ptxas.items() if fragment in k]
         require(len(found) == 1, f"ptxas output has {len(found)} entries "
                                  f"for {fragment}")
@@ -157,10 +160,19 @@ def phase_resources(_kernels, lib_path: str) -> None:
               f"{res['dynamic_smem']} dynamic bytes, spills "
               f"{info['spill_bytes']} bytes, {res['threads']} threads, "
               f"{res['blocks_per_sm']} blocks per SM", flush=True)
-        if redesigned:
-            require(info["spill_bytes"] == 0, f"{name} spills registers")
-            require(res["blocks_per_sm"] >= 2,
-                    f"{name} fits {res['blocks_per_sm']} block per SM")
+        require(info["spill_bytes"] == 0, f"{name} spills registers")
+        require(res["blocks_per_sm"] >= 2,
+                f"{name} fits {res['blocks_per_sm']} block per SM")
+
+
+def kernel_kind(key: str) -> str:
+    """The kind a profiled CUDA kernel's name books its time under."""
+    if any(k in key for k in ATTENTION_KERNELS):
+        return "flash attention"
+    low = key.lower()
+    if any(k in low for k in ("nvjet", "gemm", "xmma", "cutlass")):
+        return "matrix products"
+    return "nccl" if "nccl" in low else "other"
 
 
 def tile_rel_err(got, ref, tile: int = 64) -> float:
@@ -251,13 +263,16 @@ def phase_kernels(F, torch, card: str):
                             f"[{label}]: {', '.join(failed)}")
         if label != "train":
             continue
+        dq2 = F.flash_dq_cuda(q, k, v, do, lse, delta, causal)
         dk2, dv2 = F.flash_dkv_cuda(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
+        require(torch.equal(dq, dq2),
+                "dq differs between two launches on the same inputs")
         require(torch.equal(dk, dk2) and torch.equal(dv, dv2),
                 "dk/dv differ between two launches on the same inputs")
-        print("kernels [train]: dk/dv bitwise equal across two launches",
-              flush=True)
-        del dk2, dv2
+        print("kernels [train]: dq and dk/dv bitwise equal across two "
+              "launches", flush=True)
+        del dq2, dk2, dv2
         shape = dict(B=B, S=S, H=H, HK=HK, D=D)
         calls = {
             "flash_fwd": (lambda: F.flash_forward_cuda(q, k, v, causal),
@@ -396,7 +411,7 @@ def phase_train(torch, np, hvd, llama, F):
     from torch.autograd import DeviceType
     kinds = {"flash attention": 0.0, "matrix products": 0.0, "nccl": 0.0,
              "other": 0.0}
-    top = []
+    top, attention = [], []
     for evt in prof.key_averages():
         # CUDA kernels only: record_function ranges (the optimizer's step)
         # also show on the device timeline, as user annotations
@@ -404,19 +419,12 @@ def phase_train(torch, np, hvd, llama, F):
                 or getattr(evt, "is_user_annotation", False)):
             continue
         us = evt.self_device_time_total
-        key = evt.key
-        if any(k in key for k in ("fwd_mma_kernel", "fwd_kernel",
-                                  "dq_kernel", "dkv_mma_kernel",
-                                  "dkv_kernel")):
-            kinds["flash attention"] += us
-        elif any(k in key.lower() for k in ("nvjet", "gemm", "xmma",
-                                            "cutlass")):
-            kinds["matrix products"] += us
-        elif "nccl" in key.lower():
-            kinds["nccl"] += us
-        else:
-            kinds["other"] += us
-        top.append((us, evt.count, key))
+        kind = kernel_kind(evt.key)
+        kinds[kind] += us
+        top.append((us, evt.count, evt.key))
+        if kind == "flash attention":
+            fn = next(k for k in ATTENTION_KERNELS if k in evt.key)
+            attention.append(f"{fn} {us / 1e3:.2f} ms x{evt.count}")
     busy = sum(kinds.values())
     step_ms = dt / TIMED_STEPS * 1e3
     require(busy > 0, "the profiled step shows no device time")
@@ -425,6 +433,8 @@ def phase_train(torch, np, hvd, llama, F):
           f"{max(0.0, 1 - busy / 1e3 / step_ms):.3f}); by kind: "
           + ", ".join(f"{k} {v / 1e3:.1f} ms ({100 * v / busy:.1f}%)"
                       for k, v in kinds.items()), flush=True)
+    print("train [1b] profiled step, flash attention by kernel: "
+          + ", ".join(sorted(attention)), flush=True)
     for us, count, key in sorted(top, reverse=True)[:10]:
         print(f"  {us / 1e3:8.2f} ms x{count:<4} {key[:90]}", flush=True)
     hvd.shutdown()

@@ -3,7 +3,7 @@
 // Replaces the three Pallas TPU kernels of horovod_tpu/ops/flash_attention.py:
 //
 //   fwd_mma_kernel (bf16), fwd_kernel (fp32)  <- _attn_kernel
-//   dq_kernel                                 <- _bwd_dq_kernel
+//   dq_mma_kernel (bf16), dq_kernel (fp32)    <- _bwd_dq_kernel
 //   dkv_mma_kernel (bf16), dkv_kernel (fp32)  <- _bwd_dkv_kernel
 //
 // Layout.  q, o, dO and dq are the model's [B, S, H, D]; k, v, dk and dv are
@@ -18,7 +18,7 @@
 // per byte, far above the H100's ~295 bf16 flops/byte ridge.  All three are
 // bound by tensor-core throughput (989 TFLOP/s dense bf16).
 //
-// The bf16 forward and dk/dv kernels (FlashAttention-2 style):
+// The bf16 kernels (FlashAttention-2 style):
 //   * eight warps per block; every warp owns 16 rows of its output tile and
 //     runs mma.sync.m16n8k16 (bf16 in, fp32 accumulate) with operands from
 //     ldmatrix;
@@ -26,21 +26,24 @@
 //     live in registers; a score tile's C fragments become, rounded to
 //     bf16, the A fragments of the next product, so p and ds never touch
 //     shared memory;
-//   * the streamed operand (K/V tiles in the forward; Q, dO, lse and delta
-//     in dk/dv) arrives through a ring of cp.async stages, so the next tile
-//     loads while this one computes; one __syncthreads per tile;
+//   * the streamed operand (K/V tiles in the forward and dq; Q, dO, lse and
+//     delta in dk/dv) arrives through a ring of cp.async stages, so the next
+//     tile loads while this one computes; one __syncthreads per tile;
 //   * shared rows are padded by 16 bytes, which keeps ldmatrix free of bank
 //     conflicts;
-//   * the forward's block is 128 q rows against 64-key tiles; dk/dv's block
-//     is 128 keys, which walks the group's q-heads in 32-row q steps and
-//     computes the transposed scores (K Q^T) so that P^T and dS^T are A
-//     fragments of dV += P^T dO and dK += dS^T Q.  One block writes each
-//     dk/dv tile once, summing the GQA group in fp32 registers: no atomics,
-//     bitwise deterministic.
-// The fp32 forward and dk/dv and the dq kernel are the first, simple
-// versions: every intermediate in shared memory, loads not pipelined, WMMA
-// 16x16x16 tiles for bf16 (dq) and exact scalar FMAs for fp32 (tensor cores
-// would round fp32 inputs to TF32).
+//   * the forward's and dq's block is 128 q rows against 64-key tiles; dq
+//     keeps its warp's Q and dO fragments, lse and delta in registers for
+//     the whole kernel and walks each K/V tile in 16-key slices, so that
+//     only 16 keys of S and dP are live; K is the B operand of both
+//     S = Q K^T (ldmatrix) and dQ += dS K (ldmatrix.trans);
+//   * dk/dv's block is 128 keys, which walks the group's q-heads in 32-row
+//     q steps and computes the transposed scores (K Q^T) so that P^T and
+//     dS^T are A fragments of dV += P^T dO and dK += dS^T Q;
+//   * one block writes each dq and each dk/dv tile once (dk/dv summing the
+//     GQA group in fp32 registers): no atomics, bitwise deterministic.
+// The fp32 kernels are the first, simple versions: every intermediate in
+// shared memory, loads not pipelined, exact scalar FMAs (tensor cores would
+// round fp32 inputs to TF32).
 //
 // All follow the Pallas kernels' causal cases (tiles below the diagonal
 // unmasked, tiles on it masked with NEG_INF = -1e30, tiles above it skipped;
@@ -53,7 +56,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
@@ -61,7 +63,6 @@
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int NT = 128;  // threads per block of the simple kernels: four warps
@@ -71,17 +72,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int PAD = 8;  // row padding (elements) of every shared tile
 
-// Rows of a q tile (M) and of a kv tile (N) of the simple kernels.  fp32
-// tiles are smaller so the fp32 buffers fit in shared memory at D = 128.
-template <typename T> struct Tile;
-template <> struct Tile<bf16> { static constexpr int M = 64, N = 64; };
-template <> struct Tile<float> { static constexpr int M = 32, N = 32; };
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
-}
+// Rows of a q tile (M) and of a kv tile (N) of the simple fp32 kernels,
+// small enough that their fp32 buffers fit in shared memory at D = 128.
+struct F32Tile { static constexpr int M = 32, N = 32; };
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -106,62 +99,34 @@ struct Carve {
   }
 };
 
-// C[M x N] (fp32, row pitch ldc) = or += A[M x K] * B[K x N], all in shared
-// memory.  A_T: A is stored transposed (A[i][k] at a[k*lda + i]); B_T: B is
-// stored transposed (B[k][j] at b[j*ldb + k]).
-template <typename T, int M, int N, int K, bool A_T, bool B_T>
-__device__ void gemm(float* C, int ldc, const T* A, int lda, const T* B, int ldb,
+// C[M x N] (row pitch ldc) = or += A[M x K] * B[K x N], fp32, all in shared
+// memory, with exact scalar FMAs.  A_T: A is stored transposed (A[i][k] at
+// a[k*lda + i]); B_T: B is stored transposed (B[k][j] at b[j*ldb + k]).
+template <int M, int N, int K, bool A_T, bool B_T>
+__device__ void gemm(float* C, int ldc, const float* A, int lda, const float* B, int ldb,
                      bool accumulate) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using ALay = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-    using BLay = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-    constexpr int TM = M / 16, TN = N / 16;
-    const int warp = threadIdx.x / 32;
-    for (int t = warp; t < TM * TN; t += NWARPS) {
-      const int tm = t / TN, tn = t % TN;
-      float* cp = C + tm * 16 * ldc + tn * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      if (accumulate)
-        wmma::load_matrix_sync(c, cp, ldc, wmma::mem_row_major);
-      else
-        wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < K; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALay> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLay> b;
-        const T* ap = A_T ? A + kk * lda + tm * 16 : A + tm * 16 * lda + kk;
-        const T* bp = B_T ? B + tn * 16 * ldb + kk : B + kk * ldb + tn * 16;
-        wmma::load_matrix_sync(a, ap, lda);
-        wmma::load_matrix_sync(b, bp, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(cp, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < M * N; idx += NT) {
-      const int i = idx / N, j = idx % N;
-      float s = accumulate ? C[i * ldc + j] : 0.0f;
+  for (int idx = threadIdx.x; idx < M * N; idx += NT) {
+    const int i = idx / N, j = idx % N;
+    float s = accumulate ? C[i * ldc + j] : 0.0f;
 #pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float a = A_T ? A[k * lda + i] : A[i * lda + k];
-        const float b = B_T ? B[j * ldb + k] : B[k * ldb + j];
-        s = fmaf(a, b, s);
-      }
-      C[i * ldc + j] = s;
+    for (int k = 0; k < K; ++k) {
+      const float a = A_T ? A[k * lda + i] : A[i * lda + k];
+      const float b = B_T ? B[j * ldb + k] : B[k * ldb + j];
+      s = fmaf(a, b, s);
     }
+    C[i * ldc + j] = s;
   }
 }
 
-// ROWS x W tile from global memory (row stride `stride` elements) into
+// ROWS x W fp32 tile from global memory (row stride `stride` elements) into
 // shared memory (row pitch W + PAD), 16 bytes per thread per step.
-template <typename T, int ROWS, int W>
-__device__ void load_tile(T* dst, const T* __restrict__ src, long stride) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int PER = W / V;
+template <int ROWS, int W>
+__device__ void load_tile(float* dst, const float* __restrict__ src, long stride) {
+  constexpr int PER = W / 4;
   for (int i = threadIdx.x; i < ROWS * PER; i += NT) {
-    const int r = i / PER, c = (i - r * PER) * V;
-    *reinterpret_cast<uint4*>(dst + r * (W + PAD) + c) =
-        __ldg(reinterpret_cast<const uint4*>(src + (long)r * stride + c));
+    const int r = i / PER, c = (i - r * PER) * 4;
+    *reinterpret_cast<float4*>(dst + r * (W + PAD) + c) =
+        __ldg(reinterpret_cast<const float4*>(src + (long)r * stride + c));
   }
 }
 
@@ -170,12 +135,12 @@ __device__ void zero_tile(float* dst) {
   for (int i = threadIdx.x; i < ROWS * (W + PAD); i += NT) dst[i] = 0.0f;
 }
 
-// fp32 shared tile times `mul`, rounded to T, into global memory.
-template <typename T, int ROWS, int W>
-__device__ void store_tile(T* __restrict__ dst, long stride, const float* src, float mul) {
+// Shared tile times `mul` into global memory.
+template <int ROWS, int W>
+__device__ void store_tile(float* __restrict__ dst, long stride, const float* src, float mul) {
   for (int i = threadIdx.x; i < ROWS * W; i += NT) {
     const int r = i / W, c = i % W;
-    dst[(long)r * stride + c] = from_f<T>(src[r * (W + PAD) + c] * mul);
+    dst[(long)r * stride + c] = src[r * (W + PAD) + c] * mul;
   }
 }
 
@@ -183,7 +148,7 @@ __device__ void store_tile(T* __restrict__ dst, long stride, const float* src, f
 template <int D>
 constexpr size_t fwd_smem() {
   using T = float;
-  constexpr int BM = Tile<T>::M, BN = Tile<T>::N;
+  constexpr int BM = F32Tile::M, BN = F32Tile::N;
   return buf<T>(BM, D) + 2 * buf<T>(BN, D) + buf<float>(BM, BN) + buf<T>(BM, BN) +
          buf<float>(BM, D) + 2 * rnd(sizeof(float) * BM);
 }
@@ -194,7 +159,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
            int S, int H, int HK, int causal, float scale) {
   using T = float;
-  constexpr int BM = Tile<T>::M, BN = Tile<T>::N;
+  constexpr int BM = F32Tile::M, BN = F32Tile::N;
   constexpr int PD = D + PAD, PN = BN + PAD;
   extern __shared__ __align__(128) char smem[];
   Carve cv{smem};
@@ -215,7 +180,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const T* kb = k + (long)b * S * ks + (long)hk * D;
   const T* vb = v + (long)b * S * ks + (long)hk * D;
 
-  load_tile<T, BM, D>(sQ, q + ((long)b * S + q0) * qs + (long)h * D, qs);
+  load_tile<BM, D>(sQ, q + ((long)b * S + q0) * qs + (long)h * D, qs);
   zero_tile<BM, D>(sO);
   for (int r = threadIdx.x; r < BM; r += NT) {
     sM[r] = NEG_INF;
@@ -228,10 +193,10 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * BN;
     __syncthreads();  // the previous tile's readers of sK, sV, sP are done
-    load_tile<T, BN, D>(sK, kb + (long)k0 * ks, ks);
-    load_tile<T, BN, D>(sV, vb + (long)k0 * ks, ks);
+    load_tile<BN, D>(sK, kb + (long)k0 * ks, ks);
+    load_tile<BN, D>(sV, vb + (long)k0 * ks, ks);
     __syncthreads();
-    gemm<T, BM, BN, D, false, true>(sS, PN, sQ, PD, sK, PD, false);  // S = Q K^T
+    gemm<BM, BN, D, false, true>(sS, PN, sQ, PD, sK, PD, false);  // S = Q K^T
     __syncthreads();
     const bool masked = j >= n_full;
     for (int r = warp; r < BM; r += NWARPS) {  // one warp per row
@@ -263,7 +228,7 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
     __syncthreads();
-    gemm<T, BM, D, BN, false, false>(sO, PD, sP, PN, sV, PD, true);  // O += P V
+    gemm<BM, D, BN, false, false>(sO, PD, sP, PN, sV, PD, true);  // O += P V
   }
   __syncthreads();
   T* ob = o + ((long)b * S + q0) * qs + (long)h * D;
@@ -275,21 +240,23 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lse[((long)b * H + h) * S + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
 }
 
-// ----------------------------------------------------------------------- dq
-template <typename T, int D>
+// ------------------------------------------------------ fp32 dq (simple)
+template <int D>
 constexpr size_t dq_smem() {
-  constexpr int BM = Tile<T>::M, BN = Tile<T>::N;
+  using T = float;
+  constexpr int BM = F32Tile::M, BN = F32Tile::N;
   return 2 * buf<T>(BM, D) + 2 * buf<T>(BN, D) + 2 * buf<float>(BM, BN) + buf<T>(BM, BN) +
          buf<float>(BM, D) + 2 * rnd(sizeof(float) * BM);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, int S, int H, int HK,
-          int causal, float scale) {
-  constexpr int BM = Tile<T>::M, BN = Tile<T>::N;
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          float* __restrict__ dq, int S, int H, int HK, int causal, float scale) {
+  using T = float;
+  constexpr int BM = F32Tile::M, BN = F32Tile::N;
   constexpr int PD = D + PAD, PN = BN + PAD;
   extern __shared__ __align__(128) char smem[];
   Carve cv{smem};
@@ -314,8 +281,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const T* kb = k + (long)b * S * ks + (long)hk * D;
   const T* vb = v + (long)b * S * ks + (long)hk * D;
 
-  load_tile<T, BM, D>(sQ, q + qoff, qs);
-  load_tile<T, BM, D>(sdO, dout + qoff, qs);
+  load_tile<BM, D>(sQ, q + qoff, qs);
+  load_tile<BM, D>(sdO, dout + qoff, qs);
   zero_tile<BM, D>(sdQ);
   for (int r = threadIdx.x; r < BM; r += NT) {
     sLse[r] = lse[roff + r];
@@ -327,11 +294,11 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * BN;
     __syncthreads();
-    load_tile<T, BN, D>(sK, kb + (long)k0 * ks, ks);
-    load_tile<T, BN, D>(sV, vb + (long)k0 * ks, ks);
+    load_tile<BN, D>(sK, kb + (long)k0 * ks, ks);
+    load_tile<BN, D>(sV, vb + (long)k0 * ks, ks);
     __syncthreads();
-    gemm<T, BM, BN, D, false, true>(sS, PN, sQ, PD, sK, PD, false);    // S = Q K^T
-    gemm<T, BM, BN, D, false, true>(sdP, PN, sdO, PD, sV, PD, false);  // dP = dO V^T
+    gemm<BM, BN, D, false, true>(sS, PN, sQ, PD, sK, PD, false);    // S = Q K^T
+    gemm<BM, BN, D, false, true>(sdP, PN, sdO, PD, sV, PD, false);  // dP = dO V^T
     __syncthreads();
     const bool masked = j >= n_full;
     for (int i = threadIdx.x; i < BM * BN; i += NT) {
@@ -339,20 +306,20 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       float s = sS[r * PN + c] * scale;
       if (masked && q0 + r < k0 + c) s = NEG_INF;
       const float p = expf(s - sLse[r]);
-      sdS[r * PN + c] = from_f<T>(p * (sdP[r * PN + c] - sDelta[r]));
+      sdS[r * PN + c] = p * (sdP[r * PN + c] - sDelta[r]);
     }
     __syncthreads();
-    gemm<T, BM, D, BN, false, false>(sdQ, PD, sdS, PN, sK, PD, true);  // dQ += dS K
+    gemm<BM, D, BN, false, false>(sdQ, PD, sdS, PN, sK, PD, true);  // dQ += dS K
   }
   __syncthreads();
-  store_tile<T, BM, D>(dq + qoff, qs, sdQ, scale);
+  store_tile<BM, D>(dq + qoff, qs, sdQ, scale);
 }
 
 // ---------------------------------------------------- fp32 dk/dv (simple)
 template <int D>
 constexpr size_t dkv_smem() {
   using T = float;
-  constexpr int BM = Tile<T>::M, BN = Tile<T>::N;
+  constexpr int BM = F32Tile::M, BN = F32Tile::N;
   return 2 * buf<T>(BN, D) + 2 * buf<T>(BM, D) + 2 * buf<float>(BM, BN) +
          2 * buf<T>(BM, BN) + 2 * buf<float>(BN, D) + 2 * rnd(sizeof(float) * BM);
 }
@@ -365,7 +332,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            float* __restrict__ dk, float* __restrict__ dv, int S, int H, int HK, int causal,
            float scale) {
   using T = float;
-  constexpr int BM = Tile<T>::M, BN = Tile<T>::N;
+  constexpr int BM = F32Tile::M, BN = F32Tile::N;
   constexpr int PD = D + PAD, PN = BN + PAD;
   extern __shared__ __align__(128) char smem[];
   Carve cv{smem};
@@ -389,8 +356,8 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long qs = (long)H * D, ks = (long)HK * D;
   const long koff = ((long)b * S + k0) * ks + (long)hk * D;
 
-  load_tile<T, BN, D>(sK, k + koff, ks);
-  load_tile<T, BN, D>(sV, v + koff, ks);
+  load_tile<BN, D>(sK, k + koff, ks);
+  load_tile<BN, D>(sV, v + koff, ks);
   zero_tile<BN, D>(sdK);
   zero_tile<BN, D>(sdV);
 
@@ -402,15 +369,15 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const long qoff = ((long)b * S + q0) * qs + (long)h * D;
       const long roff = ((long)b * H + h) * S + q0;
       __syncthreads();
-      load_tile<T, BM, D>(sQ, q + qoff, qs);
-      load_tile<T, BM, D>(sdO, dout + qoff, qs);
+      load_tile<BM, D>(sQ, q + qoff, qs);
+      load_tile<BM, D>(sdO, dout + qoff, qs);
       for (int r = threadIdx.x; r < BM; r += NT) {
         sLse[r] = lse[roff + r];
         sDelta[r] = delta[roff + r];
       }
       __syncthreads();
-      gemm<T, BM, BN, D, false, true>(sS, PN, sQ, PD, sK, PD, false);    // S = Q K^T
-      gemm<T, BM, BN, D, false, true>(sdP, PN, sdO, PD, sV, PD, false);  // dP = dO V^T
+      gemm<BM, BN, D, false, true>(sS, PN, sQ, PD, sK, PD, false);    // S = Q K^T
+      gemm<BM, BN, D, false, true>(sdP, PN, sdO, PD, sV, PD, false);  // dP = dO V^T
       __syncthreads();
       const bool masked = causal && q0 < k0 + BN;  // tile crosses the diagonal
       for (int i = threadIdx.x; i < BM * BN; i += NT) {
@@ -422,13 +389,13 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         sdS[r * PN + c] = p * (sdP[r * PN + c] - sDelta[r]);
       }
       __syncthreads();
-      gemm<T, BN, D, BM, true, false>(sdV, PD, sP, PN, sdO, PD, true);  // dV += P^T dO
-      gemm<T, BN, D, BM, true, false>(sdK, PD, sdS, PN, sQ, PD, true);  // dK += dS^T Q
+      gemm<BN, D, BM, true, false>(sdV, PD, sP, PN, sdO, PD, true);  // dV += P^T dO
+      gemm<BN, D, BM, true, false>(sdK, PD, sdS, PN, sQ, PD, true);  // dK += dS^T Q
     }
   }
   __syncthreads();
-  store_tile<T, BN, D>(dk + koff, ks, sdK, scale);
-  store_tile<T, BN, D>(dv + koff, ks, sdV, 1.0f);
+  store_tile<BN, D>(dk + koff, ks, sdK, scale);
+  store_tile<BN, D>(dv + koff, ks, sdV, 1.0f);
 }
 
 // ------------------------------------------- bf16 tensor-core primitives
@@ -719,6 +686,164 @@ fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------------------------- bf16 dq
+// Block: 128 q rows (eight warps of 16) of one head; 64-key K/V tiles
+// through a two-stage cp.async ring.  Per warp, for the whole kernel: the Q
+// and dO A fragments of its rows, the dQ accumulator (16 x D, fp32), and
+// each thread's lse (in log2 units) and delta of its two rows, all in
+// registers.  A K/V tile is walked in 16-key slices: S = Q K^T and
+// dP = dO V^T of the slice (16 x 16 each), P and dS formed in place, and
+// dS, rounded to bf16, is at once the A fragment of dQ += dS K.
+struct DqTile { static constexpr int M = 128, N = 64, STAGES = 2; };
+
+template <int D>
+constexpr size_t dq_mma_smem() {
+  return sizeof(bf16) * (size_t)(D + PAD) * (2 * DqTile::M + DqTile::STAGES * 2 * DqTile::N);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS, D == 64 ? 2 : 1)
+dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int S, int H, int HK, int causal, float scale) {
+  constexpr int BM = DqTile::M, BN = DqTile::N, NS = DqTile::STAGES;
+  constexpr int P = D + PAD, KD = D / 16;
+  extern __shared__ __align__(128) char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sdO = sQ + BM * P;
+  bf16* sKV = sdO + BM * P;  // stage s: K at sKV + 2*s*BN*P, V after it
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // most causal work first
+  const int hk = h / (H / HK);
+  const int q0 = qt * BM;
+  const int rows = min(BM, S - q0);  // a multiple of 64: the last tile may be half
+  const long qs = (long)H * D, ks = (long)HK * D;
+  const long qoff = ((long)b * S + q0) * qs + (long)h * D;
+  const bf16* kb = k + (long)b * S * ks + (long)hk * D;
+  const bf16* vb = v + (long)b * S * ks + (long)hk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = q0 + warp * 16;  // this warp's first q row
+  const bool active = w0 < S;
+
+  const int n_kv = causal ? (q0 + rows) / BN : S / BN;
+  auto load_kv = [&](int j) {
+    bf16* st = sKV + (j % NS) * 2 * BN * P;
+    cp_rows<D>(st, kb + (long)j * BN * ks, ks, BN);
+    cp_rows<D>(st + BN * P, vb + (long)j * BN * ks, ks, BN);
+  };
+  cp_rows<D>(sQ, q + qoff, qs, rows);
+  cp_rows<D>(sdO, dout + qoff, qs, rows);
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {  // Q and dO ride with tile 0
+    if (i < n_kv) load_kv(i);
+    cp_async_commit();
+  }
+
+  // lse arrives in natural log: to log2 units, as the scores are scaled
+  float lse2[2] = {0.0f, 0.0f}, dl[2] = {0.0f, 0.0f};
+  if (active) {
+    const long roff = ((long)b * H + h) * S + w0 + g;
+    lse2[0] = lse[roff] * LOG2E;
+    lse2[1] = lse[roff + 8] * LOG2E;
+    dl[0] = delta[roff];
+    dl[1] = delta[roff + 8];
+  }
+  const float scale2 = scale * LOG2E;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  cp_async_wait<NS - 2>();  // Q and dO have landed
+  __syncthreads();          // for every thread
+  uint32_t qa[KD][4], oa[KD][4];
+  if (active) {
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      load_a<P>(qa[kd], sQ + warp * 16 * P + kd * 16, lane);
+      load_a<P>(oa[kd], sdO + warp * 16 * P + kd * 16, lane);
+    }
+  }
+
+  for (int j = 0; j < n_kv; ++j) {
+    cp_async_wait<NS - 2>();  // tile j has landed
+    __syncthreads();          // for every thread; tile j-1's stage is free
+    if (j + NS - 1 < n_kv) load_kv(j + NS - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const int k0 = j * BN;
+    const bf16* sK = sKV + (j % NS) * 2 * BN * P;
+    const bf16* sV = sK + BN * P;
+
+#pragma unroll
+    for (int sl = 0; sl < BN / 16; ++sl) {
+      const int ks0 = k0 + sl * 16;  // the slice's first key; w0 is a multiple of 16
+      if (causal && ks0 > w0) break;  // every key of this slice and the next follows every row
+      const bf16* sKs = sK + sl * 16 * P;
+      const bf16* sVs = sV + sl * 16 * P;
+
+      // S = Q K^T and dP = dO V^T: n-tile 0 is keys 0-7 of the slice, 1 keys 8-15
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t bk[4], bv[4];
+        load_b_nk<P>(bk, sKs + kd * 16, lane);
+        load_b_nk<P>(bv, sVs + kd * 16, lane);
+        mma16816(s[0], qa[kd], bk[0], bk[1]);
+        mma16816(s[1], qa[kd], bk[2], bk[3]);
+        mma16816(dp[0], oa[kd], bv[0], bv[1]);
+        mma16816(dp[1], oa[kd], bv[2], bv[3]);
+      }
+
+      // P = 2^(s * scale2 - lse2) and dS = P (dP - delta), into dp; on the
+      // `masked` slice (the warp's diagonal) a score whose key follows its
+      // row becomes NEG_INF after the scale
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p;
+            if constexpr (decltype(masked)::value) {
+              float x = s[n][e] * scale2;
+              if (w0 + g + (e >> 1) * 8 < ks0 + n * 8 + 2 * t + (e & 1)) x = NEG_INF;
+              p = exp2_approx(x - lse2[e >> 1]);
+            } else {
+              p = exp2_approx(fmaf(s[n][e], scale2, -lse2[e >> 1]));
+            }
+            dp[n][e] = p * (dp[n][e] - dl[e >> 1]);
+          }
+        }
+      };
+      if (causal && ks0 == w0)
+        probs(std::true_type());
+      else
+        probs(std::false_type());
+
+      // dQ += dS K: K stored [key][d] is the [k][n] operand
+      uint32_t da[4];
+      c_to_a(da, dp[0], dp[1]);
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) {
+        uint32_t bk[4];
+        load_b_kn<P>(bk, sKs + n * 16, lane);
+        mma16816(acc[2 * n], da, bk[0], bk[1]);
+        mma16816(acc[2 * n + 1], da, bk[2], bk[3]);
+      }
+    }
+  }
+  if (!active) return;
+  // each warp reads only its own rows of sQ, so it may reuse them as staging
+  store_rows<D>(dq + qoff + (long)warp * 16 * qs, qs, sQ + warp * 16 * P, acc, scale, scale,
+                lane);
+}
+
 // --------------------------------------------------------- bf16 dk/dv
 // Block: 128 keys (eight warps of 16) of one kv-head, which walks the
 // group's q-heads in 32-row q steps; Q, dO, lse and delta of a step arrive
@@ -912,7 +1037,11 @@ template <typename T, int D> auto fwd_config() {
     return Config<decltype(&fwd_kernel<D>)>{fwd_kernel<D>, NT, fwd_smem<D>()};
 }
 template <typename T, int D> auto dq_config() {
-  return Config<decltype(&dq_kernel<T, D>)>{dq_kernel<T, D>, NT, dq_smem<T, D>()};
+  if constexpr (std::is_same<T, bf16>::value)
+    return Config<decltype(&dq_mma_kernel<D>)>{dq_mma_kernel<D>, MMA_THREADS,
+                                               dq_mma_smem<D>()};
+  else
+    return Config<decltype(&dq_kernel<D>)>{dq_kernel<D>, NT, dq_smem<D>()};
 }
 template <typename T, int D> auto dkv_config() {
   if constexpr (std::is_same<T, bf16>::value)
@@ -931,7 +1060,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   cudaError_t e = allow_smem(c.fn, c.smem);
   if (e != cudaSuccess) return e;
   dim3 grid = std::is_same<T, bf16>::value ? dim3(H, B, cdiv(S, FwdTile::M))
-                                           : dim3(S / Tile<T>::M, H, B);
+                                           : dim3(S / F32Tile::M, H, B);
   c.fn<<<grid, c.threads, c.smem, st>>>((const T*)q, (const T*)k, (const T*)v, (T*)o,
                                         (float*)lse, S, H, HK, causal, softmax_scale(D));
   return cudaGetLastError();
@@ -944,7 +1073,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   auto c = dq_config<T, D>();
   cudaError_t e = allow_smem(c.fn, c.smem);
   if (e != cudaSuccess) return e;
-  dim3 grid(S / Tile<T>::M, H, B);
+  dim3 grid = std::is_same<T, bf16>::value ? dim3(H, B, cdiv(S, DqTile::M))
+                                           : dim3(S / F32Tile::M, H, B);
   c.fn<<<grid, c.threads, c.smem, st>>>((const T*)q, (const T*)k, (const T*)v,
                                         (const T*)dout, (const float*)lse,
                                         (const float*)delta, (T*)dq, S, H, HK, causal,
@@ -961,7 +1091,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   if (e != cudaSuccess) return e;
   // all tiles of one k position together, lowest (most work) first
   dim3 grid = std::is_same<T, bf16>::value ? dim3(HK, B, cdiv(S, DkvTile::N))
-                                           : dim3(S / Tile<T>::N, HK, B);
+                                           : dim3(S / F32Tile::N, HK, B);
   c.fn<<<grid, c.threads, c.smem, st>>>((const T*)q, (const T*)k, (const T*)v,
                                         (const T*)dout, (const float*)lse,
                                         (const float*)delta, (T*)dk, (T*)dv, S, H, HK, causal,
@@ -988,9 +1118,10 @@ cudaError_t resources(C c, int* out) {
 }
 
 // Shapes the Python wrapper has validated: D in {64, 128}, S a multiple of
-// 64 (bf16) or 32 (fp32), H a multiple of HK.
+// 64 (bf16: the forward's and dq's key tiles) or 32 (fp32), H a multiple
+// of HK.
 bool shape_ok(int S, int H, int HK, int D, int is_bf16) {
-  const int tile = is_bf16 ? Tile<bf16>::M : Tile<float>::M;
+  const int tile = is_bf16 ? FwdTile::N : F32Tile::M;
   return (D == 64 || D == 128) && S > 0 && S % tile == 0 && HK > 0 && H % HK == 0;
 }
 

@@ -10,8 +10,8 @@ kernels, then runs the dq pass and the dk/dv pass.
 Each of the three passes has two implementations side by side:
 
 * a hand-written CUDA kernel for Hopper (``csrc/flash_attention.cu``;
-  for bf16 the forward and dk/dv are tensor-core kernels with register
-  accumulators and pipelined loads), which replaces one Pallas TPU kernel:
+  for bf16 all three are tensor-core kernels with register accumulators
+  and pipelined loads), which replaces one Pallas TPU kernel:
 
   ====================  ==========================================
   ``flash_forward_cuda``  ``_attn_kernel``     (``_flash_forward``)

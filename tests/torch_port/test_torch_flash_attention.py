@@ -243,8 +243,8 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114fwd_mma_kernelILi64
 ptxas info    : Function properties for _ZN12_GLOBAL__N_114fwd_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiif
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 124 registers, used 1 barriers, 384 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_iiiif' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_19dq_kernelI13__nv_bfloat16Li64EEEvPKT_S4_S4_S4_PKfS6_PS2_iiiif
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113dq_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113dq_mma_kernelILi64EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_iiiif
     24 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 255 registers, used 1 barriers, 2048 bytes smem, 400 bytes cmem[0]
 ptxas info    : Compile time = 12.345 ms
@@ -256,10 +256,43 @@ def test_parse_ptxas_reads_registers_and_spills():
     info = cs.parse_ptxas(PTXAS_SAMPLE)
     assert len(info) == 2
     fwd = next(v for k, v in info.items() if "fwd_mma_kernelILi64E" in k)
-    dq = next(v for k, v in info.items()
-              if "dq_kernelI13__nv_bfloat16Li64E" in k)
+    dq = next(v for k, v in info.items() if "dq_mma_kernelILi64E" in k)
     assert fwd == {"registers": 124, "spill_bytes": 0}
     assert dq == {"registers": 255, "spill_bytes": 28}
     # every instantiation chip_smoke reports is named by one fragment
-    for fragment, _ in cs.INSTANCES.values():
+    for fragment in cs.INSTANCES.values():
         assert sum(fragment in k for k in info) <= 1
+
+
+# Every instantiation of the three kernels as nvcc mangles it (bf16 and
+# fp32, D = 64 and 128), and as the profiler shows one demangled.
+_BF16 = "PK13__nv_bfloat16S3_S3_"
+_MANGLED = {
+    "fwd_mma_kernel": _BF16 + "PS1_Pfiiiif",
+    "dq_mma_kernel": _BF16 + "S3_PKfS5_PS1_iiiif",
+    "dkv_mma_kernel": _BF16 + "S3_PKfS5_PS1_S6_iiiif",
+    "fwd_kernel": "PKfS2_S2_PfS3_iiiif",
+    "dq_kernel": "PKfS2_S2_S2_S2_S2_Pfiiiif",
+    "dkv_kernel": "PKfS2_S2_S2_S2_S2_PfS3_iiiif",
+}
+
+
+@pytest.mark.parametrize("key,kind", [
+    *((f"_ZN12_GLOBAL__N_1{len(fn)}{fn}ILi{D}EEEv{args}", "flash attention")
+      for fn, args in _MANGLED.items() for D in (64, 128)),
+    ("void (anonymous namespace)::dq_mma_kernel<64>(__nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "float const*, float const*, __nv_bfloat16*, int, int, int, int, float)",
+     "flash attention"),
+    ("nvjet_tst_192x192_64x3_2x1_v_bz_coopA_TNT", "matrix products"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+     "matrix products"),
+    ("ncclDevKernel_AllReduce_Sum_bf16_RING_LL(ncclDevKernelArgsStorage<4096ul>)",
+     "nccl"),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::CUDAFunctor_add<c10::BFloat16>>(int, ...)", "other"),
+])
+def test_kernel_kind_books_each_kernel(key, kind):
+    """chip_smoke.py books a profiled kernel's time by its name: every
+    instantiation of the three attention kernels as flash attention."""
+    assert _chip_smoke().kernel_kind(key) == kind

@@ -88,6 +88,21 @@ def test_dkv_kernel_is_deterministic():
 
 
 @pytest.mark.cuda
+def test_dq_kernel_is_deterministic():
+    """dq has one writer per tile and no atomics: two launches on the same
+    inputs give bitwise-equal results."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, do = _inputs(torch.bfloat16, 2, 1024, 16, 4, 64)
+    out, lse = F.flash_forward_cuda(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    first = F.flash_dq_cuda(q, k, v, do, lse, delta, True)
+    second = F.flash_dq_cuda(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_unsupported_head_dim():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
