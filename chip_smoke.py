@@ -22,7 +22,18 @@ Phases, in order; any failure exits non-zero before the result line:
    ``DistributedOptimizer`` on a one-rank NCCL group, AdamW, flash attention
    and ``ce_chunks=8``: 2 warm-up, 5 timed and 1 profiled step, with the
    kernels' launch counts;
-6. a ``{"kernels": [...]}`` JSON line, then the
+6. serve: the ``1b`` Llama at full width and depth behind
+   ``serve.ServeEngine`` with the default ``ServeConfig`` (8 slots, chunk
+   64, prefix cache and speculative decoding on): 16 requests submitted at
+   once, half sharing a 256-token prefix, 64 new tokens each, timed in
+   bf16 (TTFT, TPOT, decode tokens/s, tick ms, prefix hits, CoW copies,
+   accept rate, peak memory), with none of the attention kernels
+   launched; one profiled prefill tick and one decode tick; the decode
+   forward's time at the static tick width against narrower ones; every
+   emitted token held against one full bf16 forward over prompt + output
+   (its logit within 0.1 of the position's maximum); and, in fp32, four
+   requests whose tokens must equal greedy through the full forward;
+7. a ``{"kernels": [...]}`` JSON line, then the
    ``{"ok": true, "device": {...}}`` JSON line, last.
 
 TF32 is off for matrix products and convolutions
@@ -61,6 +72,12 @@ ATTENTION_KERNELS = ("fwd_mma_kernel", "fwd_kernel", "dq_mma_kernel",
                      "dq_kernel", "dkv_mma_kernel", "dkv_kernel")
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
+SERVE_PREFIX, SERVE_TAIL = 256, (64, 768)  # shared prefix, tail lengths
+BF16_LOGIT_TOL = 0.1  # the port's bf16 logit tolerance (mini, CPU tests)
+# the operators a serving tick's device time is booked under
+SERVE_OPS = ("aten::linear", "aten::einsum", "aten::index", "aten::index_put_",
+             "aten::masked_fill", "aten::_softmax", "aten::argmax")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -441,6 +458,219 @@ def phase_train(torch, np, hvd, llama, F):
     return launches
 
 
+def serve_traffic(rng, vocab: int) -> list:
+    """Prompts of the timed serving run: every other one opens with the
+    shared system prefix; tails of SERVE_TAIL tokens."""
+    system = rng.randint(0, vocab, SERVE_PREFIX).tolist()
+    prompts = []
+    for i in range(SERVE_REQUESTS):
+        tail = rng.randint(0, vocab, rng.randint(SERVE_TAIL[0],
+                                                 SERVE_TAIL[1] + 1)).tolist()
+        prompts.append(system + tail if i % 2 == 0 else tail)
+    return prompts
+
+
+def logit_gaps(torch, model, prompt: list, out: list) -> tuple:
+    """One full forward over prompt + output: at each emitted position, the
+    gap between the largest logit and the emitted token's, and whether the
+    emitted token is the forward's argmax."""
+    dev = model.embed.table.device
+    with torch.no_grad():
+        ids = torch.tensor([prompt + out[:-1]], device=dev)
+        h = model(ids, return_hidden=True)[0, len(prompt) - 1:]
+        logits = model.lm_head(h).float()
+    tok = torch.tensor(out, device=dev)
+    gaps = logits.max(-1).values - logits.gather(1, tok[:, None])[:, 0]
+    return gaps.max().item(), (logits.argmax(-1) == tok).sum().item()
+
+
+def device_profile(torch, fn, label: str, top: int = 8) -> float:
+    """Profile one call of ``fn`` between two synchronizations (for an
+    engine step, the window holds exactly the tick it dispatches): prints
+    its device time by operator, its kernel launches, the window's host
+    time and its longest kernels; returns the device busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    ops, kernels = {}, []
+    for evt in prof.key_averages():
+        if evt.key in SERVE_OPS:
+            ops[evt.key] = evt.device_time_total / 1e3
+        if (evt.device_type == DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            kernels.append((evt.self_device_time_total / 1e3, evt.count,
+                            evt.key))
+    busy = sum(k[0] for k in kernels)
+    require(busy > 0, f"the profiled {label} shows no device time")
+    rest = busy - sum(ops.values())
+    print(f"serve [1b] profiled {label}: device busy {busy:.3f} ms in "
+          f"{sum(k[1] for k in kernels)} kernels, window {host_ms:.3f} ms "
+          "on the host clock; by operator: "
+          + ", ".join(f"{k[6:]} {v:.3f} ms" for k, v in
+                      sorted(ops.items(), key=lambda x: -x[1]))
+          + f", rest {rest:.3f} ms", flush=True)
+    for ms, count, key in sorted(kernels, reverse=True)[:top]:
+        print(f"  {ms:8.3f} ms x{count:<4} {key[:90]}", flush=True)
+    return busy
+
+
+def phase_serve(torch, np, hvd, llama, serve, F, card: str) -> None:
+    """The serving path: 1b behind ServeEngine, timed in bf16, its tokens
+    held against the full forward, and exact in fp32."""
+    import dataclasses
+    hvd.init()
+    dev = torch.device("cuda", hvd.local_rank())
+    cfg = llama.CONFIGS["1b"]
+    scfg = serve.ServeConfig()
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    # warm-up: one short request on its own engine (cuBLAS handles, the
+    # caching allocator), closed before the timed run
+    warm = serve.ServeEngine(model, scfg)
+    warm.submit(list(range(1, 97)), 4)
+    warm.flush()
+    warm.close()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    prompts = serve_traffic(np.random.RandomState(0), cfg.vocab)
+    engine = serve.ServeEngine(model, scfg)
+    F.reset_launches()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, SERVE_NEW_TOKENS, req_id=f"r{i}")
+            for i, p in enumerate(prompts)]
+    tick_ms = []
+    while engine.has_work():
+        t = time.perf_counter()
+        engine.step()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine_ticks = engine.tick
+    launches = dict(F.LAUNCHES)
+    print(f"serve [1b] attention-kernel launches {json.dumps(launches)}",
+          flush=True)
+    require(not any(launches.values()),
+            "the serving path launched a flash-attention kernel")
+    require(all(r.state == "done" and len(r.out_tokens) == SERVE_NEW_TOKENS
+                for r in reqs), "a request did not finish its 64 tokens")
+    st = engine.stats()
+    ttft = [r.ttft() * 1e3 for r in reqs]
+    tpot = [r.tpot() * 1e3 for r in reqs]
+    pc, spec = st["prefix_cache"], st["spec"]
+    print(card, flush=True)
+    print(f"serve [1b bf16] {len(reqs)} requests, {engine_ticks} ticks in "
+          f"{wall:.3f} s: prefill {st['tokens_prefill']} tokens in "
+          f"{st['prefill_chunks']} chunks, decode {st['tokens_decode']} "
+          f"tokens; TTFT p50 {np.percentile(ttft, 50):.1f} ms, p99 "
+          f"{np.percentile(ttft, 99):.1f} ms; TPOT p50 "
+          f"{np.percentile(tpot, 50):.2f} ms; decode "
+          f"{st['tokens_decode'] / wall:.1f} tokens/s; median tick "
+          f"{np.median(tick_ms):.2f} ms; prefix hits {pc['hits']} "
+          f"({pc['hit_tokens']} tokens), CoW copies {pc['cow_copies']}; spec "
+          f"drafted {spec['drafted_tokens']}, accepted "
+          f"{spec['accepted_tokens']}, accept rate {spec['accept_rate']}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    require(pc["hits"] >= 1 and st["prefill_chunks"] > len(reqs),
+            "the timed run saw no prefix hit or no chunked prefill")
+    S = scfg.max_slots
+
+    rng = np.random.RandomState(2)
+    for p in (rng.randint(0, cfg.vocab, 64).tolist() for _ in range(S)):
+        engine.submit(p, 8)
+    device_profile(torch, engine.step, "prefill tick (8 x 64 tokens)")
+    engine.step()
+    engine.step()
+    busy = device_profile(torch, engine.step, "decode tick (8 slots)")
+    engine.flush()
+    print(f"serve [1b bf16] {card}: every tick has the static shape, so the "
+          f"timed run kept the card busy about {engine_ticks} x {busy:.3f} "
+          f"ms of its {wall * 1e3:.1f} ms: idle share about "
+          f"{max(0.0, 1 - engine_ticks * busy / (wall * 1e3)):.3f}",
+          flush=True)
+
+    # what the static [max_slots, prefill_chunk] tick costs decode: the
+    # forward alone at the tick's width and at narrower ones (n_new = 0,
+    # so every write lands in the trash block): between CUDA events, the
+    # host's time to enqueue it, and the device's busy time
+    bt = torch.arange(S * scfg.max_blocks_per_seq, dtype=torch.int32,
+                      device=dev).view(S, -1)
+    zeros = torch.zeros(S, dtype=torch.int32, device=dev)
+    for width in (scfg.prefill_chunk, 1 + scfg.spec_k, 1):
+        toks = torch.zeros((S, width), dtype=torch.int32, device=dev)
+        fwd = lambda: model.apply_cached(toks, engine.cache, bt, zeros, zeros)
+        ms = median_ms(fwd, n=10, warmup=2)
+        enqueue = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fwd()
+            enqueue.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+        busy = device_profile(torch, fwd, f"forward at width {width}",
+                              top=0)
+        print(f"serve [1b bf16] {card}: forward over {S} slots at width "
+              f"{width}: {ms:.3f} ms between CUDA events, host enqueue "
+              f"{np.median(enqueue):.3f} ms, device busy {busy:.3f} ms",
+              flush=True)
+
+    worst, agree, total = 0.0, 0, 0
+    for p, r in zip(prompts, reqs):
+        gap, same = logit_gaps(torch, model, p, r.out_tokens)
+        worst, agree, total = max(worst, gap), agree + same, \
+            total + len(r.out_tokens)
+    print(f"serve [1b bf16] plausibility: largest gap between an emitted "
+          f"token's logit and its position's maximum {worst:.4f} (limit "
+          f"{BF16_LOGIT_TOL}); full-forward argmax agrees at {agree} of "
+          f"{total} positions", flush=True)
+    require(worst <= BF16_LOGIT_TOL,
+            f"an emitted token's logit is {worst} below its position's max")
+    engine.close()
+    del engine, model, reqs
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model = llama.init(cfg32, torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.RandomState(1)
+    shared = rng.randint(0, cfg.vocab, 64).tolist()
+    prompts = [shared + rng.randint(0, cfg.vocab,
+                                    rng.randint(64, 193)).tolist()
+               for _ in range(2)]
+    prompts += [rng.randint(0, cfg.vocab, rng.randint(128, 257)).tolist()
+                for _ in range(2)]
+    engine = serve.ServeEngine(model, scfg)
+    reqs = [engine.submit(p, 16, req_id=f"x{i}") for i, p in
+            enumerate(prompts)]
+    engine.flush()
+    same = 0
+    for p, r in zip(prompts, reqs):
+        ids = list(p)
+        with torch.no_grad():
+            for _ in range(16):
+                h = model(torch.tensor([ids], device=dev),
+                          return_hidden=True)
+                ids.append(int(model.lm_head(h[0, -1]).argmax()))
+        same += ids[len(p):] == r.out_tokens
+    st = engine.stats()
+    print(f"serve [1b fp32] exactness: {same} of {len(reqs)} requests "
+          f"byte-identical to full-forward greedy over 16 tokens (prefix "
+          f"hits {st['prefix_cache']['hits']}, spec drafted "
+          f"{st['spec']['drafted_tokens']}, accepted "
+          f"{st['spec']['accepted_tokens']})", flush=True)
+    require(same == len(reqs), "fp32 engine tokens differ from greedy")
+    engine.close()
+    del engine, model
+    torch.cuda.empty_cache()
+    hvd.shutdown()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -449,6 +679,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import serve
     from horovod_tpu_torch.models import layers as L, llama
     from horovod_tpu_torch.ops import _kernels, flash_attention as F
 
@@ -473,6 +704,7 @@ def main() -> int:
     rows = phase_kernels(F, torch, card)
     phase_model(torch, hvd, llama, L)
     launches = phase_train(torch, np, hvd, llama, F)
+    phase_serve(torch, np, hvd, llama, serve, F, card)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

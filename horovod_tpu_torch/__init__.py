@@ -2,7 +2,9 @@
 
 Data-parallel training in the Horovod idiom, over ``torch.distributed``
 (NCCL on CUDA, gloo on the CPU), with hand-written Hopper kernels where the
-JAX package has Pallas TPU kernels (flash attention, forward and backward).
+JAX package has Pallas TPU kernels (flash attention, forward and backward),
+and a continuous-batching serving engine over a paged KV pool
+(``horovod_tpu_torch.serve``).
 
     import horovod_tpu_torch as hvd
     hvd.init()                       # device cuda:<local_rank>; device="cpu" for gloo
@@ -17,6 +19,7 @@ with the JAX package (reduce ops, knobs) are its own copies.
 from __future__ import annotations
 
 from . import runtime as _rt
+from . import serve
 from .common.reduce_op import (ReduceOp, Average, Sum, Adasum, Min, Max,
                                Product)
 from .functions import broadcast_parameters, broadcast_optimizer_state
@@ -67,5 +70,5 @@ __all__ = [
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "DistributedOptimizer", "sync_gradients", "spmd",
     "broadcast_parameters", "broadcast_optimizer_state",
-    "flash_attention", "make_train_step",
+    "flash_attention", "make_train_step", "serve",
 ]

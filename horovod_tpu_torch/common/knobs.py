@@ -1,6 +1,7 @@
 """The ``HOROVOD_*`` knobs this port reads: its own copy of the entries of
-``horovod_tpu/common/knobs.py`` that the data-parallel training path needs,
-with the same names, defaults and parsing (env > override > default)."""
+``horovod_tpu/common/knobs.py`` that the data-parallel training path and the
+serving engine (``serve/config.py`` ``from_knobs``) need, with the same
+names, defaults and parsing (env > override > default)."""
 
 from __future__ import annotations
 
@@ -46,6 +47,41 @@ _knob("HOROVOD_LOCAL_SIZE", -1, int, "Process count on this host.")
 _knob("HOROVOD_COORDINATOR_ADDR", "", str,
       "host:port of the rendezvous for multi-process runs (rank 0 serves "
       "the torch.distributed TCP store there).")
+
+_knob("HOROVOD_SERVE_PORT", 0, int,
+      "Port of the serving fleet's request router (0 = ephemeral). Must be "
+      "in [0, 65535].")
+_knob("HOROVOD_SERVE_MAX_BATCH_TOKENS", 2048, int,
+      "Continuous-batching budget: prompt + decode tokens one engine tick "
+      "may process across the slot table. Must be positive.")
+_knob("HOROVOD_SERVE_MAX_SEQ_LEN", 2048, int,
+      "Per-request cap on prompt + generated tokens; sizes the block "
+      "tables. Must be positive and at most the model's max_seq.")
+_knob("HOROVOD_SERVE_CACHE_BLOCKS", 4096, int,
+      "Blocks in the preallocated paged KV pool. Must be positive.")
+_knob("HOROVOD_SERVE_PREFILL_CHUNK", 64, int,
+      "Chunked-prefill width: prompt tokens one tick may prefill per slot "
+      "(the step's row width). Must be in [1, max_batch_tokens].")
+_knob("HOROVOD_SERVE_PREFIX_CACHE", True, _parse_bool,
+      "Refcounted radix prefix cache over the paged pool (copy-on-write on "
+      "divergence inside a block). Output is unchanged; 0 disables.")
+_knob("HOROVOD_SERVE_SPEC", True, _parse_bool,
+      "Speculative decoding by prompt-lookup drafts with greedy "
+      "verification. Output is unchanged; 0 disables.")
+_knob("HOROVOD_SERVE_SPEC_K", 4, int,
+      "Draft length per decode slot and tick. Must be >= 1 and "
+      "spec_k + 1 <= prefill_chunk.")
+_knob("HOROVOD_SERVE_REPLICAS", 1, int,
+      "Replicated serving tier size. Must be >= 1.")
+_knob("HOROVOD_SERVE_REPLICA_ID", 0, int,
+      "This fleet's identity within the replica tier, in "
+      "[0, HOROVOD_SERVE_REPLICAS).")
+_knob("HOROVOD_SERVE_PREFILL_RANKS", 0, int,
+      "Prefill/decode disaggregation: the first K ranks only prefill "
+      "(0 = colocated). Must be >= 0.")
+_knob("HOROVOD_SERVE_SPILL_BLOCKS", 0, int,
+      "Host-RAM KV spill capacity in blocks behind the device pool (0 = "
+      "off). Needs the prefix cache on; must be >= 0.")
 
 
 class Knobs:

@@ -1,7 +1,8 @@
 """Layers of the Llama decoder: the port of ``horovod_tpu/models/layers.py``
 (``dense``, ``embedding``, ``rmsnorm``, ``softmax_cross_entropy``,
-``rope_freqs``, ``apply_rope``, ``causal_attention``), with the same math
-and the same fp32 upcasts, as plain functions on tensors.
+``rope_freqs``, ``apply_rope``, ``apply_rope_at``, ``causal_attention``),
+with the same math and the same fp32 upcasts, as plain functions on
+tensors.
 
 Dense weights follow PyTorch's ``nn.Linear`` layout ``[out, in]``:
 ``dense(w, x) = x @ w.T`` (the JAX kernels are ``[in, out]``;
@@ -59,6 +60,18 @@ def apply_rope(x: Tensor, cos: Tensor, sin: Tensor, offset: int = 0) -> Tensor:
     seq = x.shape[-3]
     c = cos[offset:offset + seq, None, :]
     s = sin[offset:offset + seq, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def apply_rope_at(x: Tensor, cos: Tensor, sin: Tensor,
+                  positions: Tensor) -> Tensor:
+    """x: ``[B, S, heads, head_dim]``; rotary embedding at explicit
+    per-token positions ``[B, S]`` (each serving slot sits at its own
+    position), on the same tables and with the same math as
+    :func:`apply_rope`."""
+    c = cos[positions][..., None, :]
+    s = sin[positions][..., None, :]
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
 

@@ -1,6 +1,7 @@
-"""Llama-3-style decoder: the port of ``horovod_tpu/models/llama.py``'s
-training path (``LlamaConfig``, ``CONFIGS``, ``init``, ``apply`` as
-``Llama.forward``, ``loss_fn``, ``param_count``) as an ``nn.Module``.
+"""Llama-3-style decoder: the port of ``horovod_tpu/models/llama.py``
+(``LlamaConfig``, ``CONFIGS``, ``init``, ``apply`` as ``Llama.forward``,
+``loss_fn``, ``param_count``, and the decode path ``init_cache``,
+``copy_blocks``, ``apply_cached``) as an ``nn.Module``.
 
 RMSNorm pre-norm, RoPE (theta 500000, split halves), grouped-query
 attention through the ``attn_fn`` hook (``ops.flash_attention`` on the
@@ -8,6 +9,14 @@ training path, ``layers.causal_attention`` by default) and SwiGLU, with the
 JAX model's initial scales.  Dense weights are ``[out, in]`` as in
 ``nn.Linear``; ``params_from_jax`` loads a JAX parameter tree (as numpy
 arrays) and transposes its ``[in, out]`` kernels.
+
+The decode path serves from one preallocated paged KV pool shared by every
+in-flight sequence: a sequence owns whole blocks through its block-table
+row (-1 = unassigned).  Where the JAX scatters drop an out-of-range write
+(``mode="drop"``), a PyTorch index out of range is an error (on a CUDA
+device, a device-side assert), so the pool carries one trash block after
+its ``num_blocks`` usable ones: every dropped write lands there, and no
+block table points at it, so it is never read.
 """
 
 from __future__ import annotations
@@ -132,6 +141,44 @@ class LlamaLayer(nn.Module):
         x = x + self._attn(self.attn_norm(x), cos, sin, attn_fn, pos_offset)
         return x + self._ffn(self.ffn_norm(x))
 
+    def _attn_cached(self, x: Tensor, cos: Tensor, sin: Tensor,
+                     k_pool: Tensor, v_pool: Tensor, block_tables: Tensor,
+                     positions: Tensor, valid: Tensor) -> Tensor:
+        """Attention of one layer over its paged pool ``[num_blocks + 1,
+        block_size, n_kv_heads, head_dim]``.  x: ``[S, C, dim]``, S slots
+        of C token positions each.  The chunk's k/v are scattered into the
+        pool first (token at position P to ``block_tables[s, P // bs]``,
+        offset ``P % bs``; invalid positions to the trash block), then each
+        query attends over its slot's whole gathered context under a
+        per-position mask.  The projections are unfused, as in the JAX
+        decode path."""
+        cfg = self.cfg
+        S, C, _ = x.shape
+        trash, bs = k_pool.shape[0] - 1, k_pool.shape[1]
+        max_blocks = block_tables.shape[1]
+        q = self.wq(x).reshape(S, C, cfg.n_heads, cfg.head_dim)
+        k = self.wk(x).reshape(S, C, cfg.n_kv_heads, cfg.head_dim)
+        v = self.wv(x).reshape(S, C, cfg.n_kv_heads, cfg.head_dim)
+        pos_c = positions.clamp(max=cfg.max_seq - 1)
+        q = L.apply_rope_at(q, cos, sin, pos_c)
+        k = L.apply_rope_at(k, cos, sin, pos_c)
+        slot_idx = (positions // bs).clamp(max=max_blocks - 1)
+        blk = block_tables.gather(1, slot_idx).clamp(min=0)
+        blk = torch.where(valid, blk, trash)
+        off = positions % bs
+        k_pool[blk, off] = k.to(k_pool.dtype)
+        v_pool[blk, off] = v.to(v_pool.dtype)
+        # gathered index t is global position t; unassigned entries (-1,
+        # read as block 0) cover only positions the mask excludes
+        bt = block_tables.clamp(min=0)
+        T = max_blocks * bs
+        k_ctx = k_pool[bt].reshape(S, T, cfg.n_kv_heads, cfg.head_dim)
+        v_ctx = v_pool[bt].reshape(S, T, cfg.n_kv_heads, cfg.head_dim)
+        key_pos = torch.arange(T, device=x.device)
+        mask = (key_pos[None, None, :] <= positions[:, :, None])[:, None]
+        o = L.causal_attention(q, k_ctx, v_ctx, causal=False, mask=mask)
+        return self.wo(o.reshape(S, C, cfg.n_heads * cfg.head_dim))
+
 
 class Llama(nn.Module):
     """Parameters are left uninitialized: build with :func:`init` or
@@ -173,6 +220,35 @@ class Llama(nn.Module):
             return x
         return self.lm_head(x)
 
+    @torch.no_grad()
+    def apply_cached(self, tokens: Tensor, cache: Dict[str, Tensor],
+                     block_tables: Tensor, lengths: Tensor, n_new: Tensor
+                     ) -> Tensor:
+        """Mixed prefill/decode forward over the paged pool (the JAX
+        package's ``apply_cached``).  ``tokens [S, C]``: slot s's next
+        ``n_new[s]`` tokens (0 = inactive slot), starting at context length
+        ``lengths[s]``; ``block_tables [S, max_blocks]`` indexes the pool
+        (-1 = unassigned).  Writes the chunk's k/v into ``cache`` in place
+        and returns logits ``[S, C, vocab]``; the caller samples at
+        position ``n_new[s] - 1``."""
+        cfg = self.cfg
+        tokens, block_tables, lengths, n_new = (
+            t.long() for t in (tokens, block_tables, lengths, n_new))
+        S, C = tokens.shape
+        dev = tokens.device
+        cos, sin = L.rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device=dev)
+        cols = torch.arange(C, device=dev)
+        positions = lengths[:, None] + cols[None]
+        valid = cols[None] < n_new[:, None]
+        x = L.embedding(self.embed.table, tokens).to(cfg.dtype)
+        for i, layer in enumerate(self.layers):
+            x = x + layer._attn_cached(
+                layer.attn_norm(x), cos, sin, cache["k"][i], cache["v"][i],
+                block_tables, positions, valid)
+            x = x + layer._ffn(layer.ffn_norm(x))
+        return self.lm_head(self.final_norm(x))
+
 
 def init(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
          device: Union[str, torch.device, None] = None) -> Llama:
@@ -192,6 +268,47 @@ def init(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
                 p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]),
                           generator=generator)
     return model
+
+
+def init_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
+               dtype: Optional[torch.dtype] = None,
+               device: Union[str, torch.device, None] = None
+               ) -> Dict[str, Tensor]:
+    """The paged KV pool ``{"k", "v"}``, zeros of shape ``[n_layers,
+    num_blocks + 1, block_size, n_kv_heads, head_dim]``: blocks ``0 ..
+    num_blocks - 1`` are the ones block tables may name, block
+    ``num_blocks`` is the trash block that takes dropped writes.  Zeros,
+    so a masked stale value is finite and its softmax weight exactly 0."""
+    device = _rt.resolve_device(device)
+    dtype = dtype if dtype is not None else cfg.dtype
+    shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+@torch.no_grad()
+def copy_blocks(cache: Dict[str, Tensor], src: Tensor, dst: Tensor) -> None:
+    """Copy-on-write for the serving prefix cache: clone whole pool blocks
+    ``src[i] -> dst[i]`` across every layer, in place.  Run it before the
+    tick's k/v writes: the right-hand gather is materialized before the
+    scatter, so it reads the pool as it was.  Entries with ``dst`` outside
+    ``[0, num_blocks)`` are padding and go to the trash block; ``src`` is
+    clamped so the gather stays in bounds."""
+    trash = cache["k"].shape[1] - 1
+    src, dst = src.long(), dst.long()
+    safe = src.clamp(0, trash - 1)
+    dst = torch.where((dst >= 0) & (dst < trash), dst, trash)
+    for pool in cache.values():
+        pool[:, dst] = pool[:, safe]
+
+
+def apply_cached(model: Llama, tokens: Tensor, cache: Dict[str, Tensor],
+                 block_tables: Tensor, lengths: Tensor, n_new: Tensor
+                 ) -> Tensor:
+    """:meth:`Llama.apply_cached` as a function of the model, the JAX
+    package's calling shape."""
+    return model.apply_cached(tokens, cache, block_tables, lengths, n_new)
 
 
 def _chunk_nll(weight: Tensor, h: Tensor, t: Tensor) -> Tensor:
