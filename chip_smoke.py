@@ -33,8 +33,34 @@ Phases, in order; any failure exits non-zero before the result line:
    emitted token held against one full bf16 forward over prompt + output
    (its logit within 0.1 of the position's maximum); and, in fp32, four
    requests whose tokens must equal greedy through the full forward;
-7. a ``{"kernels": [...]}`` JSON line, then the
+7. eager: Horovod's eager torch API (``horovod_tpu_torch.torch``) with
+   ``HOROVOD_CONTROLLER=tcp`` on a free port, so the port's native
+   controller (built with g++ beside the kernels, from
+   ``horovod_tpu_torch/csrc/core``) negotiates every op: each eager op on
+   bf16 and fp32 tensors against its plain result (allreduce with every
+   op and with scale factors, grouped, allgather, broadcast, alltoall
+   with splits, reducescatter, async handles and in-place variants), then
+   the ``1b`` Llama for 5 steps (1 warm-up, 4 timed) and one profiled
+   step through the hook-driven ``DistributedOptimizer(AdamW)`` on phase
+   5's weights and batches: each step's loss against phase 5's, the
+   controller's responses and fused buckets per step and the host's wait
+   for them, step ms and tokens/s beside phase 5's, the profiled step's
+   device time against phase 5's, and the kernels' launches in this
+   phase;
+8. a ``{"kernels": [...]}`` JSON line, then the
    ``{"ok": true, "device": {...}}`` JSON line, last.
+
+    python3 chip_smoke.py --ranks 4
+
+runs, after the device and build phases, the eager path across 4 ranks
+(one process and one card each, NCCL, the controller negotiating over TCP)
+instead of phases 3-7: each eager op against an oracle of every rank's
+inputs, then the ``1b`` step data-parallel at batch 4 x 2048 per rank,
+first through the root package's ``DistributedOptimizer`` (one fused
+allreduce per bucket at ``step()``) and then through the eager API's
+hook-driven one, on the same weights and batches: losses, step ms,
+tokens/s per card, and one profiled step of each on rank 0 (NCCL time,
+idle share).
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -47,8 +73,10 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
@@ -75,6 +103,14 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 16, 64
 SERVE_PREFIX, SERVE_TAIL = 256, (64, 768)  # shared prefix, tail lengths
 BF16_LOGIT_TOL = 0.1  # the port's bf16 logit tolerance (mini, CPU tests)
+# phase 7 against phase 5 on the same weights and batches, step for step:
+# the same kernels and products, and a one-rank allreduce that copies, so
+# every run so far gave phase 5's losses to the last printed digit (and
+# the 4-card --ranks run gave the root optimizer's).  A step that skips or
+# misplaces an update moves a loss by more than this, and a parameter by
+# about the learning rate (3e-4)
+EAGER_LOSS_TOL = 1e-4
+EAGER_PARAM_TOL = 1e-6
 # the operators a serving tick's device time is booked under
 SERVE_OPS = ("aten::linear", "aten::einsum", "aten::index", "aten::index_put_",
              "aten::masked_fill", "aten::_softmax", "aten::argmax")
@@ -424,7 +460,18 @@ def phase_train(torch, np, hvd, llama, F):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print("train [1b] launches " + json.dumps(launches), flush=True)
 
-    # where the profiled step's device time goes: CUDA kernels by kind
+    step_ms = dt / TIMED_STEPS * 1e3
+    busy = report_profile(prof, "train [1b]", step_ms)
+    # kept on the host, so later phases' peak memory does not count them
+    params = [p.detach().cpu() for p in model.parameters()]
+    hvd.shutdown()
+    return launches, losses, step_ms, tok_s, busy, params
+
+
+def report_profile(prof, label: str, step_ms: float) -> float:
+    """Print where a profiled step's device time goes, CUDA kernels by
+    kind and per attention kernel, with the idle share against the timed
+    step; return the device busy ms."""
     from torch.autograd import DeviceType
     kinds = {"flash attention": 0.0, "matrix products": 0.0, "nccl": 0.0,
              "other": 0.0}
@@ -443,19 +490,27 @@ def phase_train(torch, np, hvd, llama, F):
             fn = next(k for k in ATTENTION_KERNELS if k in evt.key)
             attention.append(f"{fn} {us / 1e3:.2f} ms x{evt.count}")
     busy = sum(kinds.values())
-    step_ms = dt / TIMED_STEPS * 1e3
-    require(busy > 0, "the profiled step shows no device time")
-    print(f"train [1b] profiled step: device busy {busy / 1e3:.1f} ms "
+    require(busy > 0, f"{label}: the profiled step shows no device time")
+    print(f"{label} profiled step: device busy {busy / 1e3:.1f} ms "
           f"(timed step {step_ms:.1f} ms, idle share "
           f"{max(0.0, 1 - busy / 1e3 / step_ms):.3f}); by kind: "
           + ", ".join(f"{k} {v / 1e3:.1f} ms ({100 * v / busy:.1f}%)"
                       for k, v in kinds.items()), flush=True)
-    print("train [1b] profiled step, flash attention by kernel: "
+    print(f"{label} profiled step, flash attention by kernel: "
           + ", ".join(sorted(attention)), flush=True)
     for us, count, key in sorted(top, reverse=True)[:10]:
         print(f"  {us / 1e3:8.2f} ms x{count:<4} {key[:90]}", flush=True)
-    hvd.shutdown()
-    return launches
+    # the host's CUDA runtime calls: a synchronizing one (a stream or
+    # device synchronize, an allocation) stalls the host's run-ahead
+    api = sorted(((evt.cpu_time_total, evt.count, evt.key)
+                  for evt in prof.key_averages()
+                  if evt.device_type == DeviceType.CPU
+                  and evt.key.startswith("cuda")), reverse=True)
+    print(f"{label} profiled step, host CUDA runtime calls: "
+          + ", ".join(f"{key} {us / 1e3:.2f} ms x{count}"
+                      for us, count, key in api[:8]), flush=True)
+    return busy / 1e3
+
 
 
 def serve_traffic(rng, vocab: int) -> list:
@@ -671,17 +726,392 @@ def phase_serve(torch, np, hvd, llama, serve, F, card: str) -> None:
     hvd.shutdown()
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def eager_op_checks(torch, ht, dev) -> None:
+    """Each eager op on bf16 and fp32 tensors on the card against its plain
+    result.  One rank: every result is the input, scaled by powers of two,
+    so each must be exact."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_checks, worst = 0, 0.0
+    for dtype, shape in ((torch.bfloat16, (8192, 1024)),
+                         (torch.float32, (4096, 1024))):
+        x = torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        cases = {f"allreduce {op.name}": (ht.allreduce(x, op=op), x)
+                 for op in (ht.Average, ht.Sum, ht.Min, ht.Max, ht.Product)}
+        cases["allreduce scaled"] = (ht.allreduce(
+            x, op=ht.Sum, prescale_factor=4.0, postscale_factor=0.125),
+            x * 0.5)
+        grouped = ht.grouped_allreduce([x, x[:77].float(), x[5]],
+                                       op=ht.Average)
+        cases["grouped_allreduce"] = (torch.cat(
+            [grouped[0].flatten().float(), grouped[1].flatten(),
+             grouped[2].flatten().float()]), torch.cat(
+            [x.flatten().float(), x[:77].flatten().float(),
+             x[5].flatten().float()]))
+        cases["allgather"] = (ht.allgather(x), x)
+        cases["broadcast"] = (ht.broadcast(x, root_rank=0), x)
+        out, recv = ht.alltoall(x, torch.tensor([shape[0]]))
+        require(recv.tolist() == [shape[0]], f"alltoall splits {recv}")
+        cases["alltoall splits"] = (out, x)
+        cases["reducescatter"] = (ht.reducescatter(x, op=ht.Sum), x)
+        handles = [ht.allreduce_async(x * (i + 1), op=ht.Sum,
+                                      name=f"smoke.async.{dtype}.{i}")
+                   for i in range(4)]
+        require(all(isinstance(ht.poll(h), bool) for h in handles),
+                "poll did not answer")
+        for i, h in enumerate(handles):
+            cases[f"allreduce_async {i}"] = (ht.synchronize(h), x * (i + 1))
+        y = x.clone()
+        require(ht.allreduce_(y, op=ht.Sum, prescale_factor=2.0) is y,
+                "allreduce_ did not return its input")
+        cases["allreduce_"] = (y, x * 2)
+        z = x.clone()
+        ht.synchronize(ht.broadcast_async_(z, root_rank=0))
+        cases["broadcast_async_"] = (z, x)
+        g = [x.clone(), x[:9].clone()]
+        ht.grouped_allreduce_(g, op=ht.Sum, postscale_factor=2.0)
+        cases["grouped_allreduce_"] = (torch.cat([g[0].flatten(),
+                                                  g[1].flatten()]),
+                                       torch.cat([x.flatten(),
+                                                  x[:9].flatten()]) * 2)
+        for name, (got, want) in cases.items():
+            require(got.dtype == want.dtype and got.device == want.device
+                    and got.shape == want.shape,
+                    f"eager {name} {dtype}: {got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want.float()).abs().max().item()
+            worst = max(worst, err)
+            n_checks += 1
+            require(err == 0.0, f"eager {name} {dtype}: max abs err {err}")
+    ht.barrier()
+    print(f"eager ops: {n_checks} checks on bf16 and fp32 tensors on the "
+          f"card, every result exact (max abs err {worst})", flush=True)
+
+
+def max_param_diff(params, ref_params) -> float:
+    """The largest elementwise difference between two parameter lists (the
+    second may lie on another device)."""
+    return max((a.detach().float() - b.to(a.device).float()).abs().max()
+               .item() for a, b in zip(params, ref_params))
+
+
+def phase_eager(torch, np, hvd, llama, F, card: str, ref_losses,
+                ref_step_ms: float, ref_tok_s: float, ref_busy: float,
+                ref_params) -> dict:
+    """Horovod's eager torch API, negotiated through the native controller
+    on the card; the 1b step through the hook-driven optimizer."""
+    os.environ.update(HOROVOD_CONTROLLER="tcp",
+                      HOROVOD_CONTROLLER_PORT=str(free_port()))
+    import horovod_tpu_torch.torch as ht
+    from horovod_tpu_torch.torch import mpi_ops
+    ht.init()
+    require(mpi_ops.engine().core is not None,
+            "no native controller under HOROVOD_CONTROLLER=tcp")
+    dev = torch.device("cuda", ht.local_rank())
+    eager_op_checks(torch, ht, dev)
+
+    cfg = llama.CONFIGS["1b"]
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = ht.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01),
+        named_parameters=model.named_parameters())
+    ht.broadcast_parameters(model.state_dict(), root_rank=0)
+    ht.broadcast_optimizer_state(opt, root_rank=0)
+    step = hvd.make_train_step(
+        model, lambda m, ids: llama.loss_fn(m, ids, attn_fn=hvd.flash_attention,
+                                            ce_chunks=8), opt)
+    rng = np.random.RandomState(0)  # phase 5's batches and steps
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1), dtype=np.int32)).to(dev)
+        for _ in range(WARMUP_STEPS + TIMED_STEPS + 1)]
+    torch.cuda.synchronize()
+    F.reset_launches()
+    losses, per_step = [], []
+    # warm-up, timed and profiled steps, as in phase 5
+    for i, b in enumerate(batches[:-1]):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        before = mpi_ops.stats()
+        losses.append(step(b))
+        after = mpi_ops.stats()
+        per_step.append({k: after[k] - before[k] for k in after})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        losses.append(step(batches[-1]))
+        torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    launches = dict(F.LAUNCHES)
+    loss_err = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    param_err = max_param_diff(list(model.parameters()), ref_params)
+    print("eager [1b] losses " + " ".join(f"{x:.5f}" for x in losses)
+          + "; phase 5 " + " ".join(f"{x:.5f}" for x in ref_losses)
+          + f"; max |loss diff| {loss_err!r} (tol {EAGER_LOSS_TOL}), "
+          f"max |parameter diff| after step {len(losses)} {param_err!r} "
+          f"(tol {EAGER_PARAM_TOL})", flush=True)
+    require(len(losses) == len(ref_losses)
+            and all(math.isfinite(x) for x in losses)
+            and loss_err <= EAGER_LOSS_TOL,
+            f"eager losses {losses} vs phase 5's {ref_losses} "
+            f"(tol {EAGER_LOSS_TOL})")
+    require(param_err <= EAGER_PARAM_TOL,
+            f"eager parameters differ from phase 5's by {param_err} after "
+            f"{len(losses)} steps (tol {EAGER_PARAM_TOL})")
+    print("eager [1b] per step: " + "; ".join(
+        f"{p['responses']} responses, {p['names']} names, "
+        f"{p['collectives']} collectives, host waited {p['wait_ms']:.2f} ms"
+        for p in per_step), flush=True)
+    require(all(p["responses"] > 0 for p in per_step),
+            "a step made no negotiated collective")
+    per = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+           "flash_bwd_dkv": cfg.n_layers}
+    for name, n in per.items():
+        require(launches[name] == n * len(losses),
+                f"{name} launched {launches[name]} times in the eager phase,"
+                f" expected {n} per step")
+    step_ms = dt / TIMED_STEPS * 1e3
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"eager [1b] {card}: step {step_ms:.1f} ms, {tok_s:.0f} tokens/s "
+          f"(steps {WARMUP_STEPS + 1}-{WARMUP_STEPS + TIMED_STEPS}, host "
+          "clock between two synchronizations)"
+          f"; phase 5: step {ref_step_ms:.1f} ms, {ref_tok_s:.0f} "
+          f"tokens/s; ratio {step_ms / ref_step_ms:.3f}; launches "
+          + json.dumps(launches), flush=True)
+    busy = report_profile(prof, "eager [1b]", step_ms)
+    print(f"eager [1b]: device busy {busy:.1f} ms a step against phase 5's "
+          f"{ref_busy:.1f} ms: {busy - ref_busy:+.1f} ms", flush=True)
+    del step, opt, model, batches
+    torch.cuda.empty_cache()
+    ht.shutdown()
+    return launches
+
+
+def sum_bound(xs, eps: float):
+    """Rounding bound of a sum of ``xs`` (one tensor per rank) taken in
+    any order: (n + 1) * eps * sum |x| elementwise."""
+    return (len(xs) + 1) * eps * sum(x.abs() for x in xs)
+
+
+def rank_op_checks(torch, ht, rank: int, n: int, dev) -> int:
+    """Every eager op across the ranks against an oracle the rank computes
+    from every rank's inputs (seeded per rank, rebuilt here).  Copies must
+    be exact; reductions within their rounding bound in the tensor's
+    dtype."""
+    checks = 0
+    for dtype, eps in ((torch.float32, 2.0 ** -24), (torch.bfloat16, 2.0 ** -8)):
+        xs = [torch.randn(64, 257, generator=torch.Generator().manual_seed(
+            100 + r)).to(dtype).double() for r in range(n)]
+        x = xs[rank].to(dev, dtype)
+        prod = xs[0].clone()
+        for t in xs[1:]:
+            prod = prod * t
+        oracle = {
+            ht.Sum: (sum(xs), sum_bound(xs, eps)),
+            ht.Average: (sum(xs) / n, sum_bound(xs, eps) / n),
+            ht.Min: (torch.stack(xs).min(0).values, 0.0),
+            ht.Max: (torch.stack(xs).max(0).values, 0.0),
+            ht.Product: (prod, (n + 1) * eps * prod.abs())}
+
+        def close(name, got, want, bound):
+            nonlocal checks
+            err = (got.double().cpu() - want).abs()
+            over = (err > bound).sum().item()
+            require(got.dtype == dtype and got.device == x.device
+                    and got.shape == want.shape and over == 0,
+                    f"rank {rank} {name} {dtype}: {over} entries off, max "
+                    f"err {err.max().item()}")
+            checks += 1
+        for op, (want, bound) in oracle.items():
+            close(f"allreduce {op.name}", ht.allreduce(x, op=op), want, bound)
+        want, bound = oracle[ht.Sum]
+        close("allreduce scaled", ht.allreduce(
+            x, op=ht.Sum, prescale_factor=2.0, postscale_factor=0.25),
+            want * 0.5, bound * 0.5)
+        y = x.clone()
+        require(ht.allreduce_(y, op=ht.Sum) is y, "allreduce_")
+        close("allreduce_", y, want, bound)
+        handles = [ht.allreduce_async(x, op=ht.Average,
+                                      name=f"ranks.async.{dtype}.{i}")
+                   for i in range(3)]
+        for h in reversed(handles):  # waited in another order
+            close("allreduce_async", ht.synchronize(h), *oracle[ht.Average])
+        g = ht.grouped_allreduce([x, x[:5].float()], op=ht.Sum)
+        close("grouped_allreduce", g[0], want, bound)
+        require(g[1].dtype == torch.float32, "grouped dtype")
+        close("allgather", ht.allgather(x), torch.cat(xs), 0.0)
+        close("broadcast", ht.broadcast(x, root_rank=n - 1), xs[n - 1], 0.0)
+        # rank r sends (r + j) % 3 + 1 rows to rank j
+        send = [(rank + j) % 3 + 1 for j in range(n)]
+        rows = torch.arange(sum(send), dtype=torch.float64)[:, None] \
+            + 1000 * rank
+        out, recv = ht.alltoall(rows.to(dev, dtype).expand(-1, 8).contiguous(),
+                                torch.tensor(send))
+        theirs = [(r + rank) % 3 + 1 for r in range(n)]
+        expect = torch.cat([
+            (torch.arange(sum((r + j) % 3 + 1 for j in range(rank)),
+                          sum((r + j) % 3 + 1 for j in range(rank + 1)),
+                          dtype=torch.float64) + 1000 * r)[:, None]
+            for r in range(n)]).expand(-1, 8).to(dtype).double()
+        require(recv.tolist() == theirs, f"alltoall splits {recv.tolist()}")
+        close("alltoall", out, expect, 0.0)
+        rs = ht.reducescatter(x, op=ht.Sum)
+        rows_per = 64 // n
+        sl = slice(rank * rows_per, (rank + 1) * rows_per)
+        close("reducescatter", rs, want[sl], bound[sl])
+    ht.barrier()
+    return checks
+
+
+def rank_train(torch, np, hvd, ht, llama, F, mpi_ops, rank, n, dev,
+               cfg_name: str, batch: int, seq: int, eager: bool) -> dict:
+    """The 1b data-parallel step across the ranks through the root
+    package's optimizer or the eager API's hook-driven one: losses, step
+    ms and, on rank 0, one profiled step."""
+    cfg = llama.CONFIGS[cfg_name]
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    adamw = torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01)
+    api = ht if eager else hvd
+    opt = api.DistributedOptimizer(adamw,
+                                   named_parameters=model.named_parameters())
+    api.broadcast_parameters(model.state_dict(), root_rank=0)
+    api.broadcast_optimizer_state(opt, root_rank=0)
+    step = hvd.make_train_step(
+        model, lambda m, ids: llama.loss_fn(m, ids, attn_fn=hvd.flash_attention,
+                                            ce_chunks=8), opt)
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, (batch * n, seq + 1), dtype=np.int32))
+        for _ in range(WARMUP_STEPS + TIMED_STEPS + 1)]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    F.reset_launches()
+    before = mpi_ops.stats() if eager else None
+    losses = [step(b) for b in batches[:WARMUP_STEPS]]
+    sync()
+    t0 = time.perf_counter()
+    for b in batches[WARMUP_STEPS:-1]:
+        losses.append(step(b))
+    sync()
+    dt = time.perf_counter() - t0
+    prof = None
+    if rank == 0 and dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            losses.append(step(batches[-1]))
+            sync()
+    else:
+        losses.append(step(batches[-1]))
+    sync()
+    out = {"losses": [float(x) for x in losses],
+           "step_ms": dt / TIMED_STEPS * 1e3,
+           "launches": dict(F.LAUNCHES), "prof": prof}
+    if eager:
+        after = mpi_ops.stats()
+        out["per_step"] = {k: (after[k] - before[k]) / len(batches)
+                           for k in after}
+    del step, opt, adamw, model
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_worker(rank: int, n: int, store_port: int, ctrl_port: int,
+                cfg_name: str = "1b", device_type: str = "cuda",
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> None:
+    """One rank of ``--ranks N``: one process, one card."""
+    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
+                      HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
+                      HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{store_port}",
+                      HOROVOD_CONTROLLER_PORT=str(ctrl_port))
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as ht
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as F
+    from horovod_tpu_torch.torch import mpi_ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device_type == "cpu":  # a rehearsal on gloo ranks
+        torch.set_num_threads(1)
+    dev = ht.init(device=None if device_type == "cuda" else device_type).device
+    checks = rank_op_checks(torch, ht, rank, n, dev)
+    require(mpi_ops.engine().core is not None, "no native controller")
+    if rank == 0:
+        print(f"ranks [{n}] eager ops: {checks} checks per rank across "
+              f"{n} ranks within their bounds; negotiated "
+              f"{mpi_ops.stats()['responses']} responses", flush=True)
+    runs = {}
+    for eager in (False, True):
+        runs[eager] = rank_train(torch, np, hvd, ht, llama, F, mpi_ops, rank,
+                                 n, dev, cfg_name, batch, seq, eager)
+    direct, hook = runs[False], runs[True]
+    for i, (a, b) in enumerate(zip(direct["losses"], hook["losses"])):
+        require(math.isfinite(a) and abs(a - b) <= EAGER_LOSS_TOL,
+                f"rank {rank} step {i}: hook-path loss {b} vs direct {a}")
+    if device_type == "cuda":
+        for r in runs.values():
+            require(all(v > 0 for v in r["launches"].values()),
+                    f"an attention kernel was not launched: {r['launches']}")
+    if rank == 0:
+        tok = batch * seq
+        for label, r in (("direct", direct), ("eager hook", hook)):
+            print(f"ranks [{n}] {cfg_name} {label}: losses "
+                  + " ".join(f"{x:.5f}" for x in r["losses"])
+                  + f"; step {r['step_ms']:.1f} ms, "
+                  f"{tok / r['step_ms'] * 1e3:.0f} tokens/s per card; "
+                  f"launches {json.dumps(r['launches'])}", flush=True)
+            if r["prof"] is not None:
+                report_profile(r["prof"], f"ranks [{n}] {label}",
+                               r["step_ms"])
+        print(f"ranks [{n}] eager hook path per step: "
+              + ", ".join(f"{v:.1f} {k}" for k, v in
+                          hook["per_step"].items())
+              + f"; step ratio hook / direct "
+              f"{hook['step_ms'] / direct['step_ms']:.3f}", flush=True)
+    ht.shutdown()
+
+
+def phase_ranks(torch, n: int) -> None:
+    """``--ranks N``: the eager path across N cards, one process each."""
+    import torch.multiprocessing as tmp
+    require(torch.cuda.device_count() >= n,
+            f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
+    ctx = tmp.spawn(rank_worker, args=(n, free_port(), free_port()),
+                    nprocs=n, join=False)
+    try:
+        while not ctx.join(timeout=600):
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    ranks = 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--ranks":
+        ranks = int(sys.argv[2])
+    elif len(sys.argv) != 1:
+        print("usage: chip_smoke.py [--ranks N]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import serve
     from horovod_tpu_torch.models import layers as L, llama
-    from horovod_tpu_torch.ops import _kernels, flash_attention as F
+    from horovod_tpu_torch.ops import _kernels, _native, flash_attention as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -696,17 +1126,45 @@ def main() -> int:
     card = smi.splitlines()[0]
     print(card, flush=True)
 
+    # the native controller (g++) builds while nvcc builds the kernels
     t0 = time.perf_counter()
+    core = {}
+
+    def build_core():
+        try:
+            core["lib"] = _native.build()
+        except Exception as e:  # surfaced below, after the kernels' build
+            core["error"] = e
+        core["s"] = time.perf_counter() - t0
+    builder = threading.Thread(target=build_core)
+    builder.start()
     lib = _kernels.build()
     print(f"build: {time.perf_counter() - t0:.1f} s ({lib})", flush=True)
+    builder.join()
+    if "error" in core:
+        raise core["error"]
+    print(f"build: native controller {core['s']:.1f} s ({core['lib']})",
+          flush=True)
     phase_resources(_kernels, lib)
+    if ranks > 1:
+        phase_ranks(torch, ranks)
+        print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     rows = phase_kernels(F, torch, card)
     phase_model(torch, hvd, llama, L)
-    launches = phase_train(torch, np, hvd, llama, F)
+    launches, losses, step_ms, tok_s, busy, params = phase_train(
+        torch, np, hvd, llama, F)
     phase_serve(torch, np, hvd, llama, serve, F, card)
+    eager = phase_eager(torch, np, hvd, llama, F, card, losses, step_ms,
+                        tok_s, busy, params)
+    del params
     for row in rows.values():
         row["launches"] = launches[row["name"]]
+        row["launches_eager"] = eager[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

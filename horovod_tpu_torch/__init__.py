@@ -3,8 +3,10 @@
 Data-parallel training in the Horovod idiom, over ``torch.distributed``
 (NCCL on CUDA, gloo on the CPU), with hand-written Hopper kernels where the
 JAX package has Pallas TPU kernels (flash attention, forward and backward),
-and a continuous-batching serving engine over a paged KV pool
-(``horovod_tpu_torch.serve``).
+a continuous-batching serving engine over a paged KV pool
+(``horovod_tpu_torch.serve``), and Horovod's eager torch API, negotiated
+through the port's own copy of the native controller
+(``horovod_tpu_torch.torch``).
 
     import horovod_tpu_torch as hvd
     hvd.init()                       # device cuda:<local_rank>; device="cpu" for gloo
@@ -13,7 +15,8 @@ and a continuous-batching serving engine over a paged KV pool
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
 
 The package imports neither JAX nor ``horovod_tpu``; the pieces it shares
-with the JAX package (reduce ops, knobs) are its own copies.
+with the JAX package (reduce ops, knobs, exceptions, the native core's
+sources) are its own copies.
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ from . import runtime as _rt
 from . import serve
 from .common.reduce_op import (ReduceOp, Average, Sum, Adasum, Min, Max,
                                Product)
-from .functions import broadcast_parameters, broadcast_optimizer_state
+from .functions import (broadcast_parameters, broadcast_optimizer_state,
+                        broadcast_object, allgather_object)
 from .ops import spmd
 from .ops.flash_attention import flash_attention
 from .optimizer import DistributedOptimizer, sync_gradients
-from .parallel.data_parallel import make_train_step
+from .parallel.data_parallel import (cast_params, make_microbatched_train_step,
+                                     make_scanned_train_step, make_train_step)
 from .runtime import init, shutdown, is_initialized
 
 
@@ -69,6 +74,8 @@ __all__ = [
     "is_homogeneous",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "DistributedOptimizer", "sync_gradients", "spmd",
-    "broadcast_parameters", "broadcast_optimizer_state",
-    "flash_attention", "make_train_step", "serve",
+    "broadcast_parameters", "broadcast_optimizer_state", "broadcast_object",
+    "allgather_object",
+    "flash_attention", "make_train_step", "make_microbatched_train_step",
+    "make_scanned_train_step", "cast_params", "serve",
 ]

@@ -1,7 +1,8 @@
 """The ``HOROVOD_*`` knobs this port reads: its own copy of the entries of
-``horovod_tpu/common/knobs.py`` that the data-parallel training path and the
-serving engine (``serve/config.py`` ``from_knobs``) need, with the same
-names, defaults and parsing (env > override > default)."""
+``horovod_tpu/common/knobs.py`` that the data-parallel training path, the
+eager API's controller (``runtime.ensure_core``) and the serving engine
+(``serve/config.py`` ``from_knobs``) need, with the same names, defaults
+and parsing (env > override > default)."""
 
 from __future__ import annotations
 
@@ -47,6 +48,26 @@ _knob("HOROVOD_LOCAL_SIZE", -1, int, "Process count on this host.")
 _knob("HOROVOD_COORDINATOR_ADDR", "", str,
       "host:port of the rendezvous for multi-process runs (rank 0 serves "
       "the torch.distributed TCP store there).")
+
+# --- the eager API's native controller (runtime.ensure_core) ---
+_knob("HOROVOD_CONTROLLER", "auto", str,
+      "Eager-mode coordination controller: 'auto' (tcp when multi-process, "
+      "none single-process), 'tcp', or 'none'.")
+_knob("HOROVOD_CONTROLLER_PORT", 29499, int,
+      "TCP port of the rank-0 controller listener.")
+_knob("HOROVOD_CYCLE_TIME", 1.0, float,
+      "Background coordination cycle time in milliseconds (eager frontends).")
+_knob("HOROVOD_STALL_CHECK_TIME_SECONDS", 60, int,
+      "Warn when ranks disagree about a tensor for this long.")
+_knob("HOROVOD_AUTOTUNE", False, _parse_bool,
+      "Enable Bayesian autotuning of fusion threshold and cycle time. Not "
+      "ported yet: setting it raises at init.")
+_knob("HOROVOD_TIMELINE", "", str,
+      "Path of the Chrome-trace timeline JSON; empty disables. Not ported "
+      "yet: setting it raises at init.")
+_knob("HOROVOD_FLIGHT_RECORD", "", str,
+      "Path of this rank's crash-time flight record. Not ported yet: "
+      "setting it raises at init.")
 
 _knob("HOROVOD_SERVE_PORT", 0, int,
       "Port of the serving fleet's request router (0 = ephemeral). Must be "

@@ -1,11 +1,17 @@
-"""Broadcast parameters and optimizer state from a root rank: the port of
-``horovod_tpu/functions.py``'s ``broadcast_parameters`` and
-``broadcast_optimizer_state`` (Horovod's startup and resume convention:
-rank 0 loads, every other rank receives)."""
+"""Broadcast parameters, optimizer state and objects from a root rank, and
+gather objects: the port of ``horovod_tpu/functions.py``
+(``broadcast_parameters``, ``broadcast_optimizer_state``,
+``broadcast_object``, ``allgather_object``), Horovod's startup and resume
+convention: rank 0 loads, every other rank receives.
+
+These call the process group directly, in the same order on every rank;
+the eager API's negotiated forms are in ``horovod_tpu_torch.torch``.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Iterable, Mapping, Tuple, Union
+import pickle
+from typing import Any, Iterable, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -45,19 +51,100 @@ def _broadcast_any_device(t: torch.Tensor, root_rank: int) -> None:
         dist.broadcast(t, src=root_rank)
 
 
+def create_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
+    """Give an optimizer that has not stepped yet its state, as the
+    reference does: one step of the wrapped class (not of a distributed
+    wrapper, whose step would wait for the other ranks) with zero
+    gradients.  The step may move the parameters (AdamW's weight decay
+    applies to a zero gradient too): broadcast them afterwards."""
+    if optimizer.state:
+        return
+    if isinstance(optimizer, torch.optim.LBFGS):
+        raise ValueError("cannot broadcast torch.optim.LBFGS state")
+    given = []
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.requires_grad and p.grad is None:
+                p.grad = torch.zeros_like(p)
+                given.append(p)
+    cls = type(optimizer)
+    while cls.__dict__.get("_hvd_wrapper"):
+        cls = cls.__mro__[1]
+    cls.step(optimizer)
+    for p in given:
+        p.grad = None
+
+
+def state_items(optimizer: torch.optim.Optimizer):
+    """``((group, index, key), state, key)`` for every state entry of every
+    parameter, in the same order on every rank: parameters by their place
+    in ``param_groups``, keys sorted."""
+    for gi, group in enumerate(optimizer.param_groups):
+        for pi, p in enumerate(group["params"]):
+            state = optimizer.state.get(p, {})
+            for key in sorted(state):
+                yield (gi, pi, key), state, key
+
+
 @torch.no_grad()
 def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
                               root_rank: int = 0) -> None:
     """Overwrite every rank's optimizer state in place with ``root_rank``'s:
-    tensors by broadcast, other values by object broadcast."""
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            state = optimizer.state.get(p, {})
-            for key in sorted(state):
-                value: Any = state[key]
-                if torch.is_tensor(value):
-                    _broadcast_any_device(value, root_rank)
-                else:
-                    box = [value]
-                    dist.broadcast_object_list(box, src=root_rank)
-                    state[key] = box[0]
+    tensors by broadcast, other values by one object broadcast.  A rank
+    whose optimizer has not stepped creates its state first
+    (``create_optimizer_state``), so every rank makes the same
+    broadcasts."""
+    create_optimizer_state(optimizer)
+    scalars = {}
+    for where, state, key in state_items(optimizer):
+        if torch.is_tensor(state[key]):
+            _broadcast_any_device(state[key], root_rank)
+        else:
+            scalars[where] = state[key]
+    if scalars:
+        scalars = broadcast_object(scalars, root_rank)
+        for where, state, key in state_items(optimizer):
+            if where in scalars:
+                state[key] = scalars[where]
+
+
+def _bytes_tensor(payload: bytes, device: torch.device) -> torch.Tensor:
+    return torch.frombuffer(bytearray(payload), dtype=torch.uint8).to(device)
+
+
+def broadcast_object(obj: Any, root_rank: int = 0,
+                     name: Optional[str] = None) -> Any:
+    """``root_rank``'s picklable ``obj`` on every rank: the pickle's length
+    is broadcast first, then its bytes."""
+    del name  # the collectives here are not negotiated
+    rt = _rt.get()
+    if rt.size() == 1:
+        return obj
+    payload = pickle.dumps(obj) if rt.rank() == root_rank else b""
+    size = torch.tensor([len(payload)], dtype=torch.int64, device=rt.device)
+    dist.broadcast(size, src=root_rank)
+    buf = torch.zeros(int(size.item()), dtype=torch.uint8, device=rt.device)
+    if rt.rank() == root_rank:
+        buf.copy_(_bytes_tensor(payload, rt.device))
+    dist.broadcast(buf, src=root_rank)
+    return pickle.loads(buf.cpu().numpy().tobytes())
+
+
+def allgather_object(obj: Any, name: Optional[str] = None) -> List[Any]:
+    """Every rank's picklable ``obj``, in rank order."""
+    del name
+    rt = _rt.get()
+    if rt.size() == 1:
+        return [obj]
+    payload = pickle.dumps(obj)
+    sizes = [torch.zeros(1, dtype=torch.int64, device=rt.device)
+             for _ in range(rt.size())]
+    dist.all_gather(sizes, torch.tensor([len(payload)], dtype=torch.int64,
+                                        device=rt.device))
+    lengths = [int(s.item()) for s in sizes]
+    buf = torch.zeros(max(lengths), dtype=torch.uint8, device=rt.device)
+    buf[:len(payload)] = _bytes_tensor(payload, rt.device)
+    parts = [torch.empty_like(buf) for _ in range(rt.size())]
+    dist.all_gather(parts, buf)
+    return [pickle.loads(p[:n].cpu().numpy().tobytes())
+            for p, n in zip(parts, lengths)]

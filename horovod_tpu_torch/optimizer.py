@@ -9,9 +9,10 @@ follows the JAX wrapper: every ``step()`` adds the current gradients into an
 accumulator, and every n-th ``step()`` syncs their mean and applies the
 update; the other calls leave the parameters alone.
 
-The sync runs at ``step()``.  Overlapping it with the backward through hooks,
-wire formats other than 'none' and compression come in later slices and
-raise here.
+The sync runs at ``step()``.  The eager API's ``DistributedOptimizer``
+(``horovod_tpu_torch.torch``) starts it during the backward through
+gradient hooks instead.  Wire formats other than 'none' and compression
+come in later slices and raise here.
 """
 
 from __future__ import annotations
@@ -75,6 +76,8 @@ def sync_gradients(params_or_grads: Iterable[torch.Tensor],
 
 class _DistributedOptimizer(torch.optim.Optimizer):
     """Methods merged into a subclass of the wrapped optimizer's class."""
+
+    _hvd_wrapper = True
 
     def __init__(self, params, op, backward_passes_per_step,
                  fusion_threshold_bytes):

@@ -1,18 +1,25 @@
-"""Data-parallel training step: the port of
-``horovod_tpu/parallel/data_parallel.py``'s ``make_train_step``.
+"""Data-parallel training steps: the port of
+``horovod_tpu/parallel/data_parallel.py`` (``cast_params``,
+``make_train_step``, ``make_microbatched_train_step``,
+``make_scanned_train_step``).
 
 Every rank holds the whole model.  ``step(*batch)`` takes the global batch,
 runs ``loss_fn`` on this rank's rows of it, backpropagates, and calls the
 optimizer, which (wrapped in ``DistributedOptimizer``) allreduces the
 gradients before its update, so parameters stay identical on every rank.
 The loss it returns is the mean over ranks, as the JAX step's ``pmean``.
-The JAX package's ``make_scanned_train_step`` device loop is, in PyTorch, a
-Python loop over ``step``.
+
+Mixed precision the JAX package's way (``compute_dtype``): the parameters
+and the optimizer state stay in their storage dtype (fp32 master weights),
+and the loss runs on a copy cast to ``compute_dtype`` (bf16), substituted
+for the module's parameters by ``torch.func.functional_call``; autograd
+differentiates through the cast, so the gradients arrive in fp32.  The
+JAX package's device loops (``lax.scan``) are Python loops here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Mapping, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -31,6 +38,62 @@ def local_shard(x: torch.Tensor, rank: int, size: int) -> torch.Tensor:
     return x[rank * n:(rank + 1) * n]
 
 
+def cast_params(tree: Any, dtype: torch.dtype) -> Any:
+    """Cast the floating tensors of a mapping, list or tuple of tensors
+    (nested) to ``dtype``; other leaves pass through.  Differentiable."""
+    if torch.is_tensor(tree):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, Mapping):
+        return {k: cast_params(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_params(v, dtype) for v in tree)
+    return tree
+
+
+class _LossOf(torch.nn.Module):
+    """``loss_fn(model, *batch)`` as a module holding ``model``, so
+    ``functional_call`` can run it on substituted parameters."""
+
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, *batch):
+        return self.loss_fn(self.model, *batch)
+
+
+def _compute_cast(model: Any, loss_fn: Callable,
+                  compute_dtype: Optional[torch.dtype]) -> Callable:
+    """``batch -> loss`` with ``model``'s parameters cast to
+    ``compute_dtype`` for the forward (None: as they are)."""
+    if compute_dtype is None:
+        return lambda *batch: loss_fn(model, *batch)
+    if not isinstance(model, torch.nn.Module):
+        return lambda *batch: loss_fn(cast_params(model, compute_dtype),
+                                      *batch)
+    wrapper = _LossOf(model, loss_fn)
+
+    def fn(*batch):
+        params = {f"model.{n}": p for n, p in model.named_parameters()}
+        return torch.func.functional_call(
+            wrapper, cast_params(params, compute_dtype), batch)
+    return fn
+
+
+def _rank_size():
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _rank_mean(loss: torch.Tensor, size: int) -> torch.Tensor:
+    mean = loss.detach().float().clone()
+    if size > 1:
+        spmd.allreduce(mean, op=Average)
+    return mean
+
+
 def make_train_step(model_or_params: Any,
                     loss_fn: Callable[..., torch.Tensor],
                     optimizer: torch.optim.Optimizer) -> Callable:
@@ -40,8 +103,7 @@ def make_train_step(model_or_params: Any,
     loss; ``optimizer`` holds the parameters and, to sync them, is a
     ``DistributedOptimizer``.  Batch tensors are moved to the runtime's
     device; the returned loss stays there (no host sync)."""
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    size = dist.get_world_size() if dist.is_initialized() else 1
+    rank, size = _rank_size()
     device = _rt.resolve_device()
 
     def step(*batch: torch.Tensor) -> torch.Tensor:
@@ -51,9 +113,57 @@ def make_train_step(model_or_params: Any,
         loss = loss_fn(model_or_params, *local)
         loss.backward()
         optimizer.step()
-        mean = loss.detach().float().clone()
-        if size > 1:
-            spmd.allreduce(mean, op=Average)
-        return mean
+        return _rank_mean(loss, size)
 
     return step
+
+
+def make_microbatched_train_step(model: Any, loss_fn: Callable[..., torch.Tensor],
+                                 optimizer: torch.optim.Optimizer,
+                                 backward_passes_per_step: int,
+                                 compute_dtype: Optional[torch.dtype] = None
+                                 ) -> Callable:
+    """Build ``step(batch) -> loss``: ONE optimizer update over ``k =
+    backward_passes_per_step`` microbatches.  ``batch`` is ``[k,
+    global_batch, ...]``; each microbatch's rows are split over the ranks,
+    run forward and backward, and handed to ``optimizer.step()``, which must
+    be the port's ``DistributedOptimizer`` made with the same
+    ``backward_passes_per_step``: it accumulates the k gradients and
+    applies their synced mean on the k-th call.  Returns the mean over the
+    microbatches of the rank-mean loss."""
+    k = backward_passes_per_step
+    if k < 1:
+        raise ValueError("backward_passes_per_step must be >= 1")
+    rank, size = _rank_size()
+    device = _rt.resolve_device()
+    fn = _compute_cast(model, loss_fn, compute_dtype)
+
+    def step(batch: torch.Tensor) -> torch.Tensor:
+        if batch.shape[0] != k:
+            raise ValueError(f"batch has {batch.shape[0]} microbatches, "
+                             f"backward_passes_per_step is {k}")
+        losses = []
+        for mb in batch:
+            optimizer.zero_grad(set_to_none=True)
+            loss = fn(local_shard(mb, rank, size).to(device,
+                                                     non_blocking=True))
+            loss.backward()
+            optimizer.step()
+            losses.append(_rank_mean(loss, size))
+        return torch.stack(losses).mean()
+
+    return step
+
+
+def make_scanned_train_step(model: Any, loss_fn: Callable[..., torch.Tensor],
+                            optimizer: torch.optim.Optimizer) -> Callable:
+    """Build ``run(batches) -> losses``: ``batches.shape[0]`` optimizer
+    steps, one per ``[global_batch, ...]`` slice, as a loop over
+    ``make_train_step``'s step; ``losses`` has one rank-mean loss per
+    step."""
+    step = make_train_step(model, loss_fn, optimizer)
+
+    def run(batches: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.stack([step(b) for b in batches])
+
+    return run

@@ -8,6 +8,14 @@ group rendezvouses at ``HOROVOD_COORDINATOR_ADDR`` with rank
 port.  The device is ``cuda:<local_rank>`` unless the caller passes
 ``device="cpu"``; with no CUDA device and no ``device="cpu"``, ``init``
 raises.
+
+The eager API (``horovod_tpu_torch.torch``) negotiates its collectives
+through the native controller (``common/basics.py``), which
+``ensure_core`` brings up as ``horovod_tpu/runtime.py``'s does: with
+``HOROVOD_CONTROLLER=tcp`` at ``init``, with ``auto`` (the default) on first
+use when the job has more than one process, never with ``none``.  Rank 0
+listens on ``HOROVOD_CONTROLLER_PORT`` at the host of
+``HOROVOD_COORDINATOR_ADDR`` (127.0.0.1 when unset).
 """
 
 from __future__ import annotations
@@ -53,6 +61,20 @@ class Runtime:
             raise NotImplementedError(
                 "HOROVOD_HIERARCHICAL_ALLREDUCE: the two-level allreduce comes "
                 "with the wire-plane slice")
+        for name in ("HOROVOD_AUTOTUNE", "HOROVOD_TIMELINE",
+                     "HOROVOD_FLIGHT_RECORD"):
+            if knobs[name]:
+                raise NotImplementedError(
+                    f"{name}: the controller's autotuning, timeline and "
+                    "flight recorder come with the measurement-planes slice "
+                    "(ROADMAP queue 1 item 8)")
+        self._controller = knobs["HOROVOD_CONTROLLER"].strip().lower()
+        if self._controller not in ("auto", "tcp", "none"):
+            raise ValueError(
+                f"HOROVOD_CONTROLLER={knobs['HOROVOD_CONTROLLER']!r}: use "
+                "'auto', 'tcp' or 'none'")
+        self.core = None
+        self.eager: Any = None  # the eager API's state (torch/mpi_ops.py)
         self._size = max(knobs["HOROVOD_SIZE"], 1)
         self._rank = max(knobs["HOROVOD_RANK"], 0)
         self._local_rank = max(knobs["HOROVOD_LOCAL_RANK"], 0)
@@ -83,6 +105,28 @@ class Runtime:
                 f"process group is rank {dist.get_rank()} of "
                 f"{dist.get_world_size()}, but the knobs say rank "
                 f"{self._rank} of {self._size}")
+        if self._controller == "tcp":
+            self.ensure_core()
+
+    def ensure_core(self):
+        """The native controller of this rank, brought up on first use
+        (idempotent); None when the eager API runs without negotiation."""
+        if self.core is not None:
+            return self.core
+        if self._controller == "none" or (self._controller == "auto"
+                                          and self._size <= 1):
+            return None
+        from .common.basics import CoordinationCore
+        coord = self.knobs["HOROVOD_COORDINATOR_ADDR"]
+        self.core = CoordinationCore.tcp(
+            rank=self._rank, size=self._size,
+            addr=coord.rsplit(":", 1)[0] if coord else "127.0.0.1",
+            port=self.knobs["HOROVOD_CONTROLLER_PORT"],
+            cycle_ms=self.knobs["HOROVOD_CYCLE_TIME"],
+            fusion_bytes=self.fusion_threshold(),
+            cache_capacity=self.knobs["HOROVOD_CACHE_CAPACITY"],
+            stall_warn_seconds=self.knobs["HOROVOD_STALL_CHECK_TIME_SECONDS"])
+        return self.core
 
     def rank(self) -> int:
         return self._rank
@@ -107,6 +151,10 @@ class Runtime:
         return self.knobs["HOROVOD_FUSION_THRESHOLD"]
 
     def shutdown(self) -> None:
+        if self.core is not None:
+            self.core.shutdown()
+            self.core.close()
+            self.core = None
         if self._owns_group and dist.is_initialized():
             dist.destroy_process_group()
 

@@ -1,0 +1,117 @@
+"""The eager API on two gloo ranks, negotiated through the port's native
+controller over TCP: one spawned run (``torch_port_eager_worker.py``) whose
+checks each rank records, read here by topic.  Oracles: numpy on both
+ranks' inputs, a plain optimizer and BatchNorm on the full batch in the
+same process, and the root rank's optimizer state."""
+
+import os
+import socket
+import sys
+import time
+
+import numpy as np
+import pytest
+import torch.multiprocessing as tmp
+
+import torch_port_eager_worker
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def checks(tmp_path_factory):
+    out_dir = str(tmp_path_factory.mktemp("eager"))
+    ctx = tmp.spawn(torch_port_eager_worker.run,
+                    args=(_free_port(), _free_port(), out_dir),
+                    nprocs=torch_port_eager_worker.SIZE, join=False)
+    deadline = time.monotonic() + 180
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            pytest.fail("gloo ranks did not finish in 180 s")
+    return [np.load(os.path.join(out_dir, f"rank{r}.npy"),
+                    allow_pickle=True).item()
+            for r in range(torch_port_eager_worker.SIZE)]
+
+
+def _assert(checks, prefix):
+    names = [n for n in checks[0] if n.startswith(prefix)]
+    assert names, f"no check named {prefix!r}: {sorted(checks[0])}"
+    failed = {f"rank{r} {n}": c[n][1] for r, c in enumerate(checks)
+              for n in names if not c[n][0]}
+    assert not failed, failed
+
+
+def test_no_part_of_the_run_raised(checks):
+    for c in checks:
+        crashed = {n: v[1] for n, v in c.items() if n.startswith("_")}
+        assert not crashed, crashed
+
+
+@pytest.mark.parametrize("prefix", [
+    "allreduce SUM", "allreduce AVERAGE", "allreduce MIN", "allreduce MAX",
+    "allreduce PRODUCT", "allreduce scaled", "allreduce int", "allreduce bf16",
+    "allreduce_async_", "grouped_allreduce", "allgather", "broadcast",
+    "alltoall", "reducescatter", "barrier", "allreduce grad",
+    "sparse_allreduce_async"])
+def test_eager_op_matches_numpy(checks, prefix):
+    _assert(checks, prefix)
+
+
+@pytest.mark.parametrize("prefix", ["data plane ", "engine mixed scales",
+                                    "engine wait(submit(op))"])
+def test_data_plane_and_engine(checks, prefix):
+    _assert(checks, prefix)
+
+
+def test_opposite_submission_orders(checks):
+    _assert(checks, "opposite submission orders")
+
+
+def test_join_with_uneven_batches(checks):
+    _assert(checks, "join uneven batches")
+
+
+def test_hook_optimizer_matches_full_batch_step(checks):
+    _assert(checks, "optimizer ")
+
+
+def test_sync_batch_norm_matches_full_batch(checks):
+    _assert(checks, "SyncBatchNorm")
+
+
+def test_broadcast_optimizer_state_creates_missing_state(checks):
+    _assert(checks, "broadcast_optimizer_state")
+
+
+def test_ops_were_negotiated(checks):
+    _assert(checks, "negotiated through the controller")
+
+
+def test_chip_smoke_ranks_mode_on_cpu():
+    """``chip_smoke.py --ranks N``'s per-rank path, rehearsed on two gloo
+    ranks with the ``tiny`` config: every eager op against the all-rank
+    oracle within its rounding bound, and the hook-driven optimizer's
+    losses against the root package's optimizer's on the same batches.
+    A failed check raises in its rank."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke
+    ctx = tmp.spawn(chip_smoke.rank_worker,
+                    args=(2, _free_port(), _free_port(), "tiny", "cpu", 2,
+                          32),
+                    nprocs=2, join=False)
+    deadline = time.monotonic() + 120
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.terminate()
+            pytest.fail("gloo ranks did not finish in 120 s")
