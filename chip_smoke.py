@@ -47,20 +47,40 @@ Phases, in order; any failure exits non-zero before the result line:
    for them, step ms and tokens/s beside phase 5's, the profiled step's
    device time against phase 5's, and the kernels' launches in this
    phase;
-8. a ``{"kernels": [...]}`` JSON line, then the
+8. wire: the wire and overlap planes (``ops/wire.py``,
+   ``ops/overlap.py``): (a) the ``1b`` model's fp32 gradients (seeded)
+   packed into the fusion plan's buckets, each bucket's int8 codes and
+   scale, ``int8_roundtrip``, ``local_error`` of every lossy format and
+   bf16/fp16 casts on the card bitwise equal to the CPU's; (b) the ``1b``
+   step over k=2 microbatches of 2 x 2048 (phase 5's batches, 4 steps)
+   through ``DistributedOptimizer(AdamW, wire_policy="auto",
+   error_feedback=True, overlap=True, overlap_depth=1)`` beside the same
+   with wire ``none`` and overlap off: at one rank every bucket is
+   ``none`` and the sync a copy, so losses and final parameters must be
+   bitwise equal; step times, buckets per format, ``wire.stats()`` and
+   the kernels' launches;
+9. a ``{"kernels": [...]}`` JSON line, then the
    ``{"ok": true, "device": {...}}`` JSON line, last.
 
     python3 chip_smoke.py --ranks 4
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, NCCL, the controller negotiating over TCP)
-instead of phases 3-7: each eager op against an oracle of every rank's
+instead of phases 3-8: each eager op against an oracle of every rank's
 inputs, then the ``1b`` step data-parallel at batch 4 x 2048 per rank,
 first through the root package's ``DistributedOptimizer`` (one fused
 allreduce per bucket at ``step()``) and then through the eager API's
 hook-driven one, on the same weights and batches: losses, step ms,
 tokens/s per card, and one profiled step of each on rank 0 (NCCL time,
-idle share).
+idle share).  Then one 128 MiB fp32 bucket through the int8 ring under
+``torch.cuda.set_sync_debug_mode("error")``, and the wire configurations
+(``WIRE_CONFIGS``): ``1b`` with fp32 master weights and bf16 compute, 8
+steps of 4 x 2048 per card, under wire ``none``, ``bf16``, ``fp16``,
+``int8_ring`` and ``auto`` with error feedback, the pipeline at k=4
+(1 x 2048 per card) depth 0 and 1, and, on a second process group laid
+out as two hosts of two ranks, hierarchical ``none`` and ``dcn_int8``:
+step ms, one profiled step's NCCL time, modeled wire bytes per step,
+losses against ``none``'s, and parameters bitwise equal on every rank.
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -69,6 +89,7 @@ TF32 is off for matrix products and convolutions
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -893,6 +914,132 @@ def phase_eager(torch, np, hvd, llama, F, card: str, ref_losses,
     return launches
 
 
+def codec_checks(torch, llama, dev) -> None:
+    """Phase 8a: the 1b model's fp32 gradients (seeded, made per leaf on
+    the card), packed into the fusion plan's 128 MiB buckets; per bucket
+    the int8 codes and scale, ``int8_roundtrip``, ``local_error`` of each
+    lossy format and the bf16/fp16 casts on the card and on the CPU must be
+    bitwise equal."""
+    from horovod_tpu_torch.ops import fusion, quantized, wire
+    from horovod_tpu_torch.ops.compression import Compression
+    from horovod_tpu_torch.runtime import get as hvd_runtime
+    cfg = llama.CONFIGS["1b"]
+    shapes = [tuple(p.shape) for p in llama.Llama(cfg, "meta").parameters()]
+    plan = fusion.make_plan(shapes, [torch.float32] * len(shapes),
+                            hvd_runtime().fusion_threshold())
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def codec(buf):
+        q, scale = quantized._quantize(buf)
+        out = {"codes": q, "scale": scale,
+               "int8_roundtrip": quantized.int8_roundtrip(buf)}
+        for fmt in ("bf16", "fp16"):
+            out[fmt] = Compression.by_name(fmt).compress(buf)[0]
+        for fmt in wire.LOSSY_FORMATS:
+            out[f"local_error {fmt}"] = wire.local_error(buf, fmt)
+        return out
+
+    t0 = time.perf_counter()
+    elems, checks = 0, 0
+    for b in plan.buckets:
+        leaves = [None] * len(shapes)
+        for i in b.indices:  # gradient-sized entries, a scale per leaf
+            leaves[i] = torch.randn(shapes[i], generator=gen, device=dev) \
+                * (10.0 ** (i % 5 - 4))
+        buf = fusion.pack_bucket(leaves, b)
+        card, host = codec(buf), codec(buf.cpu())
+        for name, got in card.items():
+            want = host[name]
+            require(got.dtype == want.dtype and torch.equal(
+                got.cpu().reshape(-1).view(torch.uint8),
+                want.reshape(-1).view(torch.uint8)),
+                f"codec {name} on the card differs from the CPU's in a "
+                f"bucket of {buf.numel()} elements")
+            checks += 1
+        elems += buf.numel()
+        del leaves, buf, card, host
+    print(f"wire [1b codec]: {len(plan.buckets)} fp32 buckets, {elems} "
+          f"elements; {checks} card results (int8 codes and scales, "
+          "int8_roundtrip, local_error of bf16/fp16/int8_ring/dcn_int8, "
+          "bf16 and fp16 casts) bitwise equal to the CPU's "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def phase_wire(torch, np, hvd, llama, F) -> dict:
+    """Phase 8: the wire and overlap planes on one card: the codec against
+    the CPU, then the 1b step over k=2 microbatches through
+    DistributedOptimizer(AdamW, wire_policy='auto', error_feedback=True,
+    overlap=True, overlap_depth=1) beside the same with wire 'none' and
+    overlap off.  At one rank plan_formats forces 'none' and the sync is a
+    copy, so losses and parameters must be bitwise equal."""
+    from horovod_tpu_torch.ops import wire
+    dev = hvd.init().device
+    codec_checks(torch, llama, dev)
+    torch.cuda.empty_cache()
+
+    cfg = llama.CONFIGS["1b"]
+    k, steps = 2, 4
+    rng = np.random.RandomState(0)  # phase 5's batches, 2 x 2048 each half
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ + 1), dtype=np.int32)).to(dev)
+        .view(k, TRAIN_BATCH // k, TRAIN_SEQ + 1) for _ in range(steps)]
+    runs = {}
+    for label, kw in (("auto+EF+overlap", dict(
+            wire_policy="auto", error_feedback=True, overlap=True,
+            overlap_depth=1)), ("none", dict(wire_policy="none",
+                                             overlap=False))):
+        model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01),
+            named_parameters=model.named_parameters(),
+            backward_passes_per_step=k, **kw)
+        step = hvd.make_microbatched_train_step(
+            model, lambda m, ids: llama.loss_fn(
+                m, ids, attn_fn=hvd.flash_attention, ce_chunks=8), opt, k)
+        before = wire.stats()["buckets"]
+        F.reset_launches()
+        losses = [step(batches[0])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(b) for b in batches[1:]]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / (steps - 1) * 1e3
+        after = wire.stats()["buckets"]
+        runs[label] = {
+            "losses": [float(x) for x in losses], "step_ms": step_ms,
+            "launches": dict(F.LAUNCHES),
+            "buckets": {f: n - before.get(f, 0) for f, n in after.items()
+                        if n - before.get(f, 0)},
+            "params": [p.detach().cpu() for p in model.parameters()],
+            "pipelined": opt._hvd_pipeline is not None}
+        del step, opt, model
+        torch.cuda.empty_cache()
+    a, b = runs["auto+EF+overlap"], runs["none"]
+    for label, r in runs.items():
+        print(f"wire [1b {label}] k={k} x {TRAIN_BATCH // k} x {TRAIN_SEQ}: "
+              f"losses " + " ".join(f"{x:.5f}" for x in r["losses"])
+              + f"; step {r['step_ms']:.1f} ms (steps 2-{steps}); buckets "
+              f"synced by format {json.dumps(r['buckets'])}; pipelined "
+              f"{r['pipelined']}; launches {json.dumps(r['launches'])}",
+              flush=True)
+        require(all(v > 0 for v in r["launches"].values()),
+                f"wire [{label}]: an attention kernel was not launched")
+    print(f"wire [1b]: wire.stats() {json.dumps(wire.stats())}", flush=True)
+    require(a["pipelined"] and not b["pipelined"],
+            "the overlap run did not take the pipeline")
+    require(set(a["buckets"]) == {"none"},
+            f"one rank must force every bucket to 'none': {a['buckets']}")
+    same = a["losses"] == b["losses"] and all(
+        torch.equal(x, y) for x, y in zip(a["params"], b["params"]))
+    print(f"wire [1b]: auto+EF+overlap against none, losses and "
+          f"parameters after step {steps} bitwise equal: {same}; step ratio "
+          f"{a['step_ms'] / b['step_ms']:.3f}", flush=True)
+    require(same, "the pipelined auto+EF step differs from the plain one "
+            "at one rank, where both must be bitwise equal")
+    hvd.shutdown()
+    return a["launches"]
+
+
 def sum_bound(xs, eps: float):
     """Rounding bound of a sum of ``xs`` (one tensor per rank) taken in
     any order: (n + 1) * eps * sum |x| elementwise."""
@@ -1023,10 +1170,215 @@ def rank_train(torch, np, hvd, ht, llama, F, mpi_ops, rank, n, dev,
     return out
 
 
+# --ranks N, the wire and overlap planes: (label, ranks per host as a
+# divisor of N (1: flat), microbatches k, optimizer arguments, env knobs)
+WIRE_CONFIGS = (
+    ("none", 1, 1, dict(wire_policy="none", error_feedback=True), {}),
+    ("bf16", 1, 1, dict(wire_policy="bf16", error_feedback=True), {}),
+    ("fp16", 1, 1, dict(wire_policy="fp16", error_feedback=True), {}),
+    ("int8_ring", 1, 1, dict(wire_policy="int8_ring", error_feedback=True),
+     {}),
+    ("auto", 1, 1, dict(wire_policy="auto", error_feedback=True), {}),
+    ("overlap k=4 depth 0", 1, 4, dict(wire_policy="none", overlap=True,
+                                       overlap_depth=0), {}),
+    ("overlap k=4 depth 1", 1, 4, dict(wire_policy="none", overlap=True,
+                                       overlap_depth=1), {}),
+    ("2x2 hierarchical none", 2, 1, dict(wire_policy="none"),
+     {"HOROVOD_HIERARCHICAL_ALLREDUCE": "1"}),
+    ("2x2 dcn_int8", 2, 1, dict(wire_policy="dcn_int8", error_feedback=True),
+     {}),
+)
+
+
+def param_checksums(torch, params):
+    """Two int64 sums of each parameter's bits (plain and position
+    weighted): equal rows on two ranks mean bitwise equal parameters, to
+    a collision's chance."""
+    rows = []
+    for p in params:
+        bits = p.detach().reshape(-1).view(torch.int32).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        rows.append(torch.stack([bits.sum(), (bits * w).sum()]))
+    return torch.stack(rows)
+
+
+def kernel_ms(prof) -> tuple:
+    """(all CUDA kernels' ms, NCCL kernels' ms) of a profiled step."""
+    from torch.autograd import DeviceType
+    busy = nccl = 0.0
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        busy += evt.self_device_time_total / 1e3
+        if kernel_kind(evt.key) == "nccl":
+            nccl += evt.self_device_time_total / 1e3
+    return busy, nccl
+
+
+def ring_sync_free(torch, dev, rank: int) -> None:
+    """One 128 MiB fp32 bucket through the int8 ring under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host wait (no
+    ``.item()``, no branch on the scale); the result equals the warm-up
+    call's and every rank's."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops.quantized import quantized_ring_allreduce
+    gen = torch.Generator(device=dev).manual_seed(100 + rank)
+    x = torch.randn(32 * 1024 * 1024, generator=gen, device=dev)
+    warm = quantized_ring_allreduce(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = quantized_ring_allreduce(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(torch.equal(out, warm), "int8 ring not deterministic")
+    sums = param_checksums(torch, [out])
+    every = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, sums)
+    require(all(torch.equal(e, every[0]) for e in every),
+            "int8 ring results differ across ranks")
+    if rank == 0:
+        print(f"ranks [{dist.get_world_size()}] int8 ring: one 128 MiB fp32 "
+              "bucket under set_sync_debug_mode('error') made no host "
+              "wait; bitwise equal across ranks", flush=True)
+
+
+def rank_wire(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
+              label, k, kw, ref_losses):
+    """One wire configuration of --ranks N: the model with fp32 master
+    weights and bf16 compute (``cast_params``), 8 steps of batch x seq per
+    rank through ``make_microbatched_train_step``; losses, step ms,
+    modeled wire bytes per step, parameters bitwise equal across ranks
+    (checksum allgather), and on rank 0 one profiled step's NCCL time."""
+    import dataclasses
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops import fusion, wire
+    cfg = dataclasses.replace(llama.CONFIGS[cfg_name], dtype=torch.bfloat16)
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev).float()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01),
+        named_parameters=model.named_parameters(),
+        backward_passes_per_step=k, **kw)
+    step = hvd.make_microbatched_train_step(
+        model, lambda m, ids: llama.loss_fn(m, ids, attn_fn=hvd.flash_attention,
+                                            ce_chunks=8), opt, k,
+        compute_dtype=torch.bfloat16)
+    params = list(model.parameters())
+    plan = fusion.make_plan([tuple(p.shape) for p in params],
+                            [p.dtype for p in params],
+                            hvd.runtime.get().fusion_threshold())
+    formats = wire.plan_formats(plan, wire.get_policy(kw["wire_policy"]),
+                                hvd.Average)
+    syncs = k if kw.get("overlap") else 1
+    modeled = syncs * sum(wire.modeled_wire_bytes(
+        sum(b.sizes), b.dtype.itemsize, f, wire._axis_sizes())["bottleneck"]
+        for b, f in zip(plan.buckets, formats))
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, (batch * n, seq + 1), dtype=np.int32)).view(
+            k, batch * n // k, seq + 1)
+        for _ in range(WARMUP_STEPS + TIMED_STEPS + 1)]
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    F.reset_launches()
+    losses = [step(b) for b in batches[:WARMUP_STEPS]]
+    sync()
+    t0 = time.perf_counter()
+    losses += [step(b) for b in batches[WARMUP_STEPS:-1]]
+    sync()
+    step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+    prof_ms = None
+    if rank == 0 and cuda:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            losses.append(step(batches[-1]))
+            sync()
+        prof_ms = kernel_ms(prof)
+    else:
+        losses.append(step(batches[-1]))
+    sync()
+    losses = [float(x) for x in losses]
+    sums = param_checksums(torch, params)
+    every = [torch.empty_like(sums) for _ in range(n)]
+    dist.all_gather(every, sums)
+    equal = all(torch.equal(e, every[0]) for e in every)
+    require(all(math.isfinite(x) for x in losses), f"{label}: loss {losses}")
+    require(equal, f"{label}: parameters differ across the {n} ranks after "
+            f"step {len(losses)}")
+    if cuda:
+        require(all(v > 0 for v in F.LAUNCHES.values()),
+                f"{label}: an attention kernel was not launched")
+    if rank == 0:
+        fmts = {f: formats.count(f) for f in sorted(set(formats))}
+        gaps = ("" if ref_losses is None else "; loss - none's: " + " ".join(
+            f"{a - b:+.2e}" for a, b in zip(losses, ref_losses)))
+        print(f"ranks [{n}] wire {label} ({cfg_name}, fp32 master weights, "
+              f"bf16 compute, k={k} x {batch * n // k} x {seq}): step "
+              f"{step_ms:.1f} ms; "
+              + ("not profiled" if prof_ms is None else
+                 f"profiled step: kernels {prof_ms[0]:.1f} ms (idle share "
+                 f"{max(0.0, 1 - prof_ms[0] / step_ms):.3f}), NCCL "
+                 f"{prof_ms[1]:.1f} ms")
+              + f"; modeled wire bytes/step "
+              f"{modeled:.0f} (buckets by format {json.dumps(fmts)}); "
+              f"losses " + " ".join(f"{x:.5f}" for x in losses) + gaps
+              + f"; parameters bitwise equal on all {n} ranks: {equal}"
+              + (f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f}"
+                 " GiB" if cuda else ""), flush=True)
+    del step, opt, model, params
+    gc.collect()  # every configuration starts from the same free memory
+    if cuda:
+        torch.cuda.empty_cache()
+    return losses
+
+
+def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
+               local: int, ref_losses):
+    """The WIRE_CONFIGS of one layout (``local`` ranks per host)."""
+    for label, div, k, kw, env in WIRE_CONFIGS:
+        if n // div != local:
+            continue
+        os.environ.update(env)
+        try:
+            losses = rank_wire(torch, np, hvd, llama, F, rank, n, dev,
+                               cfg_name, batch, seq, label, k, kw,
+                               ref_losses)
+        finally:
+            for key in env:
+                os.environ.pop(key)
+        if ref_losses is None:
+            ref_losses = losses
+    return ref_losses
+
+
 def rank_worker(rank: int, n: int, store_port: int, ctrl_port: int,
                 cfg_name: str = "1b", device_type: str = "cuda",
-                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> None:
-    """One rank of ``--ranks N``: one process, one card."""
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                wire_port: int = 0) -> None:
+    """One rank of ``--ranks N``: one process, one card.  With N >= 4 and
+    even, the two-level wire configurations run on a second process group
+    (at ``wire_port``) laid out as two hosts of N/2 ranks.  A rank that
+    fails prints its traceback and exits at once: its peers, waiting in a
+    collective, are then ended by the spawning process instead of waiting
+    out NCCL's timeout."""
+    try:
+        rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type,
+                 batch, seq, wire_port)
+    except BaseException:
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
+             seq, wire_port) -> None:
     os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
                       HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
                       HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{store_port}",
@@ -1076,7 +1428,26 @@ def rank_worker(rank: int, n: int, store_port: int, ctrl_port: int,
                           hook["per_step"].items())
               + f"; step ratio hook / direct "
               f"{hook['step_ms'] / direct['step_ms']:.3f}", flush=True)
+    if device_type == "cuda":
+        ring_sync_free(torch, dev, rank)
+    ref = rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch,
+                     seq, n, None)
     ht.shutdown()
+    if n < 4 or n % 2:
+        if rank == 0:
+            print(f"ranks [{n}] two-level wire configurations need 4 or "
+                  "more ranks, an even number: not run", flush=True)
+        return
+    # two "hosts" on this one: each process keeps its own card
+    os.environ.update(HOROVOD_LOCAL_RANK=str(rank % (n // 2)),
+                      HOROVOD_LOCAL_SIZE=str(n // 2),
+                      HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{wire_port}",
+                      HOROVOD_CONTROLLER="none")
+    hvd.init(device=dev)
+    require(hvd.runtime.get().hierarchy is not None, "no two-level layout")
+    rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
+               n // 2, ref)
+    hvd.shutdown()
 
 
 def phase_ranks(torch, n: int) -> None:
@@ -1084,7 +1455,9 @@ def phase_ranks(torch, n: int) -> None:
     import torch.multiprocessing as tmp
     require(torch.cuda.device_count() >= n,
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
-    ctx = tmp.spawn(rank_worker, args=(n, free_port(), free_port()),
+    ctx = tmp.spawn(rank_worker, args=(n, free_port(), free_port(), "1b",
+                                       "cuda", TRAIN_BATCH, TRAIN_SEQ,
+                                       free_port()),
                     nprocs=n, join=False)
     try:
         while not ctx.join(timeout=600):
@@ -1162,9 +1535,11 @@ def main() -> int:
     eager = phase_eager(torch, np, hvd, llama, F, card, losses, step_ms,
                         tok_s, busy, params)
     del params
+    wire = phase_wire(torch, np, hvd, llama, F)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
+        row["launches_wire"] = wire[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,12 @@
 Data-parallel training in the Horovod idiom, over ``torch.distributed``
 (NCCL on CUDA, gloo on the CPU), with hand-written Hopper kernels where the
 JAX package has Pallas TPU kernels (flash attention, forward and backward),
-a continuous-batching serving engine over a paged KV pool
-(``horovod_tpu_torch.serve``), and Horovod's eager torch API, negotiated
-through the port's own copy of the native controller
-(``horovod_tpu_torch.torch``).
+per-bucket wire formats for the gradient sync (bf16/fp16 casts, the int8
+quantized ring, two-level routing, error feedback; ``ops/wire.py``), the
+pipelined microbatch sync (``ops/overlap.py``), a continuous-batching
+serving engine over a paged KV pool (``horovod_tpu_torch.serve``), and
+Horovod's eager torch API, negotiated through the port's own copy of the
+native controller (``horovod_tpu_torch.torch``).
 
     import horovod_tpu_torch as hvd
     hvd.init()                       # device cuda:<local_rank>; device="cpu" for gloo
@@ -27,9 +29,11 @@ from .common.reduce_op import (ReduceOp, Average, Sum, Adasum, Min, Max,
                                Product)
 from .functions import (broadcast_parameters, broadcast_optimizer_state,
                         broadcast_object, allgather_object)
-from .ops import spmd
+from .ops import overlap, spmd, wire
+from .ops.compression import Compression
 from .ops.flash_attention import flash_attention
-from .optimizer import DistributedOptimizer, sync_gradients
+from .optimizer import (DistributedOptimizer, sync_gradients,
+                        sync_gradients_ef, wire_residual_report)
 from .parallel.data_parallel import (cast_params, make_microbatched_train_step,
                                      make_scanned_train_step, make_train_step)
 from .runtime import init, shutdown, is_initialized
@@ -73,7 +77,8 @@ __all__ = [
     "rank", "size", "local_rank", "local_size", "cross_rank", "cross_size",
     "is_homogeneous",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
-    "DistributedOptimizer", "sync_gradients", "spmd",
+    "DistributedOptimizer", "sync_gradients", "sync_gradients_ef",
+    "wire_residual_report", "Compression", "spmd", "wire", "overlap",
     "broadcast_parameters", "broadcast_optimizer_state", "broadcast_object",
     "allgather_object",
     "flash_attention", "make_train_step", "make_microbatched_train_step",

@@ -1,8 +1,10 @@
 """The ``HOROVOD_*`` knobs this port reads: its own copy of the entries of
 ``horovod_tpu/common/knobs.py`` that the data-parallel training path, the
-eager API's controller (``runtime.ensure_core``) and the serving engine
-(``serve/config.py`` ``from_knobs``) need, with the same names, defaults
-and parsing (env > override > default)."""
+wire and overlap planes, the eager API's controller
+(``runtime.ensure_core``) and the serving engine (``serve/config.py``
+``from_knobs``) need, with the same names, defaults and parsing (env >
+override > default); ``current`` reads one live (env > the runtime's
+snapshot > default)."""
 
 from __future__ import annotations
 
@@ -36,11 +38,34 @@ _knob("HOROVOD_FUSION_THRESHOLD", 128 * 1024 * 1024, int,
       "flat buckets of at most this size before a single fused allreduce.")
 _knob("HOROVOD_CACHE_CAPACITY", 1024, int,
       "Bucket-plan cache capacity (entries). 0 disables caching.")
-_knob("HOROVOD_WIRE_POLICY", "none", str,
-      "Per-bucket wire format of the fused gradient sync. The port "
-      "implements 'none' only.")
 _knob("HOROVOD_HIERARCHICAL_ALLREDUCE", False, _parse_bool,
-      "Two-level allreduce. Not ported yet: setting it raises at init.")
+      "Two-level allreduce on a two-level layout (1 < HOROVOD_LOCAL_SIZE < "
+      "HOROVOD_SIZE): reduce-scatter inside the host, allreduce across "
+      "hosts, allgather inside the host (parallel/hierarchical.py).")
+_knob("HOROVOD_HIERARCHICAL_ALLGATHER", False, _parse_bool,
+      "Two-level allgather on a two-level layout: gather inside the host, "
+      "then across hosts, in host-major order.")
+# --- the wire-policy plane (ops/wire.py) ---
+_knob("HOROVOD_WIRE_POLICY", "none", str,
+      "Per-bucket wire format for the fused gradient sync (ops/wire.py): "
+      "'none', 'bf16', 'fp16', 'int8_ring', 'dcn_int8' apply one format to "
+      "every bucket; 'auto' picks per bucket by (nbytes, dtype, layout).  "
+      "Unknown names fail at init().")
+_knob("HOROVOD_WIRE_EF", True, _parse_bool,
+      "Error-feedback residuals for lossy wire formats (EF-SGD): the "
+      "per-bucket quantization/cast error is kept per parameter and added "
+      "back into the next step's gradient before compression.  Only "
+      "consulted when a lossy wire policy is requested by argument.")
+# --- the overlap plane (ops/overlap.py) ---
+_knob("HOROVOD_OVERLAP", False, _parse_bool,
+      "Enable the overlap plane (ops/overlap.py): with "
+      "backward_passes_per_step > 1 the fused gradient sync of microbatch "
+      "i runs on a side stream while microbatch i+1's forward/backward "
+      "computes (numerically a scheduling change only).")
+_knob("HOROVOD_OVERLAP_DEPTH", 1, int,
+      "Microbatch-pipeline depth: how many gradient syncs may be in flight "
+      "before the oldest is waited for.  Must be in [1, 8]; rejected at "
+      "init() otherwise.")
 _knob("HOROVOD_RANK", -1, int, "Global process rank assigned by the launcher.")
 _knob("HOROVOD_SIZE", -1, int, "Global process count assigned by the launcher.")
 _knob("HOROVOD_LOCAL_RANK", -1, int, "Process rank within its host.")
@@ -126,3 +151,17 @@ class Knobs:
 
     def __getitem__(self, name: str) -> Any:
         return self._values[name]
+
+
+def current(name: str) -> Any:
+    """Live value of a knob: env > the initialized runtime's snapshot >
+    default, so tests and launchers switch a plane without re-running
+    ``init``."""
+    knob = KNOBS[name]
+    env = os.environ.get(name, "")
+    if env != "":
+        return knob.parse(env)
+    from .. import runtime as _rt
+    if _rt.is_initialized():
+        return _rt.get().knobs[name]
+    return knob.default

@@ -97,11 +97,9 @@ def broadcast_(tensors: Sequence[Tensor], root_rank: int = 0,
 
 def allgather(tensor: Tensor) -> Tensor:
     """Every rank's ``tensor`` (the same shape on every rank) concatenated
-    along dim 0, in rank order; a 0-dim tensor counts as one row."""
-    t = tensor.reshape(1) if tensor.dim() == 0 else tensor.contiguous()
-    parts = [torch.empty_like(t) for _ in range(_size())]
-    dist.all_gather(parts, t)
-    return torch.cat(parts)
+    along dim 0, in rank order; a 0-dim tensor counts as one row.  Two-level
+    under HOROVOD_HIERARCHICAL_ALLGATHER (``spmd.allgather``)."""
+    return spmd.allgather(tensor.reshape(1) if tensor.dim() == 0 else tensor)
 
 
 def allgather_ragged(tensor: Tensor) -> Tensor:

@@ -121,7 +121,9 @@ def make_train_step(model_or_params: Any,
 def make_microbatched_train_step(model: Any, loss_fn: Callable[..., torch.Tensor],
                                  optimizer: torch.optim.Optimizer,
                                  backward_passes_per_step: int,
-                                 compute_dtype: Optional[torch.dtype] = None
+                                 compute_dtype: Optional[torch.dtype] = None,
+                                 overlap: Optional[bool] = None,
+                                 overlap_depth: Optional[int] = None
                                  ) -> Callable:
     """Build ``step(batch) -> loss``: ONE optimizer update over ``k =
     backward_passes_per_step`` microbatches.  ``batch`` is ``[k,
@@ -129,11 +131,19 @@ def make_microbatched_train_step(model: Any, loss_fn: Callable[..., torch.Tensor
     run forward and backward, and handed to ``optimizer.step()``, which must
     be the port's ``DistributedOptimizer`` made with the same
     ``backward_passes_per_step``: it accumulates the k gradients and
-    applies their synced mean on the k-th call.  Returns the mean over the
+    applies their synced mean on the k-th call, or, with the overlap plane
+    on, syncs each microbatch's gradients on the side stream while the
+    next microbatch computes (``ops/overlap.py``).  ``overlap`` and
+    ``overlap_depth``, when given, set the optimizer's pipeline
+    (``set_overlap``); else it keeps its own.  Returns the mean over the
     microbatches of the rank-mean loss."""
     k = backward_passes_per_step
     if k < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
+    if overlap is not None or overlap_depth is not None:
+        if not hasattr(optimizer, "set_overlap"):
+            raise ValueError("overlap needs the port's DistributedOptimizer")
+        optimizer.set_overlap(overlap, overlap_depth)
     rank, size = _rank_size()
     device = _rt.resolve_device()
     fn = _compute_cast(model, loss_fn, compute_dtype)
@@ -149,8 +159,13 @@ def make_microbatched_train_step(model: Any, loss_fn: Callable[..., torch.Tensor
                                                      non_blocking=True))
             loss.backward()
             optimizer.step()
-            losses.append(_rank_mean(loss, size))
-        return torch.stack(losses).mean()
+            losses.append(loss.detach().float())
+        # one reduction after the last microbatch: a collective on the
+        # caller's stream between microbatches would queue behind the
+        # pipeline's gradient sync in flight (a process group runs its
+        # collectives on one NCCL stream, in issue order) and hold the
+        # next microbatch's compute until that sync finished
+        return _rank_mean(torch.stack(losses), size).mean()
 
     return step
 

@@ -27,8 +27,10 @@ from typing import Any, Optional, Union
 import torch
 import torch.distributed as dist
 
-from .common.knobs import Knobs
+from .common.knobs import Knobs, current
 from .ops.fusion import BucketPlanCache
+from .ops.overlap import validate_overlap_knobs
+from .ops.wire import validate_policy_name
 
 _runtime: Optional["Runtime"] = None
 _lock = threading.Lock()
@@ -46,21 +48,15 @@ def _pick_device(device: Union[str, torch.device, None],
 
 
 class Runtime:
-    """Holds the process group, the device, the knobs and the bucket-plan
+    """Holds the process group (and, on a two-level layout, this rank's
+    host and cross-host groups), the device, the knobs and the bucket-plan
     cache of this process."""
 
     def __init__(self, knobs: Knobs,
                  device: Union[str, torch.device, None] = None):
         self.knobs = knobs
-        if knobs["HOROVOD_WIRE_POLICY"] != "none":
-            raise NotImplementedError(
-                f"HOROVOD_WIRE_POLICY={knobs['HOROVOD_WIRE_POLICY']!r}: the "
-                "port implements wire policy 'none' only; wire formats come "
-                "in a later slice")
-        if knobs["HOROVOD_HIERARCHICAL_ALLREDUCE"]:
-            raise NotImplementedError(
-                "HOROVOD_HIERARCHICAL_ALLREDUCE: the two-level allreduce comes "
-                "with the wire-plane slice")
+        validate_policy_name(knobs["HOROVOD_WIRE_POLICY"])
+        validate_overlap_knobs(knobs)
         for name in ("HOROVOD_AUTOTUNE", "HOROVOD_TIMELINE",
                      "HOROVOD_FLIGHT_RECORD"):
             if knobs[name]:
@@ -80,6 +76,12 @@ class Runtime:
         self._local_rank = max(knobs["HOROVOD_LOCAL_RANK"], 0)
         local_size = knobs["HOROVOD_LOCAL_SIZE"]
         self._local_size = local_size if local_size > 0 else self._size
+        if 1 < self._local_size < self._size and \
+                self._size % self._local_size:
+            raise ValueError(
+                f"HOROVOD_LOCAL_SIZE={self._local_size} does not divide "
+                f"HOROVOD_SIZE={self._size}: a two-level layout needs as "
+                "many ranks on every host")
         self.device = _pick_device(device, self._local_rank)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -105,8 +107,23 @@ class Runtime:
                 f"process group is rank {dist.get_rank()} of "
                 f"{dist.get_world_size()}, but the knobs say rank "
                 f"{self._rank} of {self._size}")
+        self.hierarchy = self._build_hierarchy()
         if self._controller == "tcp":
             self.ensure_core()
+
+    def _build_hierarchy(self):
+        """``(cross_group, local_group)`` of this rank on a two-level layout
+        (``1 < local_size < size``), else None.  Every rank creates every
+        group, in the same order, as ``dist.new_group`` requires: the
+        groups of each host, then the groups of each local index."""
+        size, local = self._size, self._local_size
+        if not 1 < local < size:
+            return None
+        hosts = [dist.new_group(list(range(h * local, (h + 1) * local)))
+                 for h in range(size // local)]
+        crosses = [dist.new_group(list(range(j, size, local)))
+                   for j in range(local)]
+        return crosses[self._rank % local], hosts[self._rank // local]
 
     def ensure_core(self):
         """The native controller of this rank, brought up on first use
@@ -149,6 +166,18 @@ class Runtime:
 
     def fusion_threshold(self) -> int:
         return self.knobs["HOROVOD_FUSION_THRESHOLD"]
+
+    def wire_policy(self) -> str:
+        """Live wire-policy name of the fused gradient sync (ops/wire.py):
+        the knob, read through ``current`` (env wins)."""
+        return validate_policy_name(current("HOROVOD_WIRE_POLICY"))
+
+    def overlap_depth(self) -> int:
+        """Live microbatch-pipeline depth (ops/overlap.py): the knob, read
+        through ``current``."""
+        validate_overlap_knobs({"HOROVOD_OVERLAP_DEPTH":
+                                current("HOROVOD_OVERLAP_DEPTH")})
+        return int(current("HOROVOD_OVERLAP_DEPTH"))
 
     def shutdown(self) -> None:
         if self.core is not None:

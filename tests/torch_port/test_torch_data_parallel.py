@@ -195,10 +195,12 @@ def test_backward_passes_accumulate_like_jax(one_rank):
 
 
 def test_unported_options_raise():
+    """The wire and overlap planes are ported (test_torch_wire*.py); what
+    still raises is Adasum, and bad values of their options."""
     opt = torch.optim.SGD([torch.nn.Parameter(torch.zeros(2))], lr=0.1)
-    for kw in ({"compression": object()}, {"wire_policy": "bf16"},
-               {"overlap": True}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"wire_policy": "int9"}, {"overlap_depth": 9},
+               {"quantized_wire": True, "op": hvd.Max}):
+        with pytest.raises(ValueError):
             hvd.DistributedOptimizer(opt, **kw)
     with pytest.raises(ValueError):
         hvd.DistributedOptimizer(opt, backward_passes_per_step=0)
@@ -212,14 +214,19 @@ def test_init_refusals(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             hvd.init()
-    monkeypatch.setenv("HOROVOD_WIRE_POLICY", "int8_ring")
-    with pytest.raises(NotImplementedError, match="wire policy"):
+    monkeypatch.setenv("HOROVOD_WIRE_POLICY", "int9")
+    with pytest.raises(ValueError, match="unknown wire policy"):
         hvd.init(device="cpu")
     monkeypatch.setenv("HOROVOD_WIRE_POLICY", "none")
-    monkeypatch.setenv("HOROVOD_HIERARCHICAL_ALLREDUCE", "1")
-    with pytest.raises(NotImplementedError, match="two-level"):
+    monkeypatch.setenv("HOROVOD_OVERLAP_DEPTH", "0")
+    with pytest.raises(ValueError, match="HOROVOD_OVERLAP_DEPTH"):
         hvd.init(device="cpu")
-    monkeypatch.setenv("HOROVOD_HIERARCHICAL_ALLREDUCE", "0")
+    monkeypatch.setenv("HOROVOD_OVERLAP_DEPTH", "1")
+    monkeypatch.setenv("HOROVOD_SIZE", "3")
+    monkeypatch.setenv("HOROVOD_LOCAL_SIZE", "2")
+    with pytest.raises(ValueError, match="HOROVOD_LOCAL_SIZE"):
+        hvd.init(device="cpu")
+    monkeypatch.setenv("HOROVOD_LOCAL_SIZE", "-1")
     monkeypatch.setenv("HOROVOD_SIZE", "2")
     monkeypatch.setenv("HOROVOD_RANK", "1")
     with pytest.raises(RuntimeError, match="HOROVOD_COORDINATOR_ADDR"):

@@ -97,18 +97,20 @@ def test_ops_were_negotiated(checks):
 
 
 def test_chip_smoke_ranks_mode_on_cpu():
-    """``chip_smoke.py --ranks N``'s per-rank path, rehearsed on two gloo
+    """``chip_smoke.py --ranks N``'s per-rank path, rehearsed on four gloo
     ranks with the ``tiny`` config: every eager op against the all-rank
-    oracle within its rounding bound, and the hook-driven optimizer's
-    losses against the root package's optimizer's on the same batches.
-    A failed check raises in its rank."""
+    oracle within its rounding bound, the hook-driven optimizer's losses
+    against the root package's optimizer's on the same batches, and every
+    wire configuration, flat and on two hosts of two ranks, with the
+    parameters bitwise equal across the ranks.  A failed check raises in
+    its rank."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     import chip_smoke
     ctx = tmp.spawn(chip_smoke.rank_worker,
-                    args=(2, _free_port(), _free_port(), "tiny", "cpu", 2,
-                          32),
-                    nprocs=2, join=False)
+                    args=(4, _free_port(), _free_port(), "tiny", "cpu", 4,
+                          32, _free_port()),
+                    nprocs=4, join=False)
     deadline = time.monotonic() + 120
     while not ctx.join(timeout=5):
         if time.monotonic() > deadline:
