@@ -7,15 +7,16 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the CUDA kernels, from ``horovod_tpu_torch/csrc`` (nvcc), and
-   a resource report of each kernel's bf16 D=64 instantiation: registers
-   and spills (``-Xptxas -v``), static and dynamic shared memory, and
-   resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
+   a resource report of each kernel's bf16 D=64 and D=128 instantiations:
+   registers and spills (``-Xptxas -v``), static and dynamic shared
+   memory, and resident blocks per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. kernels: each flash-attention kernel against its plain PyTorch version
-   on the card, at the training shape and at edges (D=128, non-causal,
-   GQA groups 1 and 8, S not a multiple of 128, fp32), dq's and dk/dv's
-   bitwise determinism, with kernel, plain and library times at the
-   training shape (the library backward, SDPA's, covers dq and dk/dv
-   together);
+   on the card, at the training shape, at the 8b shape (D=128) and at
+   edges (non-causal, GQA groups 1 and 8, S not a multiple of 128, fp32),
+   dq's and dk/dv's bitwise determinism, with kernel, plain and library
+   times at the training shape and the 8b shape (the library backward,
+   SDPA's, covers dq and dk/dv together);
 4. model: the ``mini`` Llama loss in bf16 with the kernels as ``attn_fn``
    against the same loss with the plain ``causal_attention``;
 5. train: the ``1b`` Llama at full width and depth, data-parallel through
@@ -59,8 +60,19 @@ Phases, in order; any failure exits non-zero before the result line:
    ``none`` and the sync a copy, so losses and final parameters must be
    bitwise equal; step times, buckets per format, ``wire.stats()`` and
    the kernels' launches;
-9. a ``{"kernels": [...]}`` JSON line, then the
-   ``{"ok": true, "device": {...}}`` JSON line, last.
+10. zero: ZeRO and the input pipeline (``parallel/zero.py``, ``data/``):
+   ``1b`` with fp32 master weights and bf16 compute, AdamW, 4 steps of
+   4 x 2048, phase 5's batches through ``NumpyDataLoader`` and
+   ``prefetch`` (each device batch equal to its host array), at levels 1,
+   2 and 3 (k=1; bitwise equal losses and final parameters, level 3's
+   gathered) and levels 1 and 2 at k=2 (bitwise equal), and level 1
+   against ``DistributedOptimizer(AdamW)`` (losses within 1e-4,
+   parameters within 1e-6); step ms, peak memory, bytes resident between
+   steps beside ``zero_memory_bytes``, and 16 x 4 x k launches per kernel;
+9. printed last, after phase 10: a ``{"kernels": [...]}`` JSON line (the
+   rows at the training shape, each with its 8b-shape ``d128`` numbers
+   and resources), then the ``{"ok": true, "device": {...}}`` JSON
+   line.
 
     python3 chip_smoke.py --ranks 4
 
@@ -81,6 +93,16 @@ steps of 4 x 2048 per card, under wire ``none``, ``bf16``, ``fp16``,
 out as two hosts of two ranks, hierarchical ``none`` and ``dcn_int8``:
 step ms, one profiled step's NCCL time, modeled wire bytes per step,
 losses against ``none``'s, and parameters bitwise equal on every rank.
+Then ZeRO (``rank_zero``): ``1b`` under ``ZERO_CONFIGS`` (levels 1/2/3,
+k=2, level-3 prefetch depths 1 and 2, bf16 wire with error feedback), 8
+steps of 4 x 2048 per card from ``NumpyDataLoader`` (``shard_indices``)
+through ``prefetch``, bitwise equal across ranks and within each group of
+``ZERO_SAME``, losses within 1e-3 of the ``none`` wire configuration's;
+``8b`` cut to 2 layers at levels 1 and 3 (bitwise equal); and Llama-3-8B
+(32 layers, 8,030,261,248 parameters, bf16) at level 3, 2 warm-up, 4
+timed and 1 profiled step of 1 x 2048 per card: step ms, tokens/s per
+card, MFU(6N), NCCL ms, peak and resident memory against
+``zero_memory_bytes``.
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -216,27 +238,36 @@ def parse_ptxas(text: str) -> dict:
     return out
 
 
-def phase_resources(_kernels, lib_path: str) -> None:
+def phase_resources(_kernels, lib_path: str) -> dict:
     """Registers, shared memory, spills and blocks per SM of each kernel's
-    bf16 D=64 instantiation.  Each is designed for Hopper (register
-    accumulators, pipelined loads), so it must not spill and must fit two
-    or more blocks on an SM."""
+    bf16 instantiations at D=64 and D=128.  Each is designed for Hopper
+    (register accumulators, pipelined loads), so at D=64 it must not spill
+    and must fit two or more blocks on an SM; D=128 (the 8b model's head
+    dim) is reported.  Returns the D=128 reports by kernel name."""
     with open(lib_path + ".log") as f:
         ptxas = parse_ptxas(f.read())
-    for name, fragment in INSTANCES.items():
-        found = [v for k, v in ptxas.items() if fragment in k]
-        require(len(found) == 1, f"ptxas output has {len(found)} entries "
-                                 f"for {fragment}")
-        info = found[0]
-        res = _kernels.resources(name, 64, True)
-        print(f"resources [{name} bf16 D=64]: {info['registers']} registers"
-              f", shared memory {res['static_smem']} static + "
-              f"{res['dynamic_smem']} dynamic bytes, spills "
-              f"{info['spill_bytes']} bytes, {res['threads']} threads, "
-              f"{res['blocks_per_sm']} blocks per SM", flush=True)
-        require(info["spill_bytes"] == 0, f"{name} spills registers")
-        require(res["blocks_per_sm"] >= 2,
-                f"{name} fits {res['blocks_per_sm']} block per SM")
+    d128 = {}
+    for D in (64, 128):
+        for name, fragment in INSTANCES.items():
+            fragment = fragment.replace("ILi64E", f"ILi{D}E")
+            found = [v for k, v in ptxas.items() if fragment in k]
+            require(len(found) == 1, f"ptxas output has {len(found)} "
+                                     f"entries for {fragment}")
+            info = found[0]
+            res = _kernels.resources(name, D, True)
+            print(f"resources [{name} bf16 D={D}]: {info['registers']} "
+                  f"registers, shared memory {res['static_smem']} static + "
+                  f"{res['dynamic_smem']} dynamic bytes, spills "
+                  f"{info['spill_bytes']} bytes, {res['threads']} threads, "
+                  f"{res['blocks_per_sm']} blocks per SM", flush=True)
+            if D == 128:
+                d128[name] = dict(res, registers=info["registers"],
+                                  spill_bytes=info["spill_bytes"])
+                continue
+            require(info["spill_bytes"] == 0, f"{name} spills registers")
+            require(res["blocks_per_sm"] >= 2,
+                    f"{name} fits {res['blocks_per_sm']} block per SM")
+    return d128
 
 
 def kernel_kind(key: str) -> str:
@@ -289,6 +320,7 @@ def phase_kernels(F, torch, card: str):
     the training shape."""
     cases = [  # (label, B, S, H, HK, D, dtype, causal)
         ("train", 4, 2048, 32, 8, 64, torch.bfloat16, True),
+        ("8b D=128", 1, 2048, 32, 8, 128, torch.bfloat16, True),
         ("D=128", 2, 1024, 16, 4, 128, torch.bfloat16, True),
         ("non-causal", 2, 1024, 32, 8, 64, torch.bfloat16, False),
         ("H=HK", 2, 1024, 8, 8, 64, torch.bfloat16, True),
@@ -335,8 +367,19 @@ def phase_kernels(F, torch, card: str):
               + ", ".join(readings), flush=True)
         require(not failed, f"kernels disagree with their plain versions "
                             f"[{label}]: {', '.join(failed)}")
-        if label != "train":
+        if label not in ("train", "8b D=128"):
             continue
+        shape = dict(B=B, S=S, H=H, HK=HK, D=D)
+        timed = kernel_rows(F, torch, card, label, q, k, v, do, lse, delta,
+                            causal, errs, shape, dtype)
+        if label == "8b D=128":  # the 8b path's instantiations
+            for name, r in timed.items():
+                rows[name]["d128"] = {key: r[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")}
+            del q, k, v, do, out, lse, delta, dq, dk, dv
+            continue
+        rows.update(timed)
         dq2 = F.flash_dq_cuda(q, k, v, do, lse, delta, causal)
         dk2, dv2 = F.flash_dkv_cuda(q, k, v, do, lse, delta, causal)
         torch.cuda.synchronize()
@@ -346,57 +389,64 @@ def phase_kernels(F, torch, card: str):
                 "dk/dv differ between two launches on the same inputs")
         print("kernels [train]: dq and dk/dv bitwise equal across two "
               "launches", flush=True)
-        del dq2, dk2, dv2
-        shape = dict(B=B, S=S, H=H, HK=HK, D=D)
-        calls = {
-            "flash_fwd": (lambda: F.flash_forward_cuda(q, k, v, causal),
-                          lambda: F.attention_forward_plain(q, k, v, causal),
-                          max(errs["out"], errs["lse"])),
-            "flash_bwd_dq": (
-                lambda: F.flash_dq_cuda(q, k, v, do, lse, delta, causal),
-                lambda: F.attention_dq_plain(q, k, v, do, lse, delta, causal),
-                errs["dq"]),
-            "flash_bwd_dkv": (
-                lambda: F.flash_dkv_cuda(q, k, v, do, lse, delta, causal),
-                lambda: F.attention_dkv_plain(q, k, v, do, lse, delta, causal),
-                max(errs["dk"], errs["dv"])),
-        }
-        for name, (kernel, plain, err) in calls.items():
-            b_ms, b_by = bound(name, shape, causal, dtype)
-            rows[name] = {"name": name, "route": "cuda",
-                          "source": KERNEL_SOURCE, "replaces": REPLACES[name],
-                          "max_abs_err": err, "ms": median_ms(kernel),
-                          "plain_ms": median_ms(plain), "bound_ms": b_ms,
-                          "bound_by": b_by, "library_ms": None}
-        # yardsticks only: one PyTorch call computing the forward, and the
-        # same call's backward (dq, dk and dv together) on an output made
-        # once, outside the timed region
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        rows["flash_fwd"]["library_ms"] = median_ms(
-            lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
-        lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
-        dot = do.transpose(1, 2)
-        dkv = rows["flash_bwd_dkv"]
-        dkv["library_ms"] = median_ms(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dot, retain_graph=True))
-        dkv["library_covers"] = "dq+dkv"
-        dkv["kernel_sum_ms"] = rows["flash_bwd_dq"]["ms"] + dkv["ms"]
-        for r in rows.values():
-            lib = r["library_ms"]
-            vs = (f"library {lib:.4f} ms, kernel/library {r['ms'] / lib:.3f}"
-                  if lib is not None else "library none")
-            if "library_covers" in r:
-                vs = (f"library dq+dkv {lib:.4f} ms, kernels dq+dkv "
-                      f"{r['kernel_sum_ms']:.4f} ms, kernel/library "
-                      f"{r['kernel_sum_ms'] / lib:.3f}")
-            print(f"kernel {r['name']} [{card}]: kernel_ms {r['ms']:.4f}, "
-                  f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
-                  f" ({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it), "
-                  + vs, flush=True)
-        del q, k, v, do, out, lse, delta, dq, dk, dv, qt, kt, vt, lib_out
+        del dq2, dk2, dv2, q, k, v, do, out, lse, delta, dq, dk, dv
     torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_rows(F, torch, card, label, q, k, v, do, lse, delta, causal,
+                errs, shape, dtype) -> dict:
+    """Kernel, plain and library times and the bound of each kernel on one
+    case's tensors, printed; the kernels JSON line's rows."""
+    calls = {
+        "flash_fwd": (lambda: F.flash_forward_cuda(q, k, v, causal),
+                      lambda: F.attention_forward_plain(q, k, v, causal),
+                      max(errs["out"], errs["lse"])),
+        "flash_bwd_dq": (
+            lambda: F.flash_dq_cuda(q, k, v, do, lse, delta, causal),
+            lambda: F.attention_dq_plain(q, k, v, do, lse, delta, causal),
+            errs["dq"]),
+        "flash_bwd_dkv": (
+            lambda: F.flash_dkv_cuda(q, k, v, do, lse, delta, causal),
+            lambda: F.attention_dkv_plain(q, k, v, do, lse, delta, causal),
+            max(errs["dk"], errs["dv"])),
+    }
+    rows = {}
+    for name, (kernel, plain, err) in calls.items():
+        b_ms, b_by = bound(name, shape, causal, dtype)
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": KERNEL_SOURCE, "replaces": REPLACES[name],
+                      "max_abs_err": err, "ms": median_ms(kernel),
+                      "plain_ms": median_ms(plain), "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": None,
+                      "shape": dict(shape, causal=causal)}
+    # yardsticks only: one PyTorch call computing the forward, and the
+    # same call's backward (dq, dk and dv together) on an output made
+    # once, outside the timed region
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows["flash_fwd"]["library_ms"] = median_ms(
+        lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True))
+    lib_out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    dkv = rows["flash_bwd_dkv"]
+    dkv["library_ms"] = median_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+    dkv["library_covers"] = "dq+dkv"
+    dkv["kernel_sum_ms"] = rows["flash_bwd_dq"]["ms"] + dkv["ms"]
+    for r in rows.values():
+        lib = r["library_ms"]
+        vs = (f"library {lib:.4f} ms, kernel/library {r['ms'] / lib:.3f}"
+              if lib is not None else "library none")
+        if "library_covers" in r:
+            vs = (f"library dq+dkv {lib:.4f} ms, kernels dq+dkv "
+                  f"{r['kernel_sum_ms']:.4f} ms, kernel/library "
+                  f"{r['kernel_sum_ms'] / lib:.3f}")
+        print(f"kernel {r['name']} [{label}] [{card}]: kernel_ms "
+              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%} of it), " + vs, flush=True)
     return rows
 
 
@@ -1040,6 +1090,329 @@ def phase_wire(torch, np, hvd, llama, F) -> dict:
     return a["launches"]
 
 
+# phase 10 and --ranks N's ZeRO configurations
+ZERO_LR, ZERO_WD = 3e-4, 0.01
+ZERO_STEPS = 4           # phase 10: 1 warm-up and 3 timed steps
+N_8B = 8030261248        # llama.param_count(CONFIGS["8b"])
+# --ranks N, the 1b ZeRO configurations: (label, level, k, ag_prefetch,
+# wire format); error feedback is on for the lossy formats
+ZERO_CONFIGS = (
+    ("L1", 1, 1, None, "none"), ("L2", 2, 1, None, "none"),
+    ("L3", 3, 1, 2, "none"), ("L3 prefetch 1", 3, 1, 1, "none"),
+    ("L2 k=2", 2, 2, None, "none"), ("L3 k=2", 3, 2, None, "none"),
+    ("L1 bf16+EF", 1, 1, None, "bf16"), ("L3 bf16+EF", 3, 1, None, "bf16"),
+)
+# configurations that must be bitwise equal (same wire format and k)
+ZERO_SAME = (("L1", "L2", "L3", "L3 prefetch 1"), ("L2 k=2", "L3 k=2"),
+             ("L1 bf16+EF", "L3 bf16+EF"))
+
+
+def zero_tokens(np, vocab: int, rows: int, seq: int, steps: int,
+                n: int = 1):
+    """``steps`` global batches of ``rows`` x ``seq + 1`` token ids from
+    ``RandomState(0)``, drawn as phase 5 and the wire configurations draw
+    theirs, stacked into one array for the loader.  Each batch's rows are
+    laid out in the order ``shard_indices`` deals them to ``n`` ranks
+    (rank r takes rows r, r + n, ...), so that rank r's batch i holds the
+    rows ``make_microbatched_train_step`` gives it from the wire
+    configurations' batch i (rows r * rows/n onward)."""
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(steps):
+        g = rng.randint(0, vocab, (rows, seq + 1), dtype=np.int32)
+        out.append(g.reshape(n, rows // n, seq + 1).transpose(1, 0, 2)
+                   .reshape(rows, seq + 1))
+    return np.concatenate(out)
+
+
+def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
+             tokens, rows: int, level: int, k: int = 1, wire: str = "none",
+             ag_prefetch=None, master_fp32: bool = True, warmup: int = 1,
+             profile: bool = False, dp: bool = False, keep: bool = False
+             ) -> dict:
+    """One ZeRO configuration (or, with ``dp``, the data-parallel
+    ``DistributedOptimizer(AdamW)`` step on the same inputs): the model
+    from seed 0 on the card (fp32 master weights and bf16 compute, or with
+    ``master_fp32=False`` the config's dtype), AdamW, flash attention and
+    ``ce_chunks=8``; this rank's ``rows`` x seq rows of each step from
+    ``NumpyDataLoader`` over ``tokens`` (``shard_indices(rank, n)``) through
+    ``prefetch(depth=2)``, ``k`` microbatches a step.  ``warmup`` steps,
+    the rest timed, and with ``profile`` one more step under the profiler
+    on rank 0.  Returns the losses, parameter checksums, step ms, NCCL ms,
+    peak and resident memory, the cost models and the launches."""
+    import dataclasses
+    import gc as _gc
+    from horovod_tpu_torch.data import NumpyDataLoader, prefetch
+    from horovod_tpu_torch.parallel import zero as Z
+    from horovod_tpu_torch.perf import costmodel
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    _gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if cuda else 0
+    if master_fp32:  # activations in bf16, as the wire configurations run
+        cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    if master_fp32:
+        model = model.float()
+    n_params = sum(p.numel() for p in model.parameters())
+    compute = torch.bfloat16 if master_fp32 else None
+    loss_fn = lambda m, ids: llama.loss_fn(  # noqa: E731
+        m, ids, attn_fn=hvd.flash_attention, ce_chunks=8)
+    ef = wire != "none"
+    if dp:
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=ZERO_LR,
+                              weight_decay=ZERO_WD),
+            named_parameters=model.named_parameters(),
+            backward_passes_per_step=k, wire_policy=wire)
+        step = hvd.make_microbatched_train_step(model, loss_fn, opt, k,
+                                                compute_dtype=compute)
+        modeled, state = None, None
+    else:
+        state = Z.init_zero_state(torch.optim.AdamW, model, zero_level=level,
+                                  wire_policy=wire, error_feedback=ef,
+                                  lr=ZERO_LR, weight_decay=ZERO_WD)
+        leaves = list(model.parameters())
+        plan = Z._bucket_plan(leaves, None)
+        formats = Z._zero_formats(plan, wire, n)
+        modeled = sum(costmodel.zero_comm_bytes(
+            Z._padded_len(sum(b.sizes), n), n, level, k=k,
+            wire_format=f)["total_bytes"]
+            for b, f in zip(plan.buckets, formats))
+        step = Z.make_zero_train_step(
+            model, loss_fn, state, zero_level=level, wire_policy=wire,
+            error_feedback=ef, backward_passes_per_step=k,
+            ag_prefetch=ag_prefetch, compute_dtype=compute)
+    loader = NumpyDataLoader([tokens], batch_size=rows, rank=rank,
+                             num_workers=n)
+    host = [b[0] for b in NumpyDataLoader([tokens], batch_size=rows,
+                                          rank=rank, num_workers=n)]
+    steps = len(host) - (1 if profile else 0)
+    F.reset_launches()
+    losses, seen, prof, t0 = [], [], None, None
+    for i, (ids,) in enumerate(prefetch(loader, depth=2, device=dev)):
+        seen.append(ids)
+        mb = (ids if k == 1 and not dp
+              else ids.view(k, rows // k, ids.shape[-1]))
+        if i == warmup:
+            sync()
+            t0 = time.perf_counter()
+        if i == steps:
+            sync()
+            dt = time.perf_counter() - t0
+            if rank == 0 and cuda:
+                from torch.profiler import ProfilerActivity, profile as prf
+                with prf(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                    losses.append(step(mb))
+                    sync()
+                continue
+        losses.append(step(mb))
+    sync()
+    if not profile:
+        dt = time.perf_counter() - t0
+    resident = (torch.cuda.memory_allocated() - base) if cuda else 0
+    for got, want in zip(seen, host):
+        require(torch.equal(got.cpu(), torch.from_numpy(want)),
+                "a prefetched batch differs from its host array")
+    require(len(seen) == len(host), "prefetch dropped a batch")
+    params = (Z.gather_zero3_params(state.shards, model) if level == 3
+              and not dp else list(model.parameters()))
+    out = {"losses": [float(x) for x in losses],
+           "sums": param_checksums(torch, params),
+           "step_ms": dt / (steps - warmup) * 1e3,
+           "nccl_ms": None if prof is None else kernel_ms(prof)[1],
+           "busy_ms": None if prof is None else kernel_ms(prof)[0],
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if cuda else 0.0),
+           "base_gib": base / 2**30,
+           "resident": resident, "modeled": modeled, "n_params": n_params,
+           "memory_model": costmodel.zero_memory_bytes(
+               0 if dp else level, n_params, n, ef=ef)["total_bytes"],
+           "launches": dict(F.LAUNCHES), "steps": len(losses)}
+    if keep:
+        out["params"] = [p.detach().clone() for p in params]
+    del step, state, model, params, seen
+    _gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def zero_line(r: dict) -> str:
+    """The printed numbers of one ZeRO run."""
+    nccl = ("not profiled" if r["nccl_ms"] is None else
+            f"profiled step: kernels {r['busy_ms']:.1f} ms, NCCL "
+            f"{r['nccl_ms']:.1f} ms")
+    modeled = ("" if r["modeled"] is None else
+               f"; modeled wire bytes/step (zero_comm_bytes) "
+               f"{r['modeled']:.0f}")
+    return (f"step {r['step_ms']:.1f} ms; {nccl}{modeled}; peak memory "
+            f"{r['peak_gib']:.2f} GiB ({r['base_gib']:.2f} GiB held before "
+            f"the run); resident between steps "
+            f"{r['resident']} bytes against zero_memory_bytes "
+            f"{r['memory_model']}; losses "
+            + " ".join(f"{x:.5f}" for x in r["losses"]))
+
+
+def check_zero_launches(r: dict, layers: int, k: int, label: str) -> None:
+    """Each attention kernel ran ``layers`` times per microbatch."""
+    want = layers * k * r["steps"]
+    for name, got in r["launches"].items():
+        require(got == want, f"zero [{label}]: {name} launched {got} times, "
+                             f"expected {want}")
+
+
+def phase_zero(torch, np, hvd, llama, F, card: str) -> dict:
+    """Phase 10: ZeRO and the input pipeline on one card.  1b with fp32
+    master weights and bf16 compute, AdamW, 4 steps of 4 x 2048 (phase 5's
+    batches through NumpyDataLoader and prefetch): levels 1, 2 and 3 at
+    k=1 bitwise equal, levels 1 and 2 at k=2 bitwise equal, and level 1
+    against ``DistributedOptimizer(AdamW)`` within EAGER_LOSS_TOL and
+    EAGER_PARAM_TOL."""
+    dev = hvd.init().device
+    cfg = llama.CONFIGS["1b"]
+    tokens = zero_tokens(np, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, ZERO_STEPS)
+    runs = {}
+    for label, level, k in (("L1", 1, 1), ("L2", 2, 1), ("L3", 3, 1),
+                            ("L1 k=2", 1, 2), ("L2 k=2", 2, 2)):
+        r = runs[label] = zero_run(torch, np, hvd, llama, F, dev, 0, 1, cfg,
+                                   tokens, TRAIN_BATCH, level, k=k,
+                                   keep=label == "L1")
+        check_zero_launches(r, cfg.n_layers, k, label)
+        print(f"zero [1b {label}] {card}, fp32 master weights, bf16 compute, "
+              f"k={k} x {TRAIN_BATCH // k} x {TRAIN_SEQ}: " + zero_line(r)
+              + "; launches " + json.dumps(r["launches"]), flush=True)
+    ref = runs["L1"]
+    dp = zero_run(torch, np, hvd, llama, F, dev, 0, 1, cfg, tokens,
+                  TRAIN_BATCH, 1, dp=True, keep=True)
+    print(f"zero [1b DistributedOptimizer(AdamW)] {card}: " + zero_line(dp),
+          flush=True)
+    for group in (("L1", "L2", "L3"), ("L1 k=2", "L2 k=2")):
+        for label in group[1:]:
+            same = (runs[label]["losses"] == runs[group[0]]["losses"]
+                    and torch.equal(runs[label]["sums"],
+                                    runs[group[0]]["sums"]))
+            require(same, f"zero [1b]: {label} differs from {group[0]}")
+    gap = max(abs(a - b) for a, b in zip(ref["losses"], dp["losses"]))
+    pgap = max_param_diff(ref["params"], dp["params"])
+    bitwise = (ref["losses"] == dp["losses"] and all(
+        torch.equal(a, b) for a, b in zip(ref["params"], dp["params"])))
+    print(f"zero [1b]: levels 1, 2 and 3 at k=1 bitwise equal (losses and "
+          f"final parameters), levels 1 and 2 at k=2 bitwise equal; level 1 "
+          f"against DistributedOptimizer(AdamW): max loss gap {gap:.3g}, max "
+          f"parameter gap {pgap:.3g}, bitwise equal {bitwise}", flush=True)
+    require(gap <= EAGER_LOSS_TOL and pgap <= EAGER_PARAM_TOL,
+            f"zero level 1 against DistributedOptimizer: loss gap {gap}, "
+            f"parameter gap {pgap}")
+    del ref["params"], dp["params"]
+    hvd.shutdown()
+    launches = {name: sum(r["launches"][name] for r in runs.values())
+                for name in F.LAUNCHES}
+    return launches
+
+
+def rank_zero(torch, np, hvd, llama, F, rank: int, n: int, dev,
+              cfg_name: str, batch: int, seq: int, ref_losses,
+              big_name: str) -> None:
+    """--ranks N, after the wire configurations: (a) ``cfg_name`` through
+    ``ZERO_CONFIGS``, 8 steps of ``batch`` x ``seq`` per rank, bitwise
+    equal across the ranks and within each group of ``ZERO_SAME``, and
+    within 1e-3 of the ``none`` wire configuration's losses; (b)
+    ``big_name`` cut to 2 layers, fp32 master weights, levels 1 and 3
+    bitwise equal; (c) ``big_name`` at full depth in its own dtype (bf16),
+    level 3, 2 warm-up, 4 timed and 1 profiled step of 1 x ``seq``."""
+    import dataclasses
+    import torch.distributed as dist
+    from horovod_tpu_torch.perf import costmodel
+    cuda = dev.type == "cuda"
+
+    def everywhere(r, label):
+        every = [torch.empty_like(r["sums"]) for _ in range(n)]
+        dist.all_gather(every, r["sums"])
+        require(all(torch.equal(e, every[0]) for e in every),
+                f"zero [{label}]: parameters differ across the {n} ranks")
+        require(all(math.isfinite(x) for x in r["losses"]),
+                f"zero [{label}]: loss {r['losses']}")
+
+    cfg = llama.CONFIGS[cfg_name]
+    tokens = zero_tokens(np, cfg.vocab, batch * n, seq,
+                         WARMUP_STEPS + TIMED_STEPS + 1, n)
+    runs = {}
+    for label, level, k, pre, wire in ZERO_CONFIGS:
+        r = runs[label] = zero_run(
+            torch, np, hvd, llama, F, dev, rank, n, cfg, tokens, batch,
+            level, k=k, wire=wire, ag_prefetch=pre, warmup=WARMUP_STEPS,
+            profile=True)
+        everywhere(r, label)
+        if cuda:
+            check_zero_launches(r, cfg.n_layers, k, label)
+        gaps = [a - b for a, b in zip(r["losses"], ref_losses)]
+        require(max(abs(g) for g in gaps) <= 1e-3,
+                f"zero [{label}]: losses {r['losses']} against the none "
+                f"wire configuration's {ref_losses}")
+        if rank == 0:
+            print(f"ranks [{n}] zero {label} ({cfg_name}, fp32 master "
+                  f"weights, bf16 compute, k={k} x {batch // k} x {seq} per "
+                  f"rank): " + zero_line(r) + "; loss - none's: "
+                  + " ".join(f"{g:+.2e}" for g in gaps)
+                  + f"; parameters bitwise equal on all {n} ranks",
+                  flush=True)
+    for group in ZERO_SAME:
+        for label in group[1:]:
+            require(runs[label]["losses"] == runs[group[0]]["losses"]
+                    and torch.equal(runs[label]["sums"],
+                                    runs[group[0]]["sums"]),
+                    f"zero [{cfg_name}]: {label} differs from {group[0]}")
+    if rank == 0:
+        print(f"ranks [{n}] zero ({cfg_name}): bitwise equal within each of "
+              + "; ".join(", ".join(g) for g in ZERO_SAME), flush=True)
+
+    big = llama.CONFIGS[big_name]
+    cut = dataclasses.replace(big, n_layers=2)
+    tokens = zero_tokens(np, big.vocab, n, seq, ZERO_STEPS, n)
+    two = {}
+    for level in (1, 3):
+        r = two[level] = zero_run(torch, np, hvd, llama, F, dev, rank, n,
+                                  cut, tokens, 1, level)
+        everywhere(r, f"{big_name} 2 layers L{level}")
+        if rank == 0:
+            print(f"ranks [{n}] zero {big_name} 2 layers L{level} (full "
+                  f"width, {r['n_params']} params, fp32 master weights, "
+                  f"bf16 compute, 1 x {seq} per rank): " + zero_line(r),
+                  flush=True)
+    require(two[1]["losses"] == two[3]["losses"]
+            and torch.equal(two[1]["sums"], two[3]["sums"]),
+            f"zero [{big_name} 2 layers]: level 3 differs from level 1")
+    if rank == 0:
+        print(f"ranks [{n}] zero {big_name} 2 layers: levels 1 and 3 bitwise "
+              "equal, and on every rank", flush=True)
+
+    tokens = zero_tokens(np, big.vocab, n, seq, WARMUP_STEPS + 4 + 1, n)
+    r = zero_run(torch, np, hvd, llama, F, dev, rank, n, big, tokens, 1, 3,
+                 ag_prefetch=2, master_fp32=False, warmup=WARMUP_STEPS,
+                 profile=True)
+    everywhere(r, f"{big_name} L3")
+    if cuda:
+        check_zero_launches(r, big.n_layers, 1, f"{big_name} L3")
+    if rank == 0:
+        tok_s = seq / (r["step_ms"] / 1e3)
+        mfu = 6 * r["n_params"] * tok_s / PEAK_BF16_FLOPS
+        plain = costmodel.zero_memory_bytes(0, r["n_params"], 1)
+        print(f"ranks [{n}] zero {big_name} L3 ({r['n_params']} params, "
+              f"{big.n_layers} layers, bf16 parameters, fp32 master shards, "
+              f"ag_prefetch 2, 1 x {seq} per rank): {tok_s:.0f} tokens/s per "
+              f"card, MFU(6N) {mfu:.4f}; " + zero_line(r)
+              + f"; plain data parallelism would hold "
+              f"{plain['total_bytes']} bytes per rank "
+              f"(zero_memory_bytes(0, N, 1)); launches "
+              + json.dumps(r["launches"]), flush=True)
+
+
 def sum_bound(xs, eps: float):
     """Rounding bound of a sum of ``xs`` (one tensor per rank) taken in
     any order: (n + 1) * eps * sum |x| elementwise."""
@@ -1432,8 +1805,13 @@ def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
         ring_sync_free(torch, dev, rank)
     ref = rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch,
                      seq, n, None)
+    big_name = "8b" if device_type == "cuda" else cfg_name
+    two_level = n >= 4 and n % 2 == 0
+    if not two_level:
+        rank_zero(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch,
+                  seq, ref, big_name)
     ht.shutdown()
-    if n < 4 or n % 2:
+    if not two_level:
         if rank == 0:
             print(f"ranks [{n}] two-level wire configurations need 4 or "
                   "more ranks, an even number: not run", flush=True)
@@ -1447,6 +1825,9 @@ def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
     require(hvd.runtime.get().hierarchy is not None, "no two-level layout")
     rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
                n // 2, ref)
+    # the zero chain reduces over the whole group, flat
+    rank_zero(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
+              ref, big_name)
     hvd.shutdown()
 
 
@@ -1518,7 +1899,7 @@ def main() -> int:
         raise core["error"]
     print(f"build: native controller {core['s']:.1f} s ({core['lib']})",
           flush=True)
-    phase_resources(_kernels, lib)
+    d128 = phase_resources(_kernels, lib)
     if ranks > 1:
         phase_ranks(torch, ranks)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1536,10 +1917,13 @@ def main() -> int:
                         tok_s, busy, params)
     del params
     wire = phase_wire(torch, np, hvd, llama, F)
+    zero = phase_zero(torch, np, hvd, llama, F, card)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
         row["launches_wire"] = wire[row["name"]]
+        row["launches_zero"] = zero[row["name"]]
+        row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

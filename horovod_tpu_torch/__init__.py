@@ -5,7 +5,9 @@ Data-parallel training in the Horovod idiom, over ``torch.distributed``
 JAX package has Pallas TPU kernels (flash attention, forward and backward),
 per-bucket wire formats for the gradient sync (bf16/fp16 casts, the int8
 quantized ring, two-level routing, error feedback; ``ops/wire.py``), the
-pipelined microbatch sync (``ops/overlap.py``), a continuous-batching
+pipelined microbatch sync (``ops/overlap.py``), ZeRO weight-update
+sharding at levels 1-3 (``parallel/zero.py``), the input pipeline with
+device prefetch (``data/``), a continuous-batching
 serving engine over a paged KV pool (``horovod_tpu_torch.serve``), and
 Horovod's eager torch API, negotiated through the port's own copy of the
 native controller (``horovod_tpu_torch.torch``).
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 from . import runtime as _rt
 from . import serve
+from .data.loader import prefetch
 from .common.reduce_op import (ReduceOp, Average, Sum, Adasum, Min, Max,
                                Product)
 from .functions import (broadcast_parameters, broadcast_optimizer_state,
@@ -82,5 +85,5 @@ __all__ = [
     "broadcast_parameters", "broadcast_optimizer_state", "broadcast_object",
     "allgather_object",
     "flash_attention", "make_train_step", "make_microbatched_train_step",
-    "make_scanned_train_step", "cast_params", "serve",
+    "make_scanned_train_step", "cast_params", "serve", "prefetch",
 ]

@@ -61,6 +61,8 @@ def load_library() -> ctypes.CDLL:
         lib.hvd_core_poll.argtypes = [vp, ctypes.c_char_p, i32]
         lib.hvd_core_wait.argtypes = [vp, f64, ctypes.c_char_p, i32]
         lib.hvd_core_shutdown.argtypes = [vp]
+        lib.hvd_core_trace_enable.argtypes = [vp]
+        lib.hvd_core_trace.argtypes = [vp, ctypes.c_char_p, i32]
         _lib = lib
         return lib
 
@@ -186,6 +188,41 @@ class CoordinationCore:
         """The next response, or None after ``timeout_s``."""
         return self._take(lambda b: self._lib.hvd_core_wait(
             self._h, timeout_s, b, len(b)))
+
+    def trace_enable(self) -> None:
+        """Turn on the native span ring (``csrc/core/trace.h``): each
+        cycle that took submissions or made responses records its phases."""
+        self._lib.hvd_core_trace_enable(self._h)
+
+    def trace_drain(self) -> dict:
+        """Consume the pending native trace events (``hvd_core_trace``):
+        ``{"version", "now_us", "dropped", "events": [(ts_us, phase, cat,
+        name, arg), ...]}``, timestamps in microseconds of the ring's
+        clock.  A ``cycle.negotiate`` begin event carries the number of
+        submissions that cycle took."""
+        events = []
+        header = {"version": 0, "now_us": 0, "dropped": 0}
+        buf = self._buf(1 << 20)
+        while True:
+            n = self._lib.hvd_core_trace(self._h, buf, len(buf))
+            if n <= 0:
+                break
+            lines = buf.value.decode().splitlines()
+            if not lines or not lines[0].startswith("hvd_trace_v"):
+                raise RuntimeError("unrecognized native trace header: "
+                                   f"{lines[:1]!r}")
+            head = lines[0].split()
+            header = {"version": int(head[0].split("hvd_trace_v", 1)[1]),
+                      "now_us": int(head[1]), "dropped": int(head[2])}
+            for line in lines[1:]:
+                parts = line.split()
+                if len(parts) >= 5:
+                    events.append((int(parts[0]), parts[1], parts[2],
+                                   parts[3], int(parts[4])))
+            if len(lines) == 1:  # the header alone: the ring is empty
+                break
+        header["events"] = events
+        return header
 
     def shutdown(self) -> None:
         """Ask the cycle loop to exit.  With several cores in one process

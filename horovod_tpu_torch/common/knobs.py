@@ -1,6 +1,7 @@
 """The ``HOROVOD_*`` knobs this port reads: its own copy of the entries of
 ``horovod_tpu/common/knobs.py`` that the data-parallel training path, the
-wire and overlap planes, the eager API's controller
+wire and overlap planes, the input prefetch and ZeRO
+(``data/loader.py``, ``parallel/zero.py``), the eager API's controller
 (``runtime.ensure_core``) and the serving engine (``serve/config.py``
 ``from_knobs``) need, with the same names, defaults and parsing (env >
 override > default); ``current`` reads one live (env > the runtime's
@@ -66,6 +67,24 @@ _knob("HOROVOD_OVERLAP_DEPTH", 1, int,
       "Microbatch-pipeline depth: how many gradient syncs may be in flight "
       "before the oldest is waited for.  Must be in [1, 8]; rejected at "
       "init() otherwise.")
+_knob("HOROVOD_PREFETCH_DEPTH", 2, int,
+      "Device-prefetch depth of data.loader.prefetch(): how many batches "
+      "are copied to the device ahead of the step consuming them (2 = "
+      "double buffered).  Must be >= 1; rejected at init() otherwise.")
+# --- ZeRO weight-update sharding (parallel/zero.py) ---
+_knob("HOROVOD_ZERO_LEVEL", 1, int,
+      "Default ZeRO weight-update sharding level of the zero chain "
+      "(parallel/zero.py; the zero_level argument wins): 1 shards the "
+      "optimizer state 1/n along the fusion-bucket plan, 2 also keeps "
+      "gradient shards (accumulation on the 1/n shard), 3 also keeps the "
+      "parameters sharded between steps, gathered bucket by bucket at "
+      "step start.  0 = off (plain data parallelism).  Must be in "
+      "{0, 1, 2, 3}; rejected at init() otherwise.")
+_knob("HOROVOD_ZERO_AG_PREFETCH", 2, int,
+      "ZeRO-3 parameter all-gather prefetch depth: how many bucket "
+      "gathers the level-3 step keeps in flight ahead of the bucket being "
+      "unpacked at step start (plan order).  Must be in [1, 8]; rejected "
+      "at init() otherwise.")
 _knob("HOROVOD_RANK", -1, int, "Global process rank assigned by the launcher.")
 _knob("HOROVOD_SIZE", -1, int, "Global process count assigned by the launcher.")
 _knob("HOROVOD_LOCAL_RANK", -1, int, "Process rank within its host.")

@@ -109,6 +109,32 @@ def pack_bucket(leaves: Sequence[torch.Tensor], bucket: Bucket) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def pack_bucket_padded(leaves: Sequence[torch.Tensor], bucket: Bucket,
+                       multiple: int,
+                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """:func:`pack_bucket` padded with zeros to a multiple of ``multiple``:
+    the shard geometry the ZeRO chain reduce-scatters
+    (``parallel/zero.py``), a bucket split 1/n per rank.  With ``dtype``
+    the leaves are cast into one new buffer of that dtype (no per-leaf
+    copies); without it a bucket that needs no pad is
+    :func:`pack_bucket`'s result."""
+    m = max(multiple, 1)
+    total = sum(bucket.sizes)
+    padded = -(-total // m) * m
+    first = leaves[bucket.indices[0]]
+    if dtype is None:
+        if padded == total:
+            return pack_bucket(leaves, bucket)
+        dtype = first.dtype
+    out = torch.empty(padded, dtype=dtype, device=first.device)
+    off = 0
+    for i, size in zip(bucket.indices, bucket.sizes):
+        out[off:off + size].copy_(leaves[i].reshape(-1))
+        off += size
+    out[total:].zero_()
+    return out
+
+
 def unpack_bucket(buffer: torch.Tensor, bucket: Bucket,
                   out: List[Optional[torch.Tensor]]) -> None:
     """Split a fused buffer back into its leaves (views), into ``out``."""

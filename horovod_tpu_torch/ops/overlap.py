@@ -37,14 +37,18 @@ MAX_OVERLAP_DEPTH = 8
 
 
 def validate_overlap_knobs(knobs: Mapping[str, Any]) -> None:
-    """Fail at init on an invalid HOROVOD_OVERLAP_DEPTH.  (The JAX
-    package also checks HOROVOD_PREFETCH_DEPTH here; the port's prefetch
-    comes with ``data/loader.py``.)"""
+    """Fail at init on an invalid HOROVOD_OVERLAP_DEPTH or
+    HOROVOD_PREFETCH_DEPTH (``data/loader.py`` ``prefetch``)."""
     depth = int(knobs["HOROVOD_OVERLAP_DEPTH"])
     if not 1 <= depth <= MAX_OVERLAP_DEPTH:
         raise ValueError(
             f"HOROVOD_OVERLAP_DEPTH={depth} invalid; the pipeline depth "
             f"must be in [1, {MAX_OVERLAP_DEPTH}]")
+    pre = int(knobs["HOROVOD_PREFETCH_DEPTH"])
+    if pre < 1:
+        raise ValueError(
+            f"HOROVOD_PREFETCH_DEPTH={pre} invalid; the device-prefetch "
+            "depth must be >= 1")
 
 
 def overlap_enabled(overlap: Optional[bool] = None) -> bool:

@@ -57,6 +57,8 @@ class Runtime:
         self.knobs = knobs
         validate_policy_name(knobs["HOROVOD_WIRE_POLICY"])
         validate_overlap_knobs(knobs)
+        from .parallel.zero import validate_zero_knobs
+        validate_zero_knobs(knobs)
         for name in ("HOROVOD_AUTOTUNE", "HOROVOD_TIMELINE",
                      "HOROVOD_FLIGHT_RECORD"):
             if knobs[name]:
@@ -175,8 +177,9 @@ class Runtime:
     def overlap_depth(self) -> int:
         """Live microbatch-pipeline depth (ops/overlap.py): the knob, read
         through ``current``."""
-        validate_overlap_knobs({"HOROVOD_OVERLAP_DEPTH":
-                                current("HOROVOD_OVERLAP_DEPTH")})
+        validate_overlap_knobs({
+            name: current(name) for name in ("HOROVOD_OVERLAP_DEPTH",
+                                             "HOROVOD_PREFETCH_DEPTH")})
         return int(current("HOROVOD_OVERLAP_DEPTH"))
 
     def shutdown(self) -> None:

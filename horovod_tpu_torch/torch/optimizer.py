@@ -21,6 +21,7 @@ and by f after it (the reference Horovod's split of the average).
 from __future__ import annotations
 
 import warnings
+import weakref
 from contextlib import contextmanager
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -117,11 +118,20 @@ class _HookReducingOptimizer(torch.optim.Optimizer):
                            if buckets is not None else {})
         self._bucket_pending: Dict[int, List[torch.Tensor]] = {}
 
+        # the hooks live on the parameters, where Python's collector does
+        # not see them: a bound method would keep this optimizer, and
+        # through it the parameters and their state, alive for good
+        me = weakref.ref(self)
+
+        def on_grad(p: torch.Tensor) -> None:
+            opt = me()
+            if opt is not None:
+                opt._on_grad_ready(p)
         for p in every_param:
             if p.requires_grad:
                 self._hooked.add(p)
                 self._hook_handles.append(
-                    p.register_post_accumulate_grad_hook(self._on_grad_ready))
+                    p.register_post_accumulate_grad_hook(on_grad))
 
     # ------------------------------------------------------------------ hooks
     def _on_grad_ready(self, p: torch.Tensor) -> None:

@@ -120,6 +120,24 @@ def test_hook_optimizer_with_fp16_compression(runtimes):
                                    atol=1e-4)
 
 
+def test_dropped_hook_optimizer_frees_its_model(runtimes):
+    """The gradient hooks live on the parameters, out of the collector's
+    sight, so a cycle through them is never collected: a dropped
+    optimizer's parameters must go."""
+    import gc
+    import weakref
+    model = _mlp()
+    opt = TT.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), **OPT_KW),
+        named_parameters=model.named_parameters())
+    ((model(torch.ones(2, 6)) - 1) ** 2).mean().backward()
+    opt.step()
+    refs = [weakref.ref(p) for p in model.parameters()]
+    del model, opt
+    gc.collect()
+    assert all(r() is None for r in refs)
+
+
 def test_hook_optimizer_refusals(runtimes):
     model = _mlp()
     named = list(model.named_parameters())
