@@ -69,7 +69,13 @@ Phases, in order; any failure exits non-zero before the result line:
    against ``DistributedOptimizer(AdamW)`` (losses within 1e-4,
    parameters within 1e-6); step ms, peak memory, bytes resident between
    steps beside ``zero_memory_bytes``, and 16 x 4 x k launches per kernel;
-9. printed last, after phase 10: a ``{"kernels": [...]}`` JSON line (the
+11. layout: the 3D layout plane (``parallel/layout.py``) at one rank:
+   ``resolve_layout`` of ``1,1,1``, ``dp-only`` and ``auto``, then phase
+   10's ``1b`` configuration through ``make_llama_layout_train_step`` at
+   layout (1, 1, 1), levels 1 and 3, each bitwise equal (losses and final
+   parameters) to phase 10's chain at its level, with step ms beside
+   phase 10's;
+9. printed last, after phase 11: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128`` numbers
    and resources), then the ``{"ok": true, "device": {...}}`` JSON
    line.
@@ -102,7 +108,21 @@ through ``prefetch``, bitwise equal across ranks and within each group of
 (32 layers, 8,030,261,248 parameters, bf16) at level 3, 2 warm-up, 4
 timed and 1 profiled step of 1 x 2048 per card: step ms, tokens/s per
 card, MFU(6N), NCCL ms, peak and resident memory against
-``zero_memory_bytes``.
+``zero_memory_bytes``.  Last, with N = 4, the 3D layouts
+(``rank_layout``), on a flat group of their own: (a) ``8b`` cut to 2
+layers in fp32 (AdamW eps 1e-3, level 1, 3 steps of 4 x 2048 global)
+under (4,1,1), (2,2,1), (2,1,2), (1,2,2) and (1,4,1): losses within 2e-5
+and gathered parameters within 1e-4 of (4,1,1)'s, (4,1,1) bitwise equal
+to the ZeRO chain, dp peers bitwise equal, (2,2,1) level 3 bitwise equal
+to its level 1; (c) FSDP (DTensor) on the same cut model in fp32, mesh
+(dp, fsdp, tp) = (1, 2, 2), one SGD step against the plain step (loss
+rtol 1e-5, parameters 1e-5); (b) ``8b`` at 32 layers, bf16 with fp32
+master shards, level 3, 4 x 2048 global, ``n_micro=4``, under every
+layout of (a) that ``layout_memory_bytes`` fits into the free memory and
+the one ``HOROVOD_LAYOUT=auto`` picks (priced on the H100 and NVLink):
+step ms, tokens/s per card, MFU(6N), NCCL and compute ms, peak memory and
+launches beside ``layout_step_time``, ``layout_memory_bytes`` and the
+solver's rank, losses within 0.05 of (4,1,1)'s.
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -1128,8 +1148,9 @@ def zero_tokens(np, vocab: int, rows: int, seq: int, steps: int,
 def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
              tokens, rows: int, level: int, k: int = 1, wire: str = "none",
              ag_prefetch=None, master_fp32: bool = True, warmup: int = 1,
-             profile: bool = False, dp: bool = False, keep: bool = False
-             ) -> dict:
+             profile: bool = False, dp: bool = False, keep: bool = False,
+             layout=None, n_micro: int = 4, eps: float = 1e-8,
+             gather: bool = True) -> dict:
     """One ZeRO configuration (or, with ``dp``, the data-parallel
     ``DistributedOptimizer(AdamW)`` step on the same inputs): the model
     from seed 0 on the card (fp32 master weights and bf16 compute, or with
@@ -1139,7 +1160,14 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
     ``prefetch(depth=2)``, ``k`` microbatches a step.  ``warmup`` steps,
     the rest timed, and with ``profile`` one more step under the profiler
     on rank 0.  Returns the losses, parameter checksums, step ms, NCCL ms,
-    peak and resident memory, the cost models and the launches."""
+    peak and resident memory, the cost models and the launches.
+
+    With ``layout=(dp, tp, pp)`` the same run goes through the 3D layout
+    plane instead: this rank's ``LayoutLlama`` sliced from the seeded model,
+    ``make_llama_layout_train_step`` with ``n_micro`` microbatches under
+    pp, the loader dealing rows to the dp index; ``sums`` are then the
+    checksums of the whole model's gathered parameters (none with
+    ``gather=False``) and ``local_sums`` those of this rank's slice."""
     import dataclasses
     import gc as _gc
     from horovod_tpu_torch.data import NumpyDataLoader, prefetch
@@ -1159,11 +1187,28 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
     if master_fp32:
         model = model.float()
     n_params = sum(p.numel() for p in model.parameters())
+    lay = None
+    if layout is not None:
+        from horovod_tpu_torch.parallel import layout as Lay
+        lay = Lay.build_layout(*layout)
+        model = Lay.slice_llama(model, lay.coord, layout)
+        rank, n = lay.coord[0], layout[0]
     compute = torch.bfloat16 if master_fp32 else None
     loss_fn = lambda m, ids: llama.loss_fn(  # noqa: E731
         m, ids, attn_fn=hvd.flash_attention, ce_chunks=8)
     ef = wire != "none"
-    if dp:
+    if lay is not None:
+        state = Lay.init_layout_state(
+            torch.optim.AdamW, model, zero_level=level, wire_policy=wire,
+            error_feedback=ef, layout=lay, lr=ZERO_LR, weight_decay=ZERO_WD,
+            eps=eps)
+        step = Lay.make_llama_layout_train_step(
+            model, state, n_micro=n_micro, layout=lay, zero_level=level,
+            wire_policy=wire, error_feedback=ef, backward_passes_per_step=k,
+            ag_prefetch=ag_prefetch, compute_dtype=compute,
+            attn_fn=hvd.flash_attention, ce_chunks=8)
+        modeled = None
+    elif dp:
         opt = hvd.DistributedOptimizer(
             torch.optim.AdamW(model.parameters(), lr=ZERO_LR,
                               weight_decay=ZERO_WD),
@@ -1175,7 +1220,7 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
     else:
         state = Z.init_zero_state(torch.optim.AdamW, model, zero_level=level,
                                   wire_policy=wire, error_feedback=ef,
-                                  lr=ZERO_LR, weight_decay=ZERO_WD)
+                                  lr=ZERO_LR, weight_decay=ZERO_WD, eps=eps)
         leaves = list(model.parameters())
         plan = Z._bucket_plan(leaves, None)
         formats = Z._zero_formats(plan, wire, n)
@@ -1220,10 +1265,22 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
         require(torch.equal(got.cpu(), torch.from_numpy(want)),
                 "a prefetched batch differs from its host array")
     require(len(seen) == len(host), "prefetch dropped a batch")
-    params = (Z.gather_zero3_params(state.shards, model) if level == 3
-              and not dp else list(model.parameters()))
+    if lay is not None:
+        local = (Z.gather_zero3_params(state.shards, model,
+                                       group=lay.groups["dp"])
+                 if level == 3 else list(model.parameters()))
+        local_sums = param_checksums(torch, local)
+        del local
+        params = (list(Lay.gather_layout_params(
+            model, state.shards if level == 3 else None, layout=lay).values())
+            if gather else [])
+    else:
+        params = (Z.gather_zero3_params(state.shards, model) if level == 3
+                  and not dp else list(model.parameters()))
+        local_sums = None
     out = {"losses": [float(x) for x in losses],
-           "sums": param_checksums(torch, params),
+           "sums": param_checksums(torch, params) if params else None,
+           "local_sums": local_sums,
            "step_ms": dt / (steps - warmup) * 1e3,
            "nccl_ms": None if prof is None else kernel_ms(prof)[1],
            "busy_ms": None if prof is None else kernel_ms(prof)[0],
@@ -1238,6 +1295,8 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
         out["params"] = [p.detach().clone() for p in params]
     del step, state, model, params, seen
     _gc.collect()
+    if lay is not None:
+        Lay.release_layout(lay)
     if cuda:
         torch.cuda.empty_cache()
     return out
@@ -1313,6 +1372,46 @@ def phase_zero(torch, np, hvd, llama, F, card: str) -> dict:
     hvd.shutdown()
     launches = {name: sum(r["launches"][name] for r in runs.values())
                 for name in F.LAUNCHES}
+    return launches, runs
+
+
+def phase_layout(torch, np, hvd, llama, F, card: str, zero_runs) -> dict:
+    """Phase 11: the 3D layout plane on one card.  ``resolve_layout`` of
+    ``1,1,1``, ``dp-only`` and ``auto`` at one rank, then
+    ``make_llama_layout_train_step`` at (1, 1, 1) on phase 10's
+    configuration (1b, fp32 master weights, bf16 compute, flash attention,
+    4 steps of 4 x 2048 of phase 5's batches) at levels 1 and 3: losses and
+    final parameters bitwise equal to phase 10's chain at the same level
+    (at tp = pp = 1 the composed chain is the ZeRO chain)."""
+    from horovod_tpu_torch.parallel import layout as Lay
+    knobs = {"HOROVOD_TP": 0, "HOROVOD_PP": 0, "HOROVOD_ZERO_LEVEL": 1}
+    for value in ("1,1,1", "dp-only", "auto"):
+        got = Lay.resolve_layout(1, dict(knobs, HOROVOD_LAYOUT=value))
+        require(got == (1, 1, 1), f"layout {value!r} resolved to {got}")
+    print("layout: HOROVOD_LAYOUT 1,1,1, dp-only and auto resolve to "
+          "(1, 1, 1) at one rank", flush=True)
+    dev = hvd.init().device
+    cfg = llama.CONFIGS["1b"]
+    tokens = zero_tokens(np, cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, ZERO_STEPS)
+    launches = {name: 0 for name in F.LAUNCHES}
+    for level in (1, 3):
+        r = zero_run(torch, np, hvd, llama, F, dev, 0, 1, cfg, tokens,
+                     TRAIN_BATCH, level, layout=(1, 1, 1))
+        check_zero_launches(r, cfg.n_layers, 1, f"layout L{level}")
+        ref = zero_runs[f"L{level}"]
+        same = (r["losses"] == ref["losses"]
+                and torch.equal(r["sums"], ref["sums"]))
+        print(f"layout [1b (1, 1, 1) L{level}] {card}, fp32 master weights, "
+              f"bf16 compute: step {r['step_ms']:.1f} ms against phase 10's "
+              f"{ref['step_ms']:.1f} ms; peak memory {r['peak_gib']:.2f} GiB; "
+              f"losses " + " ".join(f"{x:.5f}" for x in r["losses"])
+              + f"; bitwise equal to phase 10's level {level}: {same}; "
+              f"launches {json.dumps(r['launches'])}", flush=True)
+        require(same, f"layout (1, 1, 1) level {level} differs from the "
+                      "zero chain")
+        for name in F.LAUNCHES:
+            launches[name] += r["launches"][name]
+    hvd.shutdown()
     return launches
 
 
@@ -1411,6 +1510,298 @@ def rank_zero(torch, np, hvd, llama, F, rank: int, n: int, dev,
               f"{plain['total_bytes']} bytes per rank "
               f"(zero_memory_bytes(0, N, 1)); launches "
               + json.dumps(r["launches"]), flush=True)
+
+
+# --ranks N, the 3D layout plane: the (dp, tp, pp) layouts of (a) and (b)
+LAYOUTS = ((4, 1, 1), (2, 2, 1), (2, 1, 2), (1, 2, 2), (1, 4, 1))
+LAYOUT_ROWS = 4          # global rows a step, at every layout
+LAYOUT_STEPS = 3         # (a): 1 warm-up and 2 timed steps
+LAYOUT_N_MICRO = 4
+LAYOUT_EPS = 1e-3        # AdamW's eps in (a), as the CPU parity tests
+LAYOUT_LOSS_TOL, LAYOUT_PARAM_TOL = 2e-5, 1e-4   # tests/test_layout.py
+LAYOUT_BF16_LOSS_TOL = 0.05
+FSDP_MESH = (1, 2, 2)
+FSDP_LR = 1e-2
+
+
+def layout_fits(cfg, dims, rows: int) -> bool:
+    """Whether ``cfg`` and ``rows`` global rows take layout ``dims``."""
+    dp, tp, pp = dims
+    return not (cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.ffn_dim % tp
+                or cfg.n_layers % pp or rows % dp)
+
+
+def layout_launches(cfg, dims, rows: int) -> int:
+    """Launches of each attention kernel in a step of a layout run: each
+    rank's stage runs its ``n_layers / pp`` layers once, or once a
+    microbatch under pp."""
+    from horovod_tpu_torch.perf.costmodel import _effective_microbatches
+    dp, _, pp = dims
+    micro = _effective_microbatches(rows // dp, LAYOUT_N_MICRO) if pp > 1 \
+        else 1
+    return cfg.n_layers // pp * micro
+
+
+def dp_bitwise(torch, dist, r, dims, n: int, label: str) -> None:
+    """Every rank's slice checksums gathered: the ranks of one (tp, pp)
+    coordinate (its dp group) hold bitwise equal parameters."""
+    every = [torch.empty_like(r["local_sums"]) for _ in range(n)]
+    dist.all_gather(every, r["local_sums"])
+    _, tp, pp = dims
+    for q in range(n):
+        peer = q % (tp * pp)  # the coordinate's dp index 0
+        require(torch.equal(every[q], every[peer]),
+                f"layout [{label}]: rank {q}'s parameters differ from its "
+                f"dp peer rank {peer}'s")
+
+
+def rank_layout(torch, np, hvd, llama, F, rank: int, n: int, dev,
+                big_name: str, seq: int) -> None:
+    """--ranks N, after ``rank_zero``: the 3D layout plane.  (a) ``big_name``
+    cut to 2 layers in fp32, AdamW at eps 1e-3, level 1, 3 steps of
+    ``LAYOUT_ROWS`` x ``seq`` global, under each of ``LAYOUTS`` the config
+    takes: losses within 2e-5 and gathered parameters within 1e-4 of
+    (n, 1, 1)'s, which is bitwise equal to the ZeRO chain on the default
+    group; parameters bitwise equal across each coordinate's dp ranks;
+    level 3 at (2, 2, 1) bitwise equal to its level 1.  (b) ``big_name`` at
+    full depth, bf16 with fp32 master shards, level 3, under every layout of
+    (a) that ``layout_memory_bytes`` fits into the card's free memory and
+    the one ``HOROVOD_LAYOUT=auto`` picks (``llama_layout_model`` priced on
+    the H100 and NVLink): step ms, tokens/s per card, MFU(6N), one
+    profiled step's NCCL and compute ms, peak memory, the cost model's
+    prediction beside each, and losses within 0.05 of (n, 1, 1)'s."""
+    import dataclasses
+    import torch.distributed as dist
+    from horovod_tpu_torch.parallel import layout as Lay
+    from horovod_tpu_torch.perf import costmodel
+    cuda = dev.type == "cuda"
+    if cuda:  # the full model's layouts run close to the card's memory
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    big = llama.CONFIGS[big_name]
+    rows = LAYOUT_ROWS
+    dims_list = [d for d in LAYOUTS if d[0] * d[1] * d[2] == n
+                 and layout_fits(big, d, rows)]
+    anchor = (n, 1, 1)
+
+    # (a) equivalence in fp32
+    cut = dataclasses.replace(big, n_layers=2, dtype=torch.float32)
+    tokens = zero_tokens(np, cut.vocab, rows, seq, LAYOUT_STEPS)
+    kw = dict(master_fp32=False, eps=LAYOUT_EPS, keep=True)
+    chain = zero_run(torch, np, hvd, llama, F, dev, rank, n, cut, tokens,
+                     rows // n, 1, **kw)
+    ref, level1 = None, {}
+    for dims in dims_list + [(2, 2, 1, 3)]:
+        level = dims[3] if len(dims) == 4 else 1
+        dims = dims[:3]
+        if dims not in dims_list:
+            continue
+        r = zero_run(torch, np, hvd, llama, F, dev, rank, n, cut, tokens,
+                     rows // dims[0], level, layout=dims,
+                     n_micro=LAYOUT_N_MICRO, **kw)
+        label = f"{big_name} 2 layers fp32 {dims} L{level}"
+        dp_bitwise(torch, dist, r, dims, n, label)
+        if cuda:
+            check_zero_launches(r, layout_launches(cut, dims, rows), 1,
+                                label)
+        if ref is None:
+            require(dims == anchor, f"layout (a) starts at {anchor}")
+            ref = r
+            same = chain["losses"] == r["losses"] and all(
+                torch.equal(a, b) for a, b in zip(chain["params"],
+                                                  r["params"]))
+            require(same, f"layout [{label}] differs from the zero chain")
+            del chain["params"]
+        gap = max(abs(a - b) for a, b in zip(r["losses"], ref["losses"]))
+        pgap = max_param_diff(r["params"], ref["params"])
+        if level == 3:
+            one = level1[dims]
+            require(one["losses"] == r["losses"]
+                    and torch.equal(one["sums"], r["sums"]),
+                    f"layout [{label}]: level 3 differs from level 1")
+        else:
+            level1[dims] = r
+        if r is not ref:
+            del r["params"]
+        if rank == 0:
+            print(f"ranks [{n}] layout {label} ("
+                  f"{cut.n_layers} layers, width {cut.dim}, "
+                  f"{rows} x {seq} global): losses "
+                  + " ".join(f"{x:.6f}" for x in r["losses"])
+                  + f"; against {anchor}: max loss gap {gap:.3g}, max "
+                  f"parameter gap {pgap:.3g}; step {r['step_ms']:.1f} ms; "
+                  f"peak {r['peak_gib']:.2f} GiB; launches "
+                  + json.dumps(r["launches"]), flush=True)
+        require(gap <= LAYOUT_LOSS_TOL and pgap <= LAYOUT_PARAM_TOL,
+                 f"layout [{label}]: loss gap {gap}, parameter gap {pgap}")
+    del ref["params"]
+    if rank == 0:
+        print(f"ranks [{n}] layout (a): every layout within "
+              f"{LAYOUT_LOSS_TOL} (losses) and {LAYOUT_PARAM_TOL} "
+              f"(parameters) of {anchor}, which is bitwise equal to the "
+              "zero chain; parameters bitwise equal across each "
+              "coordinate's dp ranks; (2, 2, 1) level 3 bitwise equal to "
+              "its level 1", flush=True)
+
+    rank_fsdp(torch, np, hvd, llama, rank, n, dev, big_name, seq)
+
+    # (b) the full model
+    desc = costmodel.llama_layout_model(
+        vocab=big.vocab, dim=big.dim, n_layers=big.n_layers,
+        n_heads=big.n_heads, n_kv_heads=big.n_kv_heads,
+        ffn_dim=big.ffn_dim, batch=rows, seq=seq)
+    cap = None
+    if cuda:
+        free = torch.tensor([float(torch.cuda.mem_get_info()[0])],
+                            device=dev)
+        dist.all_reduce(free, op=dist.ReduceOp.MIN)
+        cap = float(free.item())
+    price = dict(chip="h100", link="nvlink")
+    auto = Lay.resolve_layout(n, {"HOROVOD_LAYOUT": "auto", "HOROVOD_TP": 0,
+                                  "HOROVOD_PP": 0, "HOROVOD_ZERO_LEVEL": 3},
+                              model=desc, mem_cap_bytes=cap, **price)
+    sol = costmodel.solve_layout(desc, n, mem_cap_bytes=cap, levels=(3,),
+                                 n_micro=LAYOUT_N_MICRO, **price)
+    ranked = {tuple(row["layout"][a] for a in ("dp", "tp", "pp")): row
+              for row in sol["candidates"]}
+    runs = [d for d in dims_list if ranked[d]["fits"]]
+    if auto not in runs and layout_fits(big, auto, rows):
+        runs.append(auto)
+    if rank == 0:
+        print(f"ranks [{n}] layout (b): HOROVOD_LAYOUT=auto picks {auto} "
+              f"(solve_layout on llama_layout_model, h100 and nvlink, cap "
+              f"{cap} B free); running {runs}", flush=True)
+    tokens = zero_tokens(np, big.vocab, rows, seq,
+                         WARMUP_STEPS + TIMED_STEPS + 1)
+    measured = {}
+    anchor_losses = None
+    for dims in runs:
+        if cuda and rank == 0:
+            free, total = torch.cuda.mem_get_info()
+            print(f"ranks [{n}] layout {dims}: before the run "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                  f"allocated, {free / 2**30:.2f} of {total / 2**30:.2f} "
+                  "GiB free", flush=True)
+        r = zero_run(torch, np, hvd, llama, F, dev, rank, n, big, tokens,
+                     rows // dims[0], 3, ag_prefetch=2, master_fp32=False,
+                     warmup=WARMUP_STEPS, profile=True, layout=dims,
+                     n_micro=LAYOUT_N_MICRO, gather=False)
+        label = f"{big_name} {dims} L3"
+        dp_bitwise(torch, dist, r, dims, n, label)
+        if cuda:
+            check_zero_launches(r, layout_launches(big, dims, rows), 1,
+                                label)
+        require(all(math.isfinite(x) for x in r["losses"]),
+                f"layout [{label}]: loss {r['losses']}")
+        if anchor_losses is None:
+            anchor_losses = r["losses"]
+        gap = max(abs(a - b) for a, b in zip(r["losses"], anchor_losses))
+        require(gap <= LAYOUT_BF16_LOSS_TOL,
+                f"layout [{label}]: losses {r['losses']} against {anchor}'s "
+                f"{anchor_losses}")
+        measured[dims] = r["step_ms"]
+        if rank == 0:
+            pred = costmodel.layout_step_time(
+                desc, *dims, zero_level=3, n_micro=LAYOUT_N_MICRO, **price)
+            tok_s = rows * seq / n / (r["step_ms"] / 1e3)
+            mfu = 6 * r["n_params"] * tok_s / PEAK_BF16_FLOPS
+            busy = r["busy_ms"] or 0.0
+            nccl = r["nccl_ms"] or 0.0
+            dtype = str(big.dtype).replace("torch.", "")
+            print(f"ranks [{n}] layout {label} ({r['n_params']} params, "
+                  f"{dtype} parameters, fp32 master shards, {rows} x {seq} global, "
+                  f"n_micro {LAYOUT_N_MICRO}): step {r['step_ms']:.1f} ms, "
+                  f"{tok_s:.0f} tokens/s per card, MFU(6N) {mfu:.4f}; "
+                  f"profiled step (rank 0): kernels {busy:.1f} ms, NCCL "
+                  f"{nccl:.1f} ms, compute {busy - nccl:.1f} ms, idle share "
+                  f"{max(0.0, 1 - busy / r['step_ms']):.3f}; peak "
+                  f"{r['peak_gib']:.2f} GiB; predicted step "
+                  f"{pred['step_s'] * 1e3:.1f} ms (compute "
+                  f"{pred['compute_s'] * 1e3:.1f}, tp "
+                  f"{pred['tp_comm_s'] * 1e3:.1f}, pp "
+                  f"{pred['pp_comm_s'] * 1e3:.1f}, zero "
+                  f"{pred['zero_comm_s'] * 1e3:.1f}, bubble "
+                  f"{pred['bubble_fraction']:.3f}), predicted memory "
+                  f"{pred['memory']['total_bytes']} B, solver rank "
+                  f"{ranked[dims]['rank']}; losses "
+                  + " ".join(f"{x:.4f}" for x in r["losses"])
+                  + f" (max gap to {anchor} {gap:.3g}); launches "
+                  + json.dumps(r["launches"]), flush=True)
+    if rank == 0:
+        order = sorted(measured, key=measured.get)
+        print(f"ranks [{n}] layout (b): measured order "
+              + ", ".join(f"{d} {measured[d]:.1f} ms" for d in order)
+              + "; solver order "
+              + ", ".join(f"{d} #{ranked[d]['rank']}" for d in sorted(
+                  measured, key=lambda d: ranked[d]["rank"])), flush=True)
+
+
+def rank_fsdp(torch, np, hvd, llama, rank: int, n: int, dev,
+              big_name: str, seq: int) -> None:
+    """--ranks N, (c): ``make_fsdp_train_step`` (DTensor) on ``big_name``
+    cut to 2 layers in fp32, SGD, one step of ``LAYOUT_ROWS`` x ``seq`` on
+    the device mesh (dp, fsdp, tp) = ``FSDP_MESH``, against the same step
+    of the plain model on rank 0 (tests/test_fsdp.py's tolerances: loss
+    rtol 1e-5, parameters atol 1e-5); each rank holds a quarter of wq."""
+    import dataclasses
+    import gc as _gc
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from horovod_tpu_torch.parallel import fsdp as FS
+    cfg = dataclasses.replace(llama.CONFIGS[big_name], n_layers=2,
+                              dtype=torch.float32)
+    mesh = init_device_mesh(dev.type, FSDP_MESH, mesh_dim_names=FS.MESH_AXES)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab, (LAYOUT_ROWS, seq + 1)))
+
+    def seeded():
+        return llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    model = seeded()
+    FS.shard_params(model, mesh, FS.llama_param_specs(model, mesh=mesh))
+    opt = FS.init_opt_state(torch.optim.SGD, model, lr=FSDP_LR)
+    step = FS.make_fsdp_train_step(model, FS.llama_loss_fn, opt, mesh,
+                                   batch_spec=(("dp", "fsdp"),))
+    t0 = time.perf_counter()
+    loss = float(step(ids))
+    dt = time.perf_counter() - t0
+    wq = model.layers[0].wq.weight
+    require(wq.to_local().numel() * 4 == wq.numel(),
+            f"fsdp: rank {rank} holds {wq.to_local().numel()} of "
+            f"{wq.numel()} wq entries")
+    plain = plain_loss = None
+    if rank == 0:
+        plain = seeded()
+        popt = torch.optim.SGD(plain.parameters(), lr=FSDP_LR)
+        pl = llama.loss_fn(plain, ids.to(dev))
+        pl.backward()
+        popt.step()
+        plain_loss = float(pl.detach())
+        del popt, pl
+    pgap = 0.0
+    for name, p in model.named_parameters():
+        full = p.full_tensor()
+        if rank == 0:
+            want = plain.get_parameter(name)
+            pgap = max(pgap, float((full - want).abs().max()))
+        del full
+    if rank == 0:
+        print(f"ranks [{n}] fsdp (c) {big_name} 2 layers fp32 on mesh "
+              f"(dp, fsdp, tp) = {FSDP_MESH}, SGD, {LAYOUT_ROWS} x {seq}: "
+              f"loss {loss:.6f} against the plain step's {plain_loss:.6f}; "
+              f"max parameter gap {pgap:.3g}; each rank holds 1/4 of wq; "
+              f"the step took {dt:.1f} s (its first: sharding propagation "
+              "included)", flush=True)
+        require(abs(loss - plain_loss) <= 1e-5 * abs(plain_loss)
+                and pgap <= 1e-5,
+                f"fsdp: loss {loss} vs {plain_loss}, parameter gap {pgap}")
+    del model, opt, step, plain
+    _gc.collect()
+    for dim in range(len(FSDP_MESH)):  # the mesh's own subgroups
+        group = mesh.get_group(dim)
+        if dist.get_world_size(group) < n:
+            dist.destroy_process_group(group)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def sum_bound(xs, eps: float):
@@ -1732,16 +2123,17 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 def rank_worker(rank: int, n: int, store_port: int, ctrl_port: int,
                 cfg_name: str = "1b", device_type: str = "cuda",
                 batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                wire_port: int = 0) -> None:
+                wire_port: int = 0, layout_port: int = 0) -> None:
     """One rank of ``--ranks N``: one process, one card.  With N >= 4 and
     even, the two-level wire configurations run on a second process group
     (at ``wire_port``) laid out as two hosts of N/2 ranks.  A rank that
     fails prints its traceback and exits at once: its peers, waiting in a
     collective, are then ended by the spawning process instead of waiting
-    out NCCL's timeout."""
+    out NCCL's timeout.  With N = 4 the layout plane (``rank_layout``) runs
+    last, on a flat group of its own (at ``layout_port``)."""
     try:
         rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type,
-                 batch, seq, wire_port)
+                 batch, seq, wire_port, layout_port)
     except BaseException:
         import traceback
         traceback.print_exc()
@@ -1751,7 +2143,7 @@ def rank_worker(rank: int, n: int, store_port: int, ctrl_port: int,
 
 
 def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
-             seq, wire_port) -> None:
+             seq, wire_port, layout_port) -> None:
     os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
                       HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
                       HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{store_port}",
@@ -1766,6 +2158,7 @@ def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
     torch.backends.cuda.matmul.allow_tf32 = False
     if device_type == "cpu":  # a rehearsal on gloo ranks
         torch.set_num_threads(1)
+    big_name = "8b" if device_type == "cuda" else cfg_name
     dev = ht.init(device=None if device_type == "cuda" else device_type).device
     checks = rank_op_checks(torch, ht, rank, n, dev)
     require(mpi_ops.engine().core is not None, "no native controller")
@@ -1805,7 +2198,6 @@ def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
         ring_sync_free(torch, dev, rank)
     ref = rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch,
                      seq, n, None)
-    big_name = "8b" if device_type == "cuda" else cfg_name
     two_level = n >= 4 and n % 2 == 0
     if not two_level:
         rank_zero(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch,
@@ -1815,19 +2207,33 @@ def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
         if rank == 0:
             print(f"ranks [{n}] two-level wire configurations need 4 or "
                   "more ranks, an even number: not run", flush=True)
+    else:
+        # two "hosts" on this one: each process keeps its own card
+        os.environ.update(HOROVOD_LOCAL_RANK=str(rank % (n // 2)),
+                          HOROVOD_LOCAL_SIZE=str(n // 2),
+                          HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{wire_port}",
+                          HOROVOD_CONTROLLER="none")
+        hvd.init(device=dev)
+        require(hvd.runtime.get().hierarchy is not None,
+                "no two-level layout")
+        rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch,
+                   seq, n // 2, ref)
+        # the zero chain reduces over the whole group, flat
+        rank_zero(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch,
+                  seq, ref, big_name)
+        hvd.shutdown()
+    if n != 4:
+        if rank == 0:
+            print(f"ranks [{n}] the layouts are four-rank layouts: not run",
+                  flush=True)
         return
-    # two "hosts" on this one: each process keeps its own card
-    os.environ.update(HOROVOD_LOCAL_RANK=str(rank % (n // 2)),
-                      HOROVOD_LOCAL_SIZE=str(n // 2),
-                      HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{wire_port}",
+    # a flat group of its own, so that no earlier communicator holds
+    # device memory beside the full model's layouts
+    os.environ.update(HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
+                      HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{layout_port}",
                       HOROVOD_CONTROLLER="none")
     hvd.init(device=dev)
-    require(hvd.runtime.get().hierarchy is not None, "no two-level layout")
-    rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
-               n // 2, ref)
-    # the zero chain reduces over the whole group, flat
-    rank_zero(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
-              ref, big_name)
+    rank_layout(torch, np, hvd, llama, F, rank, n, dev, big_name, seq)
     hvd.shutdown()
 
 
@@ -1838,7 +2244,7 @@ def phase_ranks(torch, n: int) -> None:
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
     ctx = tmp.spawn(rank_worker, args=(n, free_port(), free_port(), "1b",
                                        "cuda", TRAIN_BATCH, TRAIN_SEQ,
-                                       free_port()),
+                                       free_port(), free_port()),
                     nprocs=n, join=False)
     try:
         while not ctx.join(timeout=600):
@@ -1917,12 +2323,14 @@ def main() -> int:
                         tok_s, busy, params)
     del params
     wire = phase_wire(torch, np, hvd, llama, F)
-    zero = phase_zero(torch, np, hvd, llama, F, card)
+    zero, zero_runs = phase_zero(torch, np, hvd, llama, F, card)
+    layout = phase_layout(torch, np, hvd, llama, F, card, zero_runs)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
         row["launches_wire"] = wire[row["name"]]
         row["launches_zero"] = zero[row["name"]]
+        row["launches_layout"] = layout[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

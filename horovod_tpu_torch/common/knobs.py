@@ -1,7 +1,8 @@
 """The ``HOROVOD_*`` knobs this port reads: its own copy of the entries of
 ``horovod_tpu/common/knobs.py`` that the data-parallel training path, the
 wire and overlap planes, the input prefetch and ZeRO
-(``data/loader.py``, ``parallel/zero.py``), the eager API's controller
+(``data/loader.py``, ``parallel/zero.py``), the 3D layout plane
+(``parallel/layout.py``), the eager API's controller
 (``runtime.ensure_core``) and the serving engine (``serve/config.py``
 ``from_knobs``) need, with the same names, defaults and parsing (env >
 override > default); ``current`` reads one live (env > the runtime's
@@ -85,6 +86,27 @@ _knob("HOROVOD_ZERO_AG_PREFETCH", 2, int,
       "gathers the level-3 step keeps in flight ahead of the bucket being "
       "unpacked at step start (plan order).  Must be in [1, 8]; rejected "
       "at init() otherwise.")
+# --- the 3D layout plane (parallel/layout.py) ---
+_knob("HOROVOD_LAYOUT", "", str,
+      "Process layout policy (parallel/layout.py): '' leaves the flat "
+      "data-parallel group; 'auto' runs the perf/costmodel.solve_layout "
+      "ranking at init and builds the winning dp x tp x pp subgroups; "
+      "'dp-only' pins (world, 1, 1); an explicit 'dp,tp,pp' triple pins "
+      "that factorization.  dp*tp*pp must equal the world size.  Rejected "
+      "at init() otherwise.")
+_knob("HOROVOD_TP", 0, int,
+      "Tensor-parallel degree constraint for HOROVOD_LAYOUT=auto (the "
+      "solver only considers candidates with this tp), cross-checked "
+      "against an explicit 'dp,tp,pp' triple.  0 = unconstrained.  Must be "
+      ">= 0, divide the world size, and (for the llama family) divide "
+      "n_heads and n_kv_heads; rejected at init() or step-build time "
+      "otherwise.")
+_knob("HOROVOD_PP", 0, int,
+      "Pipeline-parallel degree constraint for HOROVOD_LAYOUT=auto (the "
+      "solver only considers candidates with this pp), cross-checked "
+      "against an explicit 'dp,tp,pp' triple.  0 = unconstrained.  Must be "
+      ">= 0, divide the world size, and (for the llama family) divide "
+      "n_layers; rejected at init() or step-build time otherwise.")
 _knob("HOROVOD_RANK", -1, int, "Global process rank assigned by the launcher.")
 _knob("HOROVOD_SIZE", -1, int, "Global process count assigned by the launcher.")
 _knob("HOROVOD_LOCAL_RANK", -1, int, "Process rank within its host.")

@@ -43,6 +43,13 @@ With bf16 parameters, levels 1 and 2 apply the fp32 update to the bf16
 parameters and round to bf16, while level 3 keeps fp32 master shards and
 casts the gathered parameters to bf16, as the JAX chain does.
 
+The chain runs over the default process group, or over ``group``: the
+3D layout plane (``parallel/layout.py``) seats it on each rank's dp
+subgroup, so every (tp, pp) coordinate shards its own parameter slice over
+its own dp peers, and passes a gradient ``fixup`` that runs on each leaf's
+gradient just before its bucket is packed (the embedding's all-reduce over
+the pipeline stages).
+
 Where the port differs: the inner optimizer updates its shard in place,
 so levels 1 and 2 all-gather the updated parameter shard, not the update
 (the same bytes); the JAX package's ``hvd_zero_*`` gauges and
@@ -301,6 +308,7 @@ def init_sharded_opt_state(optimizer: type, params: Any,
                            zero_level: int = 1,
                            wire_policy=None,
                            error_feedback: Optional[bool] = None,
+                           group=None,
                            **optimizer_kwargs) -> ZeroState:
     """The inner optimizer over this rank's flat fp32 shards:
     ``optimizer(shards, **optimizer_kwargs)``, so each rank holds state for
@@ -312,7 +320,8 @@ def init_sharded_opt_state(optimizer: type, params: Any,
     layout; at levels 1 and 2 the step refreshes the shards from the
     replicated parameters, at level 3 they are the parameters (what
     :func:`shard_zero3_params` makes).  With error feedback on a lossy wire
-    format each bucket also keeps its residual."""
+    format each bucket also keeps its residual.  ``group`` is the process
+    group the chain shards over (None: the default group)."""
     level = resolve_zero_level(zero_level)
     if level == 0:
         raise ValueError(
@@ -322,7 +331,7 @@ def init_sharded_opt_state(optimizer: type, params: Any,
         raise ValueError(
             f"zero_level={level} is bucket-interleaved by construction; "
             "pass interleaved=True")
-    rank, n = _group_geometry(None)
+    rank, n = _group_geometry(group)
     leaves = _leaves(params)
     ef = False
     if interleaved:
@@ -348,7 +357,7 @@ def init_sharded_opt_state(optimizer: type, params: Any,
 def init_zero_state(optimizer: type, params: Any,
                     zero_level: Optional[int] = None, wire_policy=None,
                     error_feedback: Optional[bool] = None,
-                    fusion_threshold_bytes: Any = None,
+                    fusion_threshold_bytes: Any = None, group=None,
                     **optimizer_kwargs) -> ZeroState:
     """:func:`init_sharded_opt_state` with the level from the knob when not
     given and the bucket-interleaved layout (the chain's construction)."""
@@ -356,7 +365,7 @@ def init_zero_state(optimizer: type, params: Any,
         optimizer, params, interleaved=True,
         fusion_threshold_bytes=fusion_threshold_bytes,
         zero_level=resolve_zero_level(zero_level), wire_policy=wire_policy,
-        error_feedback=error_feedback, **optimizer_kwargs)
+        error_feedback=error_feedback, group=group, **optimizer_kwargs)
 
 
 # ------------------------------------------------------- level-3 param API
@@ -425,7 +434,10 @@ def make_zero_train_step(model: torch.nn.Module,
                          backward_passes_per_step: int = 1,
                          ag_prefetch: Optional[int] = None,
                          fusion_threshold_bytes: Any = None,
-                         compute_dtype: Optional[torch.dtype] = None
+                         compute_dtype: Optional[torch.dtype] = None,
+                         group=None,
+                         fixup: Optional[Callable[[int, torch.Tensor],
+                                                  torch.Tensor]] = None
                          ) -> Callable:
     """Build the ZeRO train step ``step(*batch) -> loss`` for ``zero_level``
     (module docstring).
@@ -439,7 +451,13 @@ def make_zero_train_step(model: torch.nn.Module,
     the same level, wire and EF settings; the step checks its layout.
     ``compute_dtype`` runs the loss on a copy of the parameters cast to it
     (fp32 master weights, bf16 compute).  At level 3 the module's
-    parameter storage is freed here and between steps."""
+    parameter storage is freed here and between steps.  ``group`` is the
+    process group the chain shards over and averages the loss over (None:
+    the default group; the state must be made on the same group).
+    ``fixup(i, grad) -> grad`` rewrites the gradient of the module's i-th
+    parameter (``parameters()`` order) before its bucket is packed, on
+    every microbatch; a parameter the backward left without a gradient
+    comes to it as zeros."""
     level = resolve_zero_level(zero_level)
     if level == 0:
         raise ValueError(
@@ -457,7 +475,7 @@ def make_zero_train_step(model: torch.nn.Module,
     k = int(backward_passes_per_step)
     if k < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
-    rank, n = _group_geometry(None)
+    rank, n = _group_geometry(group)
     leaves = _leaves(model)
     if interleaved is False:
         if k != 1:
@@ -486,7 +504,8 @@ def make_zero_train_step(model: torch.nn.Module,
     depth = resolve_ag_prefetch(ag_prefetch) if level == 3 else 0
     device = _rt.resolve_device()
     fn = _compute_cast(model, loss_fn, compute_dtype)
-    chain = _GradientLegs(leaves, plan, order, formats, ef, level, k, n)
+    chain = _GradientLegs(leaves, plan, order, formats, ef, level, k, n,
+                          group, fixup)
     if level == 3:
         _release(leaves)
 
@@ -495,7 +514,7 @@ def make_zero_train_step(model: torch.nn.Module,
             shard = state.shards[j]
             buf = torch.empty(shard.numel() * n, dtype=torch.float32,
                               device=shard.device)
-            return dist.all_gather_into_tensor(buf, shard,
+            return dist.all_gather_into_tensor(buf, shard, group=group,
                                                async_op=True), buf
         _gather_buckets(len(plan.buckets), depth, ag,
                         lambda j, buf: _unpack_into(buf, plan.buckets[j],
@@ -539,7 +558,7 @@ def make_zero_train_step(model: torch.nn.Module,
                     s = state.shards[bi]
                     full = torch.empty(s.numel() * n, dtype=s.dtype,
                                        device=s.device)
-                    dist.all_gather_into_tensor(full, s)
+                    dist.all_gather_into_tensor(full, s, group=group)
                     _unpack_into(full, plan.buckets[bi], leaves)
                     del full
             # one reduction after the last microbatch: a collective on the
@@ -547,7 +566,7 @@ def make_zero_train_step(model: torch.nn.Module,
             # reduce-scatters in flight
             mean = torch.stack(losses)
             if n > 1:
-                dist.all_reduce(mean)
+                dist.all_reduce(mean, group=group)
                 mean = mean / n
             return mean.mean()
 
@@ -577,11 +596,11 @@ class _GradientLegs:
     k > 1 the full bucket (each shard gathered back)."""
 
     def __init__(self, leaves, plan: BucketPlan, order, formats, ef: bool,
-                 level: int, k: int, n: int):
+                 level: int, k: int, n: int, group=None, fixup=None):
         self.leaves, self.plan, self.order = leaves, plan, order
         self.formats, self.ef = formats, ef
         self.gather_back = level == 1 and k > 1
-        self.n = n
+        self.n, self.group, self.fixup = n, group, fixup
         self.acc: List[Optional[torch.Tensor]] = [None] * len(plan.buckets)
         self.armed = False
         self.bucket_of = {}
@@ -642,6 +661,8 @@ class _GradientLegs:
             t = self.leaves[i]
             grads[i] = t.grad if t.grad is not None else torch.zeros_like(t)
             t.grad = None
+            if self.fixup is not None:
+                grads[i] = self.fixup(i, grads[i])
         flat = _pack_padded(grads, b, self.n)
         del grads
         if self.ef:
@@ -652,7 +673,8 @@ class _GradientLegs:
         del flat
         shard = torch.empty(enc.numel() // self.n, dtype=torch.float32,
                             device=enc.device)
-        work = dist.reduce_scatter_tensor(shard, enc, async_op=True)
+        work = dist.reduce_scatter_tensor(shard, enc, group=self.group,
+                                          async_op=True)
         self.inflight.append((work, shard, enc, bi))
         while len(self.inflight) > RS_INFLIGHT:
             self._drain()
@@ -666,7 +688,7 @@ class _GradientLegs:
         if self.gather_back:
             full = torch.empty(contrib.numel() * self.n, dtype=torch.float32,
                                device=contrib.device)
-            dist.all_gather_into_tensor(full, contrib)
+            dist.all_gather_into_tensor(full, contrib, group=self.group)
             contrib = full
         acc = self.acc[bi]
         self.acc[bi] = contrib if acc is None else acc.add_(contrib)

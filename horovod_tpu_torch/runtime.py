@@ -16,6 +16,11 @@ through the native controller (``common/basics.py``), which
 use when the job has more than one process, never with ``none``.  Rank 0
 listens on ``HOROVOD_CONTROLLER_PORT`` at the host of
 ``HOROVOD_COORDINATOR_ADDR`` (127.0.0.1 when unset).
+
+With ``HOROVOD_LAYOUT`` set, ``init`` resolves the (dp, tp, pp) layout of
+the world (``parallel/layout.py``; ``auto`` through the cost model's
+solver) after checking the layout knobs, and builds this rank's dp, tp and
+pp subgroups (``Runtime.layout``).  With it unset there is no layout.
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ def _pick_device(device: Union[str, torch.device, None],
 
 class Runtime:
     """Holds the process group (and, on a two-level layout, this rank's
-    host and cross-host groups), the device, the knobs and the bucket-plan
-    cache of this process."""
+    host and cross-host groups; under ``HOROVOD_LAYOUT``, its dp, tp and pp
+    subgroups), the device, the knobs and the bucket-plan cache of this
+    process."""
 
     def __init__(self, knobs: Knobs,
                  device: Union[str, torch.device, None] = None):
@@ -59,6 +65,8 @@ class Runtime:
         validate_overlap_knobs(knobs)
         from .parallel.zero import validate_zero_knobs
         validate_zero_knobs(knobs)
+        from .parallel.layout import (build_layout, resolve_layout,
+                                      validate_layout_knobs)
         for name in ("HOROVOD_AUTOTUNE", "HOROVOD_TIMELINE",
                      "HOROVOD_FLIGHT_RECORD"):
             if knobs[name]:
@@ -84,6 +92,8 @@ class Runtime:
                 f"HOROVOD_LOCAL_SIZE={self._local_size} does not divide "
                 f"HOROVOD_SIZE={self._size}: a two-level layout needs as "
                 "many ranks on every host")
+        validate_layout_knobs(knobs, world=self._size)
+        dims = resolve_layout(self._size, knobs)
         self.device = _pick_device(device, self._local_rank)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -110,6 +120,8 @@ class Runtime:
                 f"{dist.get_world_size()}, but the knobs say rank "
                 f"{self._rank} of {self._size}")
         self.hierarchy = self._build_hierarchy()
+        # this rank's coordinate and dp, tp and pp subgroups, or None
+        self.layout = build_layout(*dims) if dims is not None else None
         if self._controller == "tcp":
             self.ensure_core()
 

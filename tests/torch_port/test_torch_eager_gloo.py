@@ -102,14 +102,15 @@ def test_chip_smoke_ranks_mode_on_cpu():
     oracle within its rounding bound, the hook-driven optimizer's losses
     against the root package's optimizer's on the same batches, and every
     wire configuration, flat and on two hosts of two ranks, with the
-    parameters bitwise equal across the ranks.  A failed check raises in
-    its rank."""
+    parameters bitwise equal across the ranks, the ZeRO chain, and the 3D
+    layouts and FSDP (``rank_layout``, the full model being ``tiny`` at
+    its depth).  A failed check raises in its rank."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     import chip_smoke
     ctx = tmp.spawn(chip_smoke.rank_worker,
                     args=(4, _free_port(), _free_port(), "tiny", "cpu", 4,
-                          32, _free_port()),
+                          32, _free_port(), _free_port()),
                     nprocs=4, join=False)
     deadline = time.monotonic() + 120
     while not ctx.join(timeout=5):
