@@ -7,13 +7,15 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: the CUDA kernels, from ``horovod_tpu_torch/csrc`` (nvcc), and
-   a resource report of each kernel's bf16 D=64 and D=128 instantiations:
+   a resource report of each kernel's bf16 D=32, D=64 and D=128
+   instantiations:
    registers and spills (``-Xptxas -v``), static and dynamic shared
    memory, and resident blocks per SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``);
 3. kernels: each flash-attention kernel against its plain PyTorch version
    on the card, at the training shape, at the 8b shape (D=128) and at
-   edges (non-causal, GQA groups 1 and 8, S not a multiple of 128, fp32),
+   edges (non-causal, GQA groups 1 and 8, S not a multiple of 128, fp32,
+   D=32: the MoE Llama's head dim),
    dq's and dk/dv's bitwise determinism, with kernel, plain and library
    times at the training shape and the 8b shape (the library backward,
    SDPA's, covers dq and dk/dv together);
@@ -75,12 +77,24 @@ Phases, in order; any failure exits non-zero before the result line:
    layout (1, 1, 1), levels 1 and 3, each bitwise equal (losses and final
    parameters) to phase 10's chain at its level, with step ms beside
    phase 10's;
-9. printed last, after phase 11: a ``{"kernels": [...]}`` JSON line (the
+12. sequence: sequence and expert parallelism and Adasum at one rank:
+   ``ring_attention(kernel="flash")`` on a one-rank NCCL group bitwise
+   equal to ``flash_attention`` at one ring block's shape of the ``1b``
+   model at 32,768 tokens over four ranks (q ``[1, 8192, 32, 64]``, k/v
+   ``[1, 8192, 8, 64]``, bf16; output and the three gradients), Ulysses
+   equal to ``causal_attention``; each kernel at that shape, causal (the
+   diagonal block) and non-causal (a block in the past), against its
+   plain version (run one kv-head group at a time) with kernel, plain,
+   SDPA and bound times; dq and dk/dv of both blocks fed the global
+   ``lse`` and ``delta`` over their union, as the ring's backward feeds
+   them; the MoE ``mini`` loss in bf16 with the kernels (head dim 32)
+   against the plain attention; Adasum at one rank the identity;
+9. printed last, after phase 12: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128`` numbers
-   and resources), then the ``{"ok": true, "device": {...}}`` JSON
-   line.
+   and resources, its ring-shape ``ring`` numbers and the launches of
+   each phase), then the ``{"ok": true, "device": {...}}`` JSON line.
 
-    python3 chip_smoke.py --ranks 4
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, NCCL, the controller negotiating over TCP)
@@ -122,7 +136,32 @@ layout of (a) that ``layout_memory_bytes`` fits into the free memory and
 the one ``HOROVOD_LAYOUT=auto`` picks (priced on the H100 and NVLink):
 step ms, tokens/s per card, MFU(6N), NCCL and compute ms, peak memory and
 launches beside ``layout_step_time``, ``layout_memory_bytes`` and the
-solver's rank, losses within 0.05 of (4,1,1)'s.
+solver's rank, losses within 0.05 of (4,1,1)'s.  All of this is the
+``dp`` part.  Then, on a flat group of their own: (d) sequence
+parallelism on ``1b`` with max_seq 32,768: the flash ring over one
+sequence of 32,768 tokens (8,192 a card), and Ulysses and the plain ring
+over 8,192 (where Ulysses' [S, S] scores fit), the model cut to 2 layers
+in fp32, each rank's share of the loss and the gradients summed over the
+ranks against one card's ``flash_attention`` step over the whole
+sequence (loss atol 2e-4 rtol 1e-3, gradients atol 5e-4 rtol 2e-3); then
+the flash ring at full depth in bf16, AdamW, ``ce_chunks=8``, gradients
+summed, 2 warm-up, 4 timed and 1 profiled step (ranks 0 and 3): step ms,
+tokens/s per card, MFU(6N), peak memory, NCCL and compute ms, launches
+16 (r + 1) per kernel a step on rank r, the first loss within 0.02 of one
+card's no-grad forward over the 32,768 tokens, parameters bitwise equal;
+(e) expert parallelism on ``moe_llama`` ``mini`` and ``mixtral-tiny`` in
+fp32: the ep = 4 logits, loss and every gradient against the dense path
+on one card routed shard by shard (rtol 5e-4 atol 5e-5), then 3 AdamW
+steps (losses falling, replicated leaves bitwise equal, step ms); (f)
+Adasum: ``spmd.allreduce(op=Adasum)`` on each fp32 bucket of ``1b``'s
+seeded gradients against the float64 numpy model (rtol 1e-4 of |model|
+plus the largest input at each element) and bitwise equal across ranks,
+timed beside ``op=Average``; the ``1b`` step through
+``DistributedOptimizer(AdamW, op=Adasum)`` and the eager
+``DistributedOptimizer(op=Adasum)`` (parameters bitwise equal, step ms);
+and on two hosts of two, ``adasum_hierarchical`` against the numpy model
+and the routed ``op=Adasum`` bitwise equal to the flat recursion.
+``--parts`` runs a subset (default: all).
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -263,11 +302,12 @@ def phase_resources(_kernels, lib_path: str) -> dict:
     bf16 instantiations at D=64 and D=128.  Each is designed for Hopper
     (register accumulators, pipelined loads), so at D=64 it must not spill
     and must fit two or more blocks on an SM; D=128 (the 8b model's head
-    dim) is reported.  Returns the D=128 reports by kernel name."""
+    dim) and D=32 (the MoE Llama's) are reported.  Returns the D=128
+    reports by kernel name."""
     with open(lib_path + ".log") as f:
         ptxas = parse_ptxas(f.read())
     d128 = {}
-    for D in (64, 128):
+    for D in (32, 64, 128):
         for name, fragment in INSTANCES.items():
             fragment = fragment.replace("ILi64E", f"ILi{D}E")
             found = [v for k, v in ptxas.items() if fragment in k]
@@ -283,6 +323,7 @@ def phase_resources(_kernels, lib_path: str) -> dict:
             if D == 128:
                 d128[name] = dict(res, registers=info["registers"],
                                   spill_bytes=info["spill_bytes"])
+            if D != 64:
                 continue
             require(info["spill_bytes"] == 0, f"{name} spills registers")
             require(res["blocks_per_sm"] >= 2,
@@ -335,6 +376,26 @@ def check_output(name: str, got, ref, dtype) -> tuple:
                            f"tile_rel_err <= {rel_tile}")
 
 
+def check_case(heading: str, label: str, outputs, dtype) -> dict:
+    """Each ``(name, got, ref)`` of one case held to the limits above;
+    prints one line under ``heading`` and returns the max abs errors by
+    name."""
+    errs, failed, readings = {}, [], []
+    for name, got, ref in outputs:
+        err, tile, ok, tol = check_output(name, got, ref, dtype)
+        errs[name] = err
+        scale = ref.float().abs().max().item()
+        readings.append(f"{name} {err:.3g} ({err / scale:.2e} of max|ref|"
+                        + (f", tile {tile:.2e})" if tile is not None
+                           else ")"))
+        if not ok:
+            failed.append(f"{name} ({tol})")
+    print(f"{heading}: max abs err " + ", ".join(readings), flush=True)
+    require(not failed, f"kernels disagree with their plain versions "
+                        f"[{label}]: {', '.join(failed)}")
+    return errs
+
+
 def phase_kernels(F, torch, card: str):
     """Each kernel against its plain version; returns the kernels' rows at
     the training shape."""
@@ -351,6 +412,9 @@ def phase_kernels(F, torch, card: str):
          False),
         ("fp32", 2, 256, 8, 2, 64, torch.float32, True),
         ("fp32 D=128 non-causal", 1, 256, 4, 2, 128, torch.float32, False),
+        ("MoE mini D=32", 2, 256, 8, 4, 32, torch.bfloat16, True),
+        ("D=32 non-causal", 1, 512, 8, 2, 32, torch.bfloat16, False),
+        ("fp32 D=32", 1, 256, 8, 4, 32, torch.float32, True),
     ]
     rows = {}
     for label, B, S, H, HK, D, dtype, causal in cases:
@@ -369,24 +433,11 @@ def phase_kernels(F, torch, card: str):
         r_out, r_lse = F.attention_forward_plain(q, k, v, causal)
         r_dq = F.attention_dq_plain(q, k, v, do, lse, delta, causal)
         r_dk, r_dv = F.attention_dkv_plain(q, k, v, do, lse, delta, causal)
-        errs, failed = {}, []
-        readings = []
-        for name, got, ref in (("out", out, r_out), ("lse", lse, r_lse),
-                               ("dq", dq, r_dq), ("dk", dk, r_dk),
-                               ("dv", dv, r_dv)):
-            err, tile, ok, tol = check_output(name, got, ref, dtype)
-            errs[name] = err
-            scale = ref.float().abs().max().item()
-            readings.append(f"{name} {err:.3g} ({err / scale:.2e} of max|ref|"
-                            + (f", tile {tile:.2e})" if tile is not None
-                               else ")"))
-            if not ok:
-                failed.append(f"{name} ({tol})")
-        print(f"kernels [{label}] B={B} S={S} H={H} HK={HK} D={D} "
-              f"{str(dtype)[6:]} causal={causal}: max abs err "
-              + ", ".join(readings), flush=True)
-        require(not failed, f"kernels disagree with their plain versions "
-                            f"[{label}]: {', '.join(failed)}")
+        errs = check_case(
+            f"kernels [{label}] B={B} S={S} H={H} HK={HK} D={D} "
+            f"{str(dtype)[6:]} causal={causal}", label,
+            (("out", out, r_out), ("lse", lse, r_lse), ("dq", dq, r_dq),
+             ("dk", dk, r_dk), ("dv", dv, r_dv)), dtype)
         if label not in ("train", "8b D=128"):
             continue
         shape = dict(B=B, S=S, H=H, HK=HK, D=D)
@@ -1415,6 +1466,744 @@ def phase_layout(torch, np, hvd, llama, F, card: str, zero_runs) -> dict:
     return launches
 
 
+# phase 12 and --ranks N (d): one ring block of the 1b model at 32,768
+# tokens over four ranks (its own max_seq, 8,192, a rank)
+RING_SHAPE = dict(B=1, S=8192, H=32, HK=8, D=64)
+SEQ_LEN = 32768          # (d): one sequence, sharded over the ranks
+SEQ_EQ_LAYERS = 2        # (d) equivalence: 1b cut to 2 layers, fp32
+SEQ_SHORT = 8192         # (d): Ulysses and the plain ring, [S, S] scores
+SEQ_STEPS = (2, 4)       # (d) timed: warm-up and timed steps, then 1 profiled
+# tests/test_sequence_parallel.py's tolerances
+SEQ_LOSS_TOL = dict(atol=2e-4, rtol=1e-3)
+SEQ_GRAD_TOL = dict(atol=5e-4, rtol=2e-3)
+SEQ_FIRST_LOSS_TOL = 0.02
+# (e): tests/test_expert.py's tolerances; an ample capacity factor, so
+# that per-shard routing and the dense path's global routing drop nothing
+MOE_TOL = dict(rtol=5e-4, atol=5e-5)
+MOE_EQ_CF = 8.0
+MOE_STEPS = 3
+MOE_ROWS = 8             # global rows, MOE_ROWS / N a rank
+ADASUM_RTOL = 1e-4       # tests/test_adasum.py
+
+
+def chunked_plain(F):
+    """The plain versions of the three kernels, run one kv-head group at a
+    time and concatenated: the same function on the same inputs, with a
+    [S, S] score block of one group live instead of all eight (at S = 8,192
+    the unchunked dk/dv version would hold about 55 GB)."""
+    import types
+    import torch
+
+    def groups(q, k, *rows):
+        H, HK = q.shape[2], k.shape[2]
+        G = H // HK
+        for h in range(HK):
+            yield h, G, [r[:, h * G:(h + 1) * G] for r in rows]
+
+    def fwd(q, k, v, causal=True):
+        outs, lses = [], []
+        for h, G, _ in groups(q, k):
+            o, l = F.attention_forward_plain(
+                q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1],
+                v[:, :, h:h + 1], causal)
+            outs.append(o)
+            lses.append(l)
+        return torch.cat(outs, 2), torch.cat(lses, 1)
+
+    def dq(q, k, v, do, lse, delta, causal=True):
+        return torch.cat([F.attention_dq_plain(
+            q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1],
+            do[:, :, h * G:(h + 1) * G], rl, rd, causal)
+            for h, G, (rl, rd) in groups(q, k, lse, delta)], 2)
+
+    def dkv(q, k, v, do, lse, delta, causal=True):
+        parts = [F.attention_dkv_plain(
+            q[:, :, h * G:(h + 1) * G], k[:, :, h:h + 1], v[:, :, h:h + 1],
+            do[:, :, h * G:(h + 1) * G], rl, rd, causal)
+            for h, G, (rl, rd) in groups(q, k, lse, delta)]
+        return (torch.cat([a for a, _ in parts], 2),
+                torch.cat([b for _, b in parts], 2))
+
+    return types.SimpleNamespace(
+        flash_forward_cuda=F.flash_forward_cuda, flash_dq_cuda=F.flash_dq_cuda,
+        flash_dkv_cuda=F.flash_dkv_cuda, attention_forward_plain=fwd,
+        attention_dq_plain=dq, attention_dkv_plain=dkv)
+
+
+def ring_kernel_rows(F, torch, card: str) -> dict:
+    """Phase 12's kernels at one ring block's shapes, bf16: causal (the
+    diagonal block) and non-causal (a block wholly in the past), each
+    against its plain version with kernel, plain, SDPA and bound times;
+    then dq and dk/dv of both blocks fed the ring's global ``lse`` and
+    ``delta`` over the union of the two blocks' keys."""
+    from horovod_tpu_torch.parallel import sequence as SP
+    P = chunked_plain(F)
+    B, S, H, HK, D = (RING_SHAPE[k] for k in ("B", "S", "H", "HK", "D"))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, do = mk(B, S, H, D), mk(B, S, H, D)
+    blocks = [(mk(B, S, HK, D), mk(B, S, HK, D)) for _ in range(2)]
+    rows = {}
+    for causal, (k, v) in ((True, blocks[0]), (False, blocks[1])):
+        label = "ring block causal" if causal else "ring block non-causal"
+        out, lse = F.flash_forward_cuda(q, k, v, causal)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = F.flash_dq_cuda(q, k, v, do, lse, delta, causal)
+        dk, dv = F.flash_dkv_cuda(q, k, v, do, lse, delta, causal)
+        r_out, r_lse = P.attention_forward_plain(q, k, v, causal)
+        r_dk, r_dv = P.attention_dkv_plain(q, k, v, do, lse, delta, causal)
+        errs = check_case(f"ring kernels [{label}]", label, (
+            ("out", out, r_out), ("lse", lse, r_lse),
+            ("dq", dq, P.attention_dq_plain(q, k, v, do, lse, delta, causal)),
+            ("dk", dk, r_dk), ("dv", dv, r_dv)), torch.bfloat16)
+        del r_out, r_lse, r_dk, r_dv, dq, dk, dv
+        timed = kernel_rows(P, torch, card, label, q, k, v, do, lse, delta,
+                            causal, errs, RING_SHAPE, torch.bfloat16)
+        for name, r in timed.items():
+            rows.setdefault(name, {})["causal" if causal else "non-causal"] \
+                = {key: r[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "shape")}
+    # the global-statistics case: the diagonal block and one past block
+    (k0, v0), (k1, v1) = blocks
+    o_d, l_d = F.flash_forward_cuda(q, k0, v0, True)
+    o_p, l_p = F.flash_forward_cuda(q, k1, v1, False)
+    o, lse = SP._lse_merge(o_d, l_d, o_p, l_p)
+    out = o.to(torch.bfloat16)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    for causal, (k, v) in ((True, (k0, v0)), (False, (k1, v1))):
+        label = (f"global lse/delta, {'diagonal' if causal else 'past'} "
+                 "block")
+        dq = F.flash_dq_cuda(q, k, v, do, lse, delta, causal)
+        dk, dv = F.flash_dkv_cuda(q, k, v, do, lse, delta, causal)
+        r_dk, r_dv = P.attention_dkv_plain(q, k, v, do, lse, delta, causal)
+        errs = check_case(f"ring kernels [{label}]", label, (
+            ("dq", dq, P.attention_dq_plain(q, k, v, do, lse, delta, causal)),
+            ("dk", dk, r_dk), ("dv", dv, r_dv)), torch.bfloat16)
+        rows["flash_bwd_dq"].setdefault("global_stats", {})[
+            "causal" if causal else "non-causal"] = errs["dq"]
+        rows["flash_bwd_dkv"].setdefault("global_stats", {})[
+            "causal" if causal else "non-causal"] = max(errs["dk"],
+                                                        errs["dv"])
+        del dq, dk, dv, r_dk, r_dv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_sequence(torch, np, hvd, llama, F, L, card: str) -> tuple:
+    """Phase 12: sequence and expert parallelism and Adasum on one card.
+    On a one-rank NCCL group: ``ring_attention(kernel="flash")`` bitwise
+    equal to ``flash_attention`` at one ring block's shape (forward and the
+    three gradients), Ulysses equal to ``causal_attention``; the kernels at
+    the ring's shapes (``ring_kernel_rows``); the MoE ``mini`` loss in bf16
+    with the kernels (head dim 32) against the plain attention; Adasum at
+    one rank the identity.  Returns the ring rows and the launches of the
+    n = 1 ring and of the MoE check."""
+    import dataclasses
+    from horovod_tpu_torch.models import moe_llama as M
+    from horovod_tpu_torch.parallel import adasum as A
+    from horovod_tpu_torch.parallel import sequence as SP
+    dev = hvd.init().device
+    B, S, H, HK, D = (RING_SHAPE[k] for k in ("B", "S", "H", "HK", "D"))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, k, v, do = mk(B, S, H, D), mk(B, S, HK, D), mk(B, S, HK, D), \
+        mk(B, S, H, D)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    F.reset_launches()
+    out = SP.ring_attention(q, k, v, kernel="flash")
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    ring_launches = dict(F.LAUNCHES)
+    ref = hvd.flash_attention(q, k, v)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), do)
+    same = torch.equal(out, ref) and all(
+        torch.equal(a, b) for a, b in zip(grads, ref_grads))
+    print(f"sequence [n=1 flash ring] q {list(q.shape)}, k/v "
+          f"{list(k.shape)} bf16: out, dq, dk, dv bitwise equal to "
+          f"flash_attention: {same}; launches {json.dumps(ring_launches)}",
+          flush=True)
+    require(same, "the one-rank flash ring differs from flash_attention")
+    require(all(n == 1 for n in ring_launches.values()),
+            f"the one-rank ring launched {ring_launches}")
+    del q, k, v, do, out, grads, ref, ref_grads
+    q2, k2, v2 = mk(1, 2048, H, D), mk(1, 2048, HK, D), mk(1, 2048, HK, D)
+    same = torch.equal(SP.ulysses_attention(q2, k2, v2),
+                       L.causal_attention(q2, k2, v2))
+    print(f"sequence [n=1 Ulysses] q {list(q2.shape)}: equal to "
+          f"causal_attention: {same}", flush=True)
+    require(same, "one-rank Ulysses differs from causal_attention")
+    torch.cuda.empty_cache()
+    rows = ring_kernel_rows(F, torch, card)
+
+    cfg = dataclasses.replace(M.CONFIGS["mini"], dtype=torch.bfloat16)
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    ids = torch.randint(0, cfg.vocab, (2, 257), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    F.reset_launches()
+    with torch.no_grad():
+        flash = M.loss_fn(model, ids, attn_fn=hvd.flash_attention).item()
+        moe_launches = dict(F.LAUNCHES)
+        plain = M.loss_fn(model, ids, attn_fn=L.causal_attention).item()
+    print(f"expert [MoE mini bf16, dense, head dim {cfg.head_dim}]: loss "
+          f"with kernels {flash:.6f}, with plain attention {plain:.6f}; "
+          f"launches {json.dumps(moe_launches)}", flush=True)
+    require(math.isfinite(flash) and abs(flash - plain) <= 2e-2,
+            f"MoE mini loss with kernels {flash} vs plain {plain} (tol 2e-2)")
+    require(moe_launches["flash_fwd"] == cfg.n_layers,
+            f"MoE mini launched {moe_launches}")
+    del model
+
+    x = torch.randn(1 << 20, generator=gen, device=dev)
+    y = hvd.spmd.allreduce(x.clone(), op=hvd.Adasum)
+    same = torch.equal(y, x) and A.adasum_allreduce(x) is x
+    print(f"adasum [one rank]: the identity: {same}", flush=True)
+    require(same, "Adasum at one rank is not the identity")
+    hvd.shutdown()
+    return rows, ring_launches, moe_launches
+
+
+def seq_model(torch, llama, dev, cfg_name: str, layers, dtype,
+              max_seq: int, **overrides):
+    """``cfg_name`` with ``max_seq``, cut to ``layers`` (None: all of
+    them), in ``dtype``, seeded 0."""
+    import dataclasses
+    base = llama.CONFIGS[cfg_name]
+    cfg = dataclasses.replace(base, max_seq=max_seq, dtype=dtype,
+                              n_layers=layers or base.n_layers, **overrides)
+    return llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+
+
+def seq_tokens(np, vocab: int, length: int):
+    return np.random.RandomState(0).randint(0, vocab, (1, length + 1))
+
+
+def seq_grads_close(got, want, label: str) -> tuple:
+    """Every gradient of ``got`` against ``want`` (rank 0's one-card
+    reference, broadcast), at SEQ_GRAD_TOL; returns the worst (abs err,
+    relative to the limit)."""
+    worst = (0.0, 0.0)
+    for (name, a), b in zip(got, want):
+        err = (a - b).abs()
+        limit = SEQ_GRAD_TOL["atol"] + SEQ_GRAD_TOL["rtol"] * b.abs()
+        ratio = (err / limit).max().item()
+        worst = max(worst, (err.max().item(), ratio), key=lambda t: t[1])
+        require(ratio <= 1.0, f"{label}: gradient {name} off by "
+                              f"{err.max().item():.3g} ({ratio:.2f} of its "
+                              "limit)")
+    return worst
+
+
+def seq_step(torch, hvd, SP, model, inp, tgt, attn, ce_chunks: int):
+    """One rank's share of the loss and its gradients, summed over the
+    ranks: the global loss and the global gradients on every rank."""
+    import torch.distributed as dist
+    model.zero_grad(set_to_none=True)
+    loss = SP.sequence_loss_fn(model, inp, tgt, attn_fn=attn,
+                               ce_chunks=ce_chunks)
+    loss.backward()
+    hvd.sync_gradients(model.parameters(), op=hvd.Sum)
+    total = loss.detach().clone()
+    dist.all_reduce(total)
+    return total
+
+
+def rank_sequence(torch, np, hvd, llama, F, rank: int, n: int, dev,
+                  cfg_name: str, cfg_layers, seq_len: int, short_len: int,
+                  **overrides) -> None:
+    """--ranks N (d), sequence parallelism on ``cfg_name`` (``1b``) with
+    max_seq ``seq_len`` (32,768).
+    Equivalence (fp32, the model cut to ``cfg_layers[0]`` layers): the
+    flash ring over ``seq_len`` tokens, and Ulysses and the plain ring
+    over ``short_len``, against one card's ``flash_attention`` step over
+    the whole sequence (rank 0's, broadcast).  Timed (bf16, full depth,
+    ``cfg_layers[1]`` layers): the flash ring step over ``seq_len`` tokens
+    through ``DistributedOptimizer(AdamW, op=Sum)``; first loss against one
+    card's no-grad forward; launches 16 (r + 1) per kernel a step on rank
+    r; parameters bitwise equal across ranks."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.parallel import sequence as SP
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    eq_layers, timed_layers = cfg_layers
+    # (d) equivalence in fp32
+    model = seq_model(torch, llama, dev, cfg_name, eq_layers, torch.float32,
+                      seq_len, **overrides)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    params = list(model.named_parameters())
+    for label, length, attn in (
+            ("flash ring", seq_len, SP.make_ring_attn_fn(kernel="flash")),
+            ("Ulysses", short_len, SP.make_ulysses_attn_fn()),
+            ("plain ring", short_len, SP.make_ring_attn_fn(kernel="xla"))):
+        ids = torch.from_numpy(seq_tokens(np, model.cfg.vocab, length)).to(dev)
+        shard = length // n
+        inp = ids[:, :-1][:, rank * shard:(rank + 1) * shard]
+        tgt = ids[:, 1:][:, rank * shard:(rank + 1) * shard]
+        t0 = time.perf_counter()
+        loss = seq_step(torch, hvd, SP, model, inp, tgt, attn, 8).item()
+        sync()
+        ring_s = time.perf_counter() - t0
+        got = [(name, p.grad.detach().clone()) for name, p in params]
+        model.zero_grad(set_to_none=True)
+        ref_loss = torch.zeros((), device=dev)
+        t0 = time.perf_counter()
+        if rank == 0:  # one card, the whole sequence
+            ref_loss = llama.loss_fn(model, ids, attn_fn=hvd.flash_attention,
+                                     ce_chunks=8)
+            ref_loss.backward()
+        sync()
+        ref_s = time.perf_counter() - t0
+        dist.broadcast(ref_loss.detach(), 0)
+        want = [p.grad if rank == 0 else torch.empty_like(p)
+                for _, p in params]
+        for w in want:
+            dist.broadcast(w, 0)
+        lim = SEQ_LOSS_TOL["atol"] + SEQ_LOSS_TOL["rtol"] * abs(
+            ref_loss.item())
+        require(abs(loss - ref_loss.item()) <= lim,
+                f"sequence [{label}]: loss {loss} vs one card's "
+                f"{ref_loss.item()}")
+        worst = seq_grads_close(got, want, f"sequence [{label}]")
+        if rank == 0:
+            print(f"ranks [{n}] sequence [{label}, {cfg_name} cut to "
+                  f"{model.cfg.n_layers} layers, fp32, {length} tokens, "
+                  f"{shard} a rank]: loss "
+                  f"{loss:.6f} vs one card's {ref_loss.item():.6f}; every "
+                  f"gradient within atol {SEQ_GRAD_TOL['atol']} rtol "
+                  f"{SEQ_GRAD_TOL['rtol']} (worst abs err {worst[0]:.3g}, "
+                  f"{worst[1]:.2f} of its limit); step {ring_s:.2f} s, "
+                  f"one card's {ref_s:.2f} s", flush=True)
+        model.zero_grad(set_to_none=True)
+        del got, want
+        if cuda:
+            torch.cuda.empty_cache()
+    del model, params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) timed: full depth, bf16
+    model = seq_model(torch, llama, dev, cfg_name, timed_layers,
+                      torch.bfloat16, seq_len, **overrides)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01),
+        named_parameters=model.named_parameters(), op=hvd.Sum)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    ids = torch.from_numpy(seq_tokens(np, cfg.vocab, seq_len)).to(dev)
+    shard = seq_len // n
+    inp = ids[:, :-1][:, rank * shard:(rank + 1) * shard].contiguous()
+    tgt = ids[:, 1:][:, rank * shard:(rank + 1) * shard].contiguous()
+    ref_first = torch.zeros((), device=dev)
+    if rank == 0:
+        with torch.no_grad():
+            ref_first = llama.loss_fn(model, ids, attn_fn=hvd.flash_attention,
+                                      ce_chunks=8).float()
+    dist.broadcast(ref_first, 0)
+    attn = SP.make_ring_attn_fn(kernel="flash")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = SP.sequence_loss_fn(model, inp, tgt, attn_fn=attn,
+                                   ce_chunks=8)
+        loss.backward()
+        opt.step()
+        total = loss.detach().float()
+        dist.all_reduce(total)
+        return total
+
+    warm, timed = SEQ_STEPS
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    F.reset_launches()
+    losses = [step() for _ in range(warm)]
+    sync()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(timed)]
+    sync()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    prof_ms = None
+    if cuda and rank in (0, n - 1):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            losses.append(step())
+            sync()
+        prof_ms = kernel_ms(prof)
+    else:
+        losses.append(step())
+    sync()
+    n_steps = len(losses)
+    launches = {k: v / n_steps for k, v in F.LAUNCHES.items()}
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses), f"sequence losses {losses}")
+    require(abs(losses[0] - ref_first.item()) <= SEQ_FIRST_LOSS_TOL,
+            f"sequence: first loss {losses[0]} vs one card's no-grad "
+            f"forward {ref_first.item()}")
+    if cuda:
+        want = cfg.n_layers * (rank + 1)
+        require(all(v == want for v in launches.values()),
+                f"rank {rank}: launches a step {launches}, expected {want} "
+                "per kernel")
+    sums = param_checksums(torch, model.parameters())
+    every = [torch.empty_like(sums) for _ in range(n)]
+    dist.all_gather(every, sums)
+    equal = all(torch.equal(e, every[0]) for e in every)
+    require(equal, "sequence: parameters differ across the ranks")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    report = torch.tensor([step_ms, peak] + list(prof_ms or (0.0, 0.0))
+                          + [launches[k] for k in sorted(launches)],
+                          dtype=torch.float64, device=dev)
+    reports = [torch.empty_like(report) for _ in range(n)]
+    dist.all_gather(reports, report)
+    if rank == 0:
+        tok_s = shard / step_ms * 1e3
+        mfu = 6 * n_params * tok_s / PEAK_BF16_FLOPS
+        print(f"ranks [{n}] sequence [flash ring, {cfg_name} {cfg.n_layers} "
+              f"layers, "
+              f"bf16, 1 x {seq_len} tokens a step, {shard} a rank, AdamW, "
+              f"ce_chunks=8, gradients summed]: step {step_ms:.1f} ms, "
+              f"{tok_s:.0f} tokens/s per card, MFU(6N) {mfu:.4f}; losses "
+              + " ".join(f"{x:.5f}" for x in losses)
+              + f"; one card's no-grad forward {ref_first.item():.5f}; "
+              f"parameters bitwise equal on all {n} ranks: {equal}",
+              flush=True)
+        for r, rep in enumerate(reports):
+            rep = rep.tolist()
+            per = dict(zip(sorted(launches), rep[4:]))
+            prof_txt = (f"NCCL {rep[3]:.1f} ms, compute {rep[2] - rep[3]:.1f}"
+                        f" ms (profiled)" if rep[2] > 0 else "not profiled")
+            print(f"ranks [{n}] sequence rank {r}: step {rep[0]:.1f} ms, "
+                  f"peak {rep[1]:.2f} GiB, {prof_txt}; launches a step "
+                  f"{json.dumps(per)}", flush=True)
+    del opt, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def moe_close(got, want, label: str) -> float:
+    err = (got - want).abs()
+    limit = MOE_TOL["atol"] + MOE_TOL["rtol"] * want.abs()
+    ratio = (err / limit).max().item()
+    require(ratio <= 1.0, f"{label}: off by {err.max().item():.3g} "
+                          f"({ratio:.2f} of its limit)")
+    return ratio
+
+
+def shard_routed_moe_fn(torch, X, cfg, n: int):
+    """The dense MoE path on one card with expert parallelism's routing:
+    the tokens cut into the ``n`` ranks' shards, each routed on its own
+    (its capacity, its drops, its aux; tests/test_expert.py's
+    ``_sharded_reference``), the aux averaged."""
+    def fn(params, tokens):
+        ys, auxes = [], []
+        for shard in tokens.chunk(n):
+            capacity = int(math.ceil(shard.shape[0] * cfg.experts_per_token
+                                     * cfg.capacity_factor / cfg.n_experts))
+            y, aux = X.moe_dense_reference(params, shard, cfg.n_experts,
+                                           capacity, cfg.experts_per_token)
+            ys.append(y)
+            auxes.append(aux)
+        return torch.cat(ys), torch.stack(auxes).mean()
+    return fn
+
+
+def rank_expert(torch, np, hvd, rank: int, n: int, dev) -> None:
+    """--ranks N (e): expert parallelism on ``moe_llama`` ``mini`` (8
+    experts, 8 / N a rank) and ``mixtral-tiny`` (top-2), fp32.  The ep = N
+    forward, loss and every gradient against the dense path on this card
+    with the same weights and the whole batch, routed shard by shard as
+    the ranks route (``shard_routed_moe_fn``); then MOE_STEPS AdamW steps
+    with the default capacity factor: losses falling, replicated leaves
+    bitwise equal across ranks, step ms."""
+    import dataclasses
+    import torch.distributed as dist
+    from horovod_tpu_torch.models import moe_llama as M
+    from horovod_tpu_torch.parallel import expert as X
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    for name in ("mini", "mixtral-tiny"):
+        base = M.CONFIGS[name]
+        cfg = dataclasses.replace(base, capacity_factor=MOE_EQ_CF)
+        full = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        hvd.broadcast_parameters(full.state_dict(), root_rank=0)
+        seq = min(cfg.max_seq, 128)
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab, (MOE_ROWS, seq + 1))).to(dev)
+        rows = MOE_ROWS // n
+        mine = ids[rank * rows:(rank + 1) * rows]
+        dense = shard_routed_moe_fn(torch, X, cfg, n)
+        logits_d, _ = full(ids[:, :-1], moe_fn=dense)
+        loss_d = M.loss_fn(full, ids, moe_fn=dense)
+        loss_d.backward()
+        model = M.shard_experts(full)
+        fn = X.make_moe_fn(n_experts=cfg.n_experts, capacity_factor=MOE_EQ_CF,
+                           experts_per_token=cfg.experts_per_token)
+        logits, _ = model(mine[:, :-1], moe_fn=fn)
+        loss = M.loss_fn(model, mine, moe_fn=fn) / n
+        loss.backward()
+        replicated = [p for k, p in model.named_parameters()
+                      if not k.endswith(("moe.wi", "moe.wo"))]
+        hvd.sync_gradients(replicated, op=hvd.Sum)
+        total = loss.detach().clone()
+        dist.all_reduce(total)
+        worst = moe_close(logits.detach(),
+                          logits_d.detach()[rank * rows:(rank + 1) * rows],
+                          f"expert [{name}] logits")
+        worst = max(worst, moe_close(total, loss_d.detach(),
+                                     f"expert [{name}] loss"))
+        e_local = cfg.n_experts // n
+        dense_params = dict(full.named_parameters())
+        for k, p in model.named_parameters():
+            want = dense_params[k].grad
+            if k.endswith(("moe.wi", "moe.wo")):
+                want = want[rank * e_local:(rank + 1) * e_local]
+            worst = max(worst, moe_close(p.grad, want,
+                                         f"expert [{name}] gradient {k}"))
+        if rank == 0:
+            print(f"ranks [{n}] expert [{name}, fp32, ep={n}, "
+                  f"{cfg.n_experts // n} experts a rank, top-"
+                  f"{cfg.experts_per_token}, capacity factor {MOE_EQ_CF}]: "
+                  f"logits, loss {total.item():.6f} (dense "
+                  f"{loss_d.item():.6f}) and every gradient within rtol "
+                  f"{MOE_TOL['rtol']} atol {MOE_TOL['atol']} of the dense "
+                  f"path on one card (worst {worst:.2f} of the limit)",
+                  flush=True)
+        del full, logits_d, loss_d
+        # training at the configuration's own capacity factor
+        fn = X.make_moe_fn(n_experts=cfg.n_experts,
+                           capacity_factor=base.capacity_factor,
+                           experts_per_token=cfg.experts_per_token)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+        losses, times = [], []
+        for _ in range(MOE_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = M.loss_fn(model, mine, moe_fn=fn) / n
+            loss.backward()
+            hvd.sync_gradients(replicated, op=hvd.Sum)
+            opt.step()
+            total = loss.detach().clone()
+            dist.all_reduce(total)
+            losses.append(total.item())
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        require(losses[-1] < losses[0], f"expert [{name}]: losses {losses}")
+        sums = param_checksums(torch, replicated)
+        every = [torch.empty_like(sums) for _ in range(n)]
+        dist.all_gather(every, sums)
+        equal = all(torch.equal(e, every[0]) for e in every)
+        require(equal, f"expert [{name}]: replicated leaves differ across "
+                       "the ranks")
+        if rank == 0:
+            print(f"ranks [{n}] expert [{name}] training, capacity factor "
+                  f"{base.capacity_factor}: losses "
+                  + " ".join(f"{x:.5f}" for x in losses)
+                  + f"; step ms " + " ".join(f"{t:.1f}" for t in times)
+                  + f"; replicated leaves bitwise equal on all {n} ranks: "
+                  f"{equal}", flush=True)
+        del model, opt, replicated
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def adasum_np(np, vectors):
+    """tests/test_adasum.py's float64 model of the XOR recursion."""
+    vs = [np.asarray(v, dtype=np.float64) for v in vectors]
+    k = 1
+    while k < len(vs):
+        out = []
+        for i in range(len(vs)):
+            a, b = vs[i], vs[i ^ k]
+            dot, na, nb = float(a @ b), float(a @ a), float(b @ b)
+            ca = 1.0 - dot / (2 * na) if na > 0 else 1.0
+            cb = 1.0 - dot / (2 * nb) if nb > 0 else 1.0
+            out.append(ca * a + cb * b)
+        vs = out
+        k *= 2
+    return vs[0]
+
+
+def adasum_err(np, got, want, inputs) -> float:
+    """The worst error of ``got`` against the float64 model ``want``
+    relative to ``|want|`` plus the largest input at that element: an
+    element where the combine's two terms cancel keeps fp32's error
+    relative to the terms, not to their small result."""
+    scale = np.abs(want)
+    for x in inputs:
+        scale = np.maximum(scale, np.abs(x))
+    return float((np.abs(got.astype(np.float64) - want)
+                  / np.maximum(np.abs(want) + scale, 1e-30)).max())
+
+
+def adasum_bucket(torch, fusion, shapes, bucket, rank: int, dev):
+    """Rank ``rank``'s seeded gradients of ``bucket``'s leaves (a scale per
+    leaf), made on ``dev`` and packed: every rank can make any rank's."""
+    leaves = [None] * len(shapes)
+    for i in bucket.indices:
+        gen = torch.Generator(device=dev).manual_seed(100000 * (rank + 1) + i)
+        leaves[i] = torch.randn(shapes[i], generator=gen, device=dev) * (
+            10.0 ** (i % 5 - 4))
+    return fusion.pack_bucket(leaves, bucket).clone()
+
+
+def rank_adasum(torch, np, hvd, ht, llama, F, rank: int, n: int, dev,
+                cfg_name: str, batch: int, seq: int) -> None:
+    """--ranks N (f), flat: ``spmd.allreduce(op=Adasum)`` on each fp32
+    bucket of ``cfg_name``'s seeded gradients against the float64 numpy
+    model (each rank checks every N-th bucket, making every rank's inputs
+    itself), timed beside ``op=Average``; then the step through
+    ``DistributedOptimizer(AdamW, op=Adasum)`` and through the eager
+    ``DistributedOptimizer(op=Adasum)`` (the delta optimizer): step ms,
+    parameters bitwise equal across ranks."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.ops import fusion
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = llama.CONFIGS[cfg_name]
+    shapes = [tuple(p.shape) for p in llama.Llama(cfg, "meta").parameters()]
+    plan = fusion.make_plan(shapes, [torch.float32] * len(shapes),
+                            hvd.runtime.get().fusion_threshold())
+    bufs, worst, elems = [], 0.0, 0
+    for j, b in enumerate(plan.buckets):
+        buf = adasum_bucket(torch, fusion, shapes, b, rank, dev)
+        bufs.append(buf)
+        out = hvd.spmd.allreduce(buf.clone(), op=hvd.Adasum)
+        sums = param_checksums(torch, [out])
+        every = [torch.empty_like(sums) for _ in range(n)]
+        dist.all_gather(every, sums)
+        require(all(torch.equal(e, every[0]) for e in every),
+                f"adasum: bucket {j} differs across the ranks")
+        if j % n == rank:
+            ins = [adasum_bucket(torch, fusion, shapes, b, r, dev).cpu()
+                   .numpy() for r in range(n)]
+            want = adasum_np(np, ins)
+            err = adasum_err(np, out.cpu().numpy(), want, ins)
+            require(err <= ADASUM_RTOL, f"adasum: bucket {j} off the numpy "
+                                        f"model by {err:.3g} (rtol)")
+            worst = max(worst, err)
+            del ins, want
+        elems += buf.numel()
+        del out
+    every = [torch.zeros(1, dtype=torch.float64, device=dev)
+             for _ in range(n)]
+    dist.all_gather(every, torch.tensor([worst], dtype=torch.float64,
+                                        device=dev))
+    worst = max(float(e.item()) for e in every)
+    times = {}
+    for op in (hvd.Average, hvd.Adasum, hvd.Adasum, hvd.Average):
+        work = [b.clone() for b in bufs]
+        sync()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for w in work:
+            hvd.spmd.allreduce(w, op=op)
+        sync()
+        times.setdefault(op.name, []).append(
+            (time.perf_counter() - t0) * 1e3)
+        del work
+    if rank == 0:
+        print(f"ranks [{n}] adasum [{cfg_name} fp32 gradients, "
+              f"{len(plan.buckets)} buckets, {elems} elements]: every bucket "
+              f"bitwise equal on all {n} ranks and within rtol {ADASUM_RTOL} "
+              f"of the float64 numpy model (of |model| + the largest input "
+              f"at each element; worst {worst:.3g}); all buckets through "
+              f"spmd.allreduce: "
+              + ", ".join(f"{k} " + " / ".join(f"{t:.1f}" for t in v)
+                          + " ms" for k, v in times.items()), flush=True)
+    del bufs
+    if cuda:
+        torch.cuda.empty_cache()
+    # the 1b step through the root optimizer and the eager delta optimizer
+    from horovod_tpu_torch.torch import mpi_ops
+    for label, api in (("DistributedOptimizer(AdamW, op=Adasum)", hvd),
+                       ("eager DistributedOptimizer(op=Adasum)", ht)):
+        model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        adamw = torch.optim.AdamW(model.parameters(), lr=3e-4,
+                                  weight_decay=0.01)
+        opt = api.DistributedOptimizer(
+            adamw, named_parameters=model.named_parameters(), op=hvd.Adasum)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        step = hvd.make_train_step(
+            model, lambda m, ids: llama.loss_fn(
+                m, ids, attn_fn=hvd.flash_attention, ce_chunks=8), opt)
+        rng = np.random.RandomState(0)
+        batches = [torch.from_numpy(rng.randint(
+            0, cfg.vocab, (batch * n, seq + 1), dtype=np.int32))
+            for _ in range(WARMUP_STEPS + 3)]
+        losses = [step(b) for b in batches[:WARMUP_STEPS]]
+        sync()
+        t0 = time.perf_counter()
+        losses += [step(b) for b in batches[WARMUP_STEPS:]]
+        sync()
+        step_ms = (time.perf_counter() - t0) / 3 * 1e3
+        losses = [float(x) for x in losses]
+        require(all(math.isfinite(x) for x in losses),
+                f"adasum {label}: losses {losses}")
+        sums = param_checksums(torch, model.parameters())
+        every = [torch.empty_like(sums) for _ in range(n)]
+        dist.all_gather(every, sums)
+        equal = all(torch.equal(e, every[0]) for e in every)
+        require(equal, f"adasum {label}: parameters differ across the ranks")
+        if rank == 0:
+            print(f"ranks [{n}] adasum [{cfg_name} {label}, {batch} x {seq} "
+                  f"a rank]: step {step_ms:.1f} ms; losses "
+                  + " ".join(f"{x:.5f}" for x in losses)
+                  + f"; parameters bitwise equal on all {n} ranks: {equal}",
+                  flush=True)
+        del step, opt, adamw, model
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def rank_adasum_two_level(torch, np, hvd, rank: int, n: int, dev) -> None:
+    """--ranks N (f) on two hosts of N/2 ranks, as the wire part lays them
+    out: ``adasum_hierarchical`` against the numpy model (the mean inside
+    each host, Adasum across), and ``spmd.allreduce(op=Adasum)`` under
+    HOROVOD_HIERARCHICAL_ALLREDUCE bitwise equal to the flat recursion."""
+    import torch.distributed as dist
+    from horovod_tpu_torch.parallel import adasum as A
+    cross, local = hvd.runtime.get().hierarchy
+    size = 1 << 22 if dev.type == "cuda" else 1 << 12
+    xs = [torch.randn(size, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(500 + r)) for r in range(n)]
+    got = A.adasum_hierarchical(xs[rank], local, cross)
+    ici = n // 2
+    means = [np.mean([xs[h * ici + i].cpu().numpy().astype(np.float64)
+                      for i in range(ici)], axis=0) for h in range(n // ici)]
+    err = adasum_err(np, got.cpu().numpy(), adasum_np(np, means), means)
+    require(err <= ADASUM_RTOL, f"adasum_hierarchical off the numpy model "
+                                f"by {err:.3g} (rtol)")
+    flat = hvd.spmd.allreduce(xs[rank].clone(), op=hvd.Adasum)
+    os.environ["HOROVOD_HIERARCHICAL_ALLREDUCE"] = "1"
+    try:
+        routed = hvd.spmd.allreduce(xs[rank].clone(), op=hvd.Adasum)
+    finally:
+        os.environ.pop("HOROVOD_HIERARCHICAL_ALLREDUCE")
+    require(torch.equal(flat, routed), "two-level Adasum differs from the "
+                                       "flat recursion")
+    sums = param_checksums(torch, [got, routed])
+    every = [torch.empty_like(sums) for _ in range(n)]
+    dist.all_gather(every, sums)
+    equal = all(torch.equal(e, every[0]) for e in every)
+    require(equal, "two-level Adasum differs across the ranks")
+    if rank == 0:
+        print(f"ranks [{n}] adasum [two hosts of {ici}]: adasum_hierarchical "
+              f"of {size} fp32 elements within rtol {ADASUM_RTOL} of the "
+              f"numpy model (worst {err:.3g}); spmd.allreduce(op=Adasum) under "
+              "HOROVOD_HIERARCHICAL_ALLREDUCE bitwise equal to the flat "
+              f"recursion; bitwise equal on all {n} ranks: {equal}",
+              flush=True)
+
+
 def rank_zero(torch, np, hvd, llama, F, rank: int, n: int, dev,
               cfg_name: str, batch: int, seq: int, ref_losses,
               big_name: str) -> None:
@@ -2120,20 +2909,26 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
     return ref_losses
 
 
-def rank_worker(rank: int, n: int, store_port: int, ctrl_port: int,
-                cfg_name: str = "1b", device_type: str = "cuda",
-                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                wire_port: int = 0, layout_port: int = 0) -> None:
-    """One rank of ``--ranks N``: one process, one card.  With N >= 4 and
-    even, the two-level wire configurations run on a second process group
-    (at ``wire_port``) laid out as two hosts of N/2 ranks.  A rank that
-    fails prints its traceback and exits at once: its peers, waiting in a
-    collective, are then ended by the spawning process instead of waiting
-    out NCCL's timeout.  With N = 4 the layout plane (``rank_layout``) runs
-    last, on a flat group of its own (at ``layout_port``)."""
+# --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
+# path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
+RANK_PARTS = ("dp", "sequence", "expert", "adasum")
+
+
+def rank_worker(rank: int, n: int, ports, cfg_name: str = "1b",
+                device_type: str = "cuda", batch: int = TRAIN_BATCH,
+                seq: int = TRAIN_SEQ, parts=RANK_PARTS) -> None:
+    """One rank of ``--ranks N``: one process, one card.  ``ports``: free
+    ports for the process groups and controllers of the parts, by name
+    (``store``, ``ctrl``, ``wire``, ``layout``, ``seq``, ``ctrl2``,
+    ``hier``).  With N >= 4 and even, the two-level wire configurations
+    and Adasum run on process groups laid out as two hosts of N/2 ranks.  A
+    rank that fails prints its traceback and exits at once: its peers,
+    waiting in a collective, are then ended by the spawning process
+    instead of waiting out NCCL's timeout.  With N = 4 the layout plane
+    (``rank_layout``) runs after the ZeRO chain, on a flat group of its
+    own; sequence and expert parallelism and Adasum run last, on another."""
     try:
-        rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type,
-                 batch, seq, wire_port, layout_port)
+        rank_run(rank, n, ports, cfg_name, device_type, batch, seq, parts)
     except BaseException:
         import traceback
         traceback.print_exc()
@@ -2142,12 +2937,18 @@ def rank_worker(rank: int, n: int, store_port: int, ctrl_port: int,
         os._exit(1)
 
 
-def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
-             seq, wire_port, layout_port) -> None:
-    os.environ.update(HOROVOD_RANK=str(rank), HOROVOD_SIZE=str(n),
-                      HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
-                      HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{store_port}",
-                      HOROVOD_CONTROLLER_PORT=str(ctrl_port))
+def rank_env(rank: int, local: int, port: int, **extra) -> None:
+    os.environ.update(HOROVOD_RANK=str(rank),
+                      HOROVOD_LOCAL_RANK=str(rank % local),
+                      HOROVOD_LOCAL_SIZE=str(local),
+                      HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{port}", **extra)
+
+
+def rank_run(rank, n, ports, cfg_name, device_type, batch, seq,
+             parts) -> None:
+    os.environ["HOROVOD_SIZE"] = str(n)
+    rank_env(rank, n, ports["store"],
+             HOROVOD_CONTROLLER_PORT=str(ports["ctrl"]))
     import numpy as np
     import torch
     import horovod_tpu_torch as hvd
@@ -2156,10 +2957,50 @@ def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
     from horovod_tpu_torch.ops import flash_attention as F
     from horovod_tpu_torch.torch import mpi_ops
     torch.backends.cuda.matmul.allow_tf32 = False
-    if device_type == "cpu":  # a rehearsal on gloo ranks
+    cuda = device_type == "cuda"
+    if not cuda:  # a rehearsal on gloo ranks
         torch.set_num_threads(1)
-    big_name = "8b" if device_type == "cuda" else cfg_name
-    dev = ht.init(device=None if device_type == "cuda" else device_type).device
+    big_name = "8b" if cuda else cfg_name
+    dev = ht.init(device=None if cuda else device_type).device
+    if "dp" in parts:
+        rank_dp(torch, np, hvd, ht, llama, F, mpi_ops, rank, n, dev, cfg_name,
+                device_type, batch, seq, big_name, ports)
+    ht.shutdown()
+    if not {"sequence", "expert", "adasum"} & set(parts):
+        return
+    # a flat group of their own, after the layouts have released theirs;
+    # the eager delta optimizer negotiates through a controller of its own
+    rank_env(rank, n, ports["seq"], HOROVOD_CONTROLLER="auto",
+             HOROVOD_CONTROLLER_PORT=str(ports["ctrl2"]))
+    hvd.init(device=dev)
+    if "sequence" in parts:
+        if cuda:
+            rank_sequence(torch, np, hvd, llama, F, rank, n, dev, "1b",
+                          (SEQ_EQ_LAYERS, None), SEQ_LEN, SEQ_SHORT)
+        else:  # the rehearsal: tiny with a kv head a rank for Ulysses,
+            # 64 and 32 tokens
+            rank_sequence(torch, np, hvd, llama, F, rank, n, dev, cfg_name,
+                          (None, None), 64, 32, n_kv_heads=n)
+    if "expert" in parts:
+        rank_expert(torch, np, hvd, rank, n, dev)
+    if "adasum" in parts:
+        rank_adasum(torch, np, hvd, ht, llama, F, rank, n, dev, cfg_name,
+                    batch, seq)
+    hvd.shutdown()
+    if "adasum" in parts and n >= 4 and n % 2 == 0:
+        rank_env(rank, n // 2, ports["hier"], HOROVOD_CONTROLLER="none")
+        hvd.init(device=dev)
+        require(hvd.runtime.get().hierarchy is not None,
+                "no two-level layout")
+        rank_adasum_two_level(torch, np, hvd, rank, n, dev)
+        hvd.shutdown()
+
+
+def rank_dp(torch, np, hvd, ht, llama, F, mpi_ops, rank, n, dev, cfg_name,
+            device_type, batch, seq, big_name, ports) -> None:
+    """The data-parallel planes of --ranks N: every eager op, the root and
+    hook-driven optimizers, the wire configurations (flat and two-level),
+    the ZeRO chain and, at N = 4, the layouts."""
     checks = rank_op_checks(torch, ht, rank, n, dev)
     require(mpi_ops.engine().core is not None, "no native controller")
     if rank == 0:
@@ -2209,10 +3050,7 @@ def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
                   "more ranks, an even number: not run", flush=True)
     else:
         # two "hosts" on this one: each process keeps its own card
-        os.environ.update(HOROVOD_LOCAL_RANK=str(rank % (n // 2)),
-                          HOROVOD_LOCAL_SIZE=str(n // 2),
-                          HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{wire_port}",
-                          HOROVOD_CONTROLLER="none")
+        rank_env(rank, n // 2, ports["wire"], HOROVOD_CONTROLLER="none")
         hvd.init(device=dev)
         require(hvd.runtime.get().hierarchy is not None,
                 "no two-level layout")
@@ -2229,22 +3067,23 @@ def rank_run(rank, n, store_port, ctrl_port, cfg_name, device_type, batch,
         return
     # a flat group of its own, so that no earlier communicator holds
     # device memory beside the full model's layouts
-    os.environ.update(HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n),
-                      HOROVOD_COORDINATOR_ADDR=f"127.0.0.1:{layout_port}",
-                      HOROVOD_CONTROLLER="none")
+    rank_env(rank, n, ports["layout"], HOROVOD_CONTROLLER="none")
     hvd.init(device=dev)
     rank_layout(torch, np, hvd, llama, F, rank, n, dev, big_name, seq)
     hvd.shutdown()
 
 
-def phase_ranks(torch, n: int) -> None:
-    """``--ranks N``: the eager path across N cards, one process each."""
+RANK_PORTS = ("store", "ctrl", "wire", "layout", "seq", "ctrl2", "hier")
+
+
+def phase_ranks(torch, n: int, parts) -> None:
+    """``--ranks N``: the paths across N cards, one process each."""
     import torch.multiprocessing as tmp
     require(torch.cuda.device_count() >= n,
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
-    ctx = tmp.spawn(rank_worker, args=(n, free_port(), free_port(), "1b",
-                                       "cuda", TRAIN_BATCH, TRAIN_SEQ,
-                                       free_port(), free_port()),
+    ports = {name: free_port() for name in RANK_PORTS}
+    ctx = tmp.spawn(rank_worker, args=(n, ports, "1b", "cuda", TRAIN_BATCH,
+                                       TRAIN_SEQ, parts),
                     nprocs=n, join=False)
     try:
         while not ctx.join(timeout=600):
@@ -2260,11 +3099,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    ranks = 1
-    if len(sys.argv) == 3 and sys.argv[1] == "--ranks":
-        ranks = int(sys.argv[2])
-    elif len(sys.argv) != 1:
-        print("usage: chip_smoke.py [--ranks N]", file=sys.stderr)
+    ranks, parts, args = 1, RANK_PARTS, sys.argv[1:]
+    if args[:1] == ["--ranks"] and len(args) in (2, 4):
+        ranks = int(args[1])
+        if len(args) == 4 and args[2] == "--parts":
+            parts = tuple(args[3].split(","))
+        elif len(args) == 4:
+            parts = ()
+    if (args and ranks == 1) or not parts or not set(parts) <= set(
+            RANK_PARTS):
+        print("usage: chip_smoke.py [--ranks N [--parts "
+              + ",".join(RANK_PARTS) + "]]", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
@@ -2307,7 +3152,7 @@ def main() -> int:
           flush=True)
     d128 = phase_resources(_kernels, lib)
     if ranks > 1:
-        phase_ranks(torch, ranks)
+        phase_ranks(torch, ranks, parts)
         print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name,
@@ -2325,12 +3170,17 @@ def main() -> int:
     wire = phase_wire(torch, np, hvd, llama, F)
     zero, zero_runs = phase_zero(torch, np, hvd, llama, F, card)
     layout = phase_layout(torch, np, hvd, llama, F, card, zero_runs)
+    ring_rows, ring_launches, moe_launches = phase_sequence(
+        torch, np, hvd, llama, F, L, card)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
         row["launches_wire"] = wire[row["name"]]
         row["launches_zero"] = zero[row["name"]]
         row["launches_layout"] = layout[row["name"]]
+        row["launches_ring_n1"] = ring_launches[row["name"]]
+        row["launches_moe_mini"] = moe_launches[row["name"]]
+        row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

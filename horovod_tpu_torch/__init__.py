@@ -6,8 +6,12 @@ JAX package has Pallas TPU kernels (flash attention, forward and backward),
 per-bucket wire formats for the gradient sync (bf16/fp16 casts, the int8
 quantized ring, two-level routing, error feedback; ``ops/wire.py``), the
 pipelined microbatch sync (``ops/overlap.py``), ZeRO weight-update
-sharding at levels 1-3 (``parallel/zero.py``), the input pipeline with
-device prefetch (``data/``), a continuous-batching
+sharding at levels 1-3 (``parallel/zero.py``), 3D layouts
+(``parallel/layout.py``), sequence parallelism (Ulysses and the ring, whose
+flash variant runs the Hopper kernels per hop; ``parallel/sequence.py``),
+expert parallelism with the MoE Llama (``parallel/expert.py``,
+``models/moe_llama.py``), Adasum (``parallel/adasum.py``), the input
+pipeline with device prefetch (``data/``), a continuous-batching
 serving engine over a paged KV pool (``horovod_tpu_torch.serve``), and
 Horovod's eager torch API, negotiated through the port's own copy of the
 native controller (``horovod_tpu_torch.torch``).
@@ -37,8 +41,12 @@ from .ops.compression import Compression
 from .ops.flash_attention import flash_attention
 from .optimizer import (DistributedOptimizer, sync_gradients,
                         sync_gradients_ef, wire_residual_report)
+from .parallel.adasum import adasum_allreduce, adasum_hierarchical
 from .parallel.data_parallel import (cast_params, make_microbatched_train_step,
                                      make_scanned_train_step, make_train_step)
+from .parallel.expert import make_moe_fn
+from .parallel.sequence import (make_ring_attn_fn, make_ulysses_attn_fn,
+                                ring_attention, ulysses_attention)
 from .runtime import init, shutdown, is_initialized
 
 
@@ -86,4 +94,7 @@ __all__ = [
     "allgather_object",
     "flash_attention", "make_train_step", "make_microbatched_train_step",
     "make_scanned_train_step", "cast_params", "serve", "prefetch",
+    "adasum_allreduce", "adasum_hierarchical", "ring_attention",
+    "ulysses_attention", "make_ring_attn_fn", "make_ulysses_attn_fn",
+    "make_moe_fn",
 ]

@@ -546,7 +546,7 @@ constexpr size_t fwd_mma_smem() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, D == 64 ? 2 : 1)
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)
 fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                int S, int H, int HK, int causal, float scale) {
@@ -702,7 +702,7 @@ constexpr size_t dq_mma_smem() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, D == 64 ? 2 : 1)
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)
 dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -862,7 +862,7 @@ constexpr size_t dkv_mma_smem() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS, D == 64 ? 2 : 1)
+__global__ void __launch_bounds__(MMA_THREADS, D <= 64 ? 2 : 1)
 dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1117,21 +1117,26 @@ cudaError_t resources(C c, int* out) {
   return cudaSuccess;
 }
 
-// Shapes the Python wrapper has validated: D in {64, 128}, S a multiple of
-// 64 (bf16: the forward's and dq's key tiles) or 32 (fp32), H a multiple
+// Shapes the Python wrapper has validated: D in {32, 64, 128}, S a multiple
+// of 64 (bf16: the forward's and dq's key tiles) or 32 (fp32), H a multiple
 // of HK.
 bool shape_ok(int S, int H, int HK, int D, int is_bf16) {
   const int tile = is_bf16 ? FwdTile::N : F32Tile::M;
-  return (D == 64 || D == 128) && S > 0 && S % tile == 0 && HK > 0 && H % HK == 0;
+  return (D == 32 || D == 64 || D == 128) && S > 0 && S % tile == 0 && HK > 0 &&
+         H % HK == 0;
 }
 
 }  // namespace
 
-#define HVD_DISPATCH(FN, ...)                                                    \
-  if (is_bf16) {                                                                 \
-    return D == 64 ? (int)FN<bf16, 64>(__VA_ARGS__) : (int)FN<bf16, 128>(__VA_ARGS__); \
-  }                                                                              \
-  return D == 64 ? (int)FN<float, 64>(__VA_ARGS__) : (int)FN<float, 128>(__VA_ARGS__);
+#define HVD_DISPATCH_T(T, FN, ...)                          \
+  switch (D) {                                              \
+    case 32: return (int)FN<T, 32>(__VA_ARGS__);            \
+    case 64: return (int)FN<T, 64>(__VA_ARGS__);            \
+    default: return (int)FN<T, 128>(__VA_ARGS__);           \
+  }
+#define HVD_DISPATCH(FN, ...)                                \
+  if (is_bf16) { HVD_DISPATCH_T(bf16, FN, __VA_ARGS__) }     \
+  HVD_DISPATCH_T(float, FN, __VA_ARGS__)
 
 extern "C" {
 
@@ -1162,15 +1167,18 @@ int hvd_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* d
 // The resources of one kernel instantiation (kernel: 0 forward, 1 dq,
 // 2 dk/dv) on the current device, into out[4] (see `resources`).
 int hvd_kernel_resources(int kernel, int D, int is_bf16, int* out) {
-  if (kernel < 0 || kernel > 2 || (D != 64 && D != 128)) return (int)cudaErrorInvalidValue;
+  if (kernel < 0 || kernel > 2 || (D != 32 && D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
 #define HVD_RES(T, DD)                                                    \
   return (int)(kernel == 0 ? resources(fwd_config<T, DD>(), out)         \
                            : kernel == 1 ? resources(dq_config<T, DD>(), out) \
                                          : resources(dkv_config<T, DD>(), out));
   if (is_bf16) {
+    if (D == 32) { HVD_RES(bf16, 32) }
     if (D == 64) { HVD_RES(bf16, 64) }
     HVD_RES(bf16, 128)
   }
+  if (D == 32) { HVD_RES(float, 32) }
   if (D == 64) { HVD_RES(float, 64) }
   HVD_RES(float, 128)
 #undef HVD_RES

@@ -143,7 +143,7 @@ def attention_dkv_plain(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
 
 # ----------------------------------------------------------- kernel wrappers
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
 def kernel_tile(dtype: torch.dtype) -> int:

@@ -149,8 +149,9 @@ def run_batch(op_type: int, ops: Sequence[Op]) -> int:
     """Run one response's collectives on the current stream, in order, and
     return how many were launched.  Allreduces are packed by (reduce op,
     dtype) and broadcasts by (root, dtype): keys every rank reads from the
-    same signatures, so every rank packs alike.  Other kinds run one
-    collective each.  Sets each op's ``result``."""
+    same signatures, so every rank packs alike (Adasum, whose dot
+    products are per tensor, runs one recursion per tensor).  Other kinds
+    run one collective each.  Sets each op's ``result``."""
     if op_type not in (_basics.OP_ALLREDUCE, _basics.OP_BROADCAST):
         for op in ops:
             op.result = _run_one(op)
@@ -164,11 +165,20 @@ def run_batch(op_type: int, ops: Sequence[Op]) -> int:
         leaves += [((first, t.dtype), t, o, op)
                    for t, o in zip(op.tensors, op.outputs)]
     keys = list(dict.fromkeys(leaf[0] for leaf in leaves))
+    launched = len(keys)
     for key in keys:
         part = [leaf for leaf in leaves if leaf[0] == key]
         srcs, outs = [p[1] for p in part], [p[2] for p in part]
         if op_type == _basics.OP_BROADCAST:
             C.broadcast_(srcs, key[0], outputs=outs)
+            continue
+        if key[0] == ReduceOp.ADASUM:
+            # Adasum combines each tensor as its own vector: packing would
+            # take dot products across tensors
+            for p in part:
+                C.allreduce_([p[1]], key[0], p[3].pre, p[3].post,
+                             outputs=[p[2]])
+            launched += len(part) - 1
             continue
         scales = {(p[3].pre, p[3].post) for p in part}
         if len(scales) == 1:
@@ -183,7 +193,7 @@ def run_batch(op_type: int, ops: Sequence[Op]) -> int:
     for op in ops:
         op.result = (op.outputs if op.kind == "grouped_allreduce"
                      else op.outputs[0])
-    return len(keys)
+    return launched
 
 
 def _run_one(op: Op):

@@ -2,9 +2,11 @@
 ``horovod_tpu/ops/spmd.py``'s ``allreduce`` and ``allgather``.
 
 Average follows the reference's convert-to-postscale trick: SUM followed by
-a 1/size postscale.  The reduction is in place on ``x``.  On a two-level
-host layout (``parallel/hierarchical.py``) the HOROVOD_HIERARCHICAL_*
-knobs, read live, route both through their two-level algorithms.
+a 1/size postscale.  Adasum runs the XOR-partner recursion of
+``parallel/adasum.py`` over every rank, taking ``x`` as one vector.  The
+reduction is in place on ``x``.  On a two-level host layout
+(``parallel/hierarchical.py``) the HOROVOD_HIERARCHICAL_* knobs, read live,
+route both through their two-level algorithms.
 """
 
 from __future__ import annotations
@@ -26,12 +28,12 @@ _TORCH_OPS = {
 
 def torch_op(op: ReduceOp) -> dist.ReduceOp:
     """The process group's reduction for ``op`` (Average reduces by SUM and
-    is scaled by 1/size afterwards)."""
+    is scaled by 1/size afterwards).  Adasum has none: it is a recursion of
+    pairwise exchanges, which only :func:`allreduce` runs."""
     if op not in _TORCH_OPS:
-        raise NotImplementedError(
-            f"{ReduceOp(op).name} allreduce is not ported yet: Adasum comes "
-            "with the 3D/sequence/expert-parallel slice (ROADMAP queue 1 "
-            "item 6)")
+        raise ValueError(
+            f"{ReduceOp(op).name} is not a process-group reduction: only "
+            "allreduce takes it")
     return _TORCH_OPS[op]
 
 
@@ -58,7 +60,6 @@ def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
               prescale_factor: float = 1.0,
               postscale_factor: float = 1.0) -> torch.Tensor:
     """Reduce ``x`` in place across every rank and return it."""
-    red = torch_op(op)
     pair = _two_level("HOROVOD_HIERARCHICAL_ALLREDUCE")
     if pair is not None:
         from ..parallel.hierarchical import hierarchical_allreduce
@@ -66,7 +67,13 @@ def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
                                       prescale_factor=prescale_factor,
                                       postscale_factor=postscale_factor)
     scale_(x, prescale_factor)
-    dist.all_reduce(x, op=red)
+    if op == ReduceOp.ADASUM:
+        from ..parallel.adasum import adasum_allreduce
+        out = adasum_allreduce(x)
+        if out is not x:
+            x.copy_(out)
+        return scale_(x, postscale_factor)
+    dist.all_reduce(x, op=torch_op(op))
     return scale_(x, postscale_factor, dist.get_world_size()
                   if op == ReduceOp.AVERAGE else 1)
 

@@ -71,15 +71,19 @@ def hierarchical_allreduce(x: torch.Tensor, cross_group: dist.ProcessGroup,
     """Two-level allreduce of ``x`` in place (returns ``x``).
 
     Sum and Average ride the reduce_scatter -> cross allreduce ->
-    all_gather pipeline; Min, Max and Product have no scatter-reduce and
-    fall back to the flat reduction over every rank (they never carry
-    gradient volume).  Adasum raises, as the flat path does."""
+    all_gather pipeline; Min, Max, Product and Adasum have no
+    scatter-reduce and fall back to the flat reduction over every rank
+    (Adasum's recursion over the host-major ranks is the JAX package's over
+    the combined ``(dcn, ici)`` axes)."""
     if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
         # flat fallback through the process group directly: spmd.allreduce
         # would route back here while the knob is on
-        red = spmd.torch_op(op)
         spmd.scale_(x, prescale_factor)
-        dist.all_reduce(x, op=red)
+        if op == ReduceOp.ADASUM:
+            from .adasum import adasum_allreduce
+            x.copy_(adasum_allreduce(x))
+        else:
+            dist.all_reduce(x, op=spmd.torch_op(op))
         return spmd.scale_(x, postscale_factor)
 
     spmd.scale_(x, prescale_factor)

@@ -9,8 +9,10 @@
 
 Collectives are negotiated through the port's own native controller
 (``ops/negotiated.py``) and run on the runtime's device; a rank is a
-process.  Left out for now: ``Adasum`` (ROADMAP queue 1 item 6) and
-``elastic`` (ROADMAP queue 1 item 8).
+process.  ``op=Adasum`` runs the XOR-partner recursion of
+``parallel/adasum.py`` per tensor, and ``DistributedOptimizer(op=Adasum)``
+combines each step's local update.  Left out for now: ``elastic``
+(ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from .. import (init, shutdown, is_initialized, rank, size, local_rank,
                 local_size, cross_rank, cross_size, is_homogeneous)
 from .. import runtime as _rt
 from ..common.exceptions import HorovodInternalError, HostsUpdatedInterrupt
-from ..common.reduce_op import ReduceOp, Average, Sum, Min, Max, Product
+from ..common.reduce_op import (ReduceOp, Average, Sum, Adasum, Min, Max,
+                                Product)
 from .compression import Compression
 from .mpi_ops import (allreduce, allreduce_, allreduce_async,
                       allreduce_async_, grouped_allreduce,
@@ -130,7 +133,7 @@ __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
     "local_size", "cross_rank", "cross_size", "process_rank", "process_size",
     "mesh", "is_homogeneous",
-    "ReduceOp", "Average", "Sum", "Min", "Max", "Product",
+    "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "Compression",
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
     "grouped_allreduce", "grouped_allreduce_", "grouped_allreduce_async",

@@ -66,12 +66,7 @@ def _resolve_op(average: Optional[bool], op: Optional[ReduceOp]) -> ReduceOp:
         if op is not None:
             raise ValueError("cannot specify both average and op")
         return Average if average else Sum
-    op = op if op is not None else Average
-    if op == Adasum:
-        raise NotImplementedError(
-            "Adasum comes with the 3D/sequence/expert-parallel slice "
-            "(ROADMAP queue 1 item 6)")
-    return op
+    return op if op is not None else Average
 
 
 # ------------------------------------------------------------------ allreduce
@@ -116,7 +111,9 @@ class _AllreduceFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_output):
-        reduced = allreduce(grad_output.contiguous(), op=ctx.op,
+        # Adasum's gradient is Average's (the JAX frontend's choice)
+        op = Average if ctx.op == Adasum else ctx.op
+        reduced = allreduce(grad_output.contiguous(), op=op,
                             prescale_factor=ctx.scales[0],
                             postscale_factor=ctx.scales[1])
         return reduced, None, None, None, None, None

@@ -16,6 +16,10 @@ still being computed; ``step()`` (or ``synchronize()``) waits for the rest.
 ``.grad``, summed) over n backward passes before the allreduce.
 ``gradient_predivide_factor = f`` scales gradients by 1/f before the sum
 and by f after it (the reference Horovod's split of the average).
+
+``op=Adasum`` returns the delta optimizer instead
+(``_AdasumDeltaOptimizer``): no hooks; each step's local update is
+Adasum-combined across ranks.
 """
 
 from __future__ import annotations
@@ -237,6 +241,52 @@ class _HookReducingOptimizer(torch.optim.Optimizer):
         return super(type(self), self).zero_grad(*args, **kwargs)
 
 
+class _AdasumDeltaOptimizer(torch.optim.Optimizer):
+    """Methods merged into a subclass of the wrapped optimizer's class: the
+    update of a local step, Adasum-combined across ranks (the reference's
+    Adasum optimizer).
+
+    ``step()`` takes one local step with the wrapped optimizer's own rule,
+    then sets each parameter to ``before + adasum(after - before)``: the
+    local learning rate applies locally, and Adasum decides how the ranks'
+    updates mix.  The deltas are submitted as ``adasum.delta.{group}.
+    {index}`` (the parameter's place in ``param_groups``, the same on every
+    rank) and waited for in that order.  With ``backward_passes_per_step =
+    n`` only every n-th ``step()`` steps; gradients accumulate in ``.grad``
+    meanwhile."""
+
+    _hvd_wrapper = True
+
+    def __init__(self, params, compression=Compression.none,
+                 backward_passes_per_step: int = 1):
+        super(type(self), self).__init__(params)
+        self._compression = compression
+        self.backward_passes_per_step = backward_passes_per_step
+        self._step_count = 0
+
+    def step(self, closure=None):
+        self._step_count += 1
+        if self._step_count % self.backward_passes_per_step:
+            return None
+        befores = [(gi, pi, p, p.detach().clone())
+                   for gi, group in enumerate(self.param_groups)
+                   for pi, p in enumerate(group["params"])
+                   if p.grad is not None]
+        loss = super(type(self), self).step(closure)
+        pending = []
+        for gi, pi, p, before in befores:
+            comp, cctx = self._compression.compress(p.detach() - before)
+            handle = mpi_ops.allreduce_async(comp, op=Adasum,
+                                             name=f"adasum.delta.{gi}.{pi}")
+            pending.append((p, before, handle, cctx))
+        with torch.no_grad():
+            for p, before, handle, cctx in pending:
+                mixed = self._compression.decompress(
+                    mpi_ops.synchronize(handle), cctx)
+                p.copy_(before + mixed)
+        return loss
+
+
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None,
                          compression=Compression.none,
@@ -250,16 +300,17 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     """Wrap a torch optimizer for data-parallel training: an instance of a
     subclass of ``optimizer``'s class, on its ``param_groups``, whose
     gradients are allreduced as the backward produces them."""
-    if op == Adasum:
-        raise NotImplementedError(
-            "op=Adasum comes with the 3D/sequence/expert-parallel slice "
-            "(ROADMAP queue 1 item 6)")
     if gradient_predivide_factor != 1.0 and op != Average:
         raise ValueError(
             "gradient_predivide_factor needs op=Average")
     if backward_passes_per_step < 1:
         raise ValueError("backward_passes_per_step must be >= 1")
     base = type(optimizer)
+    if op == Adasum:
+        cls = type(base.__name__, (base,),
+                   dict(_AdasumDeltaOptimizer.__dict__))
+        return cls(optimizer.param_groups, compression,
+                   backward_passes_per_step)
     cls = type(base.__name__, (base,), dict(_HookReducingOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression,
                backward_passes_per_step, op, gradient_predivide_factor,

@@ -195,8 +195,10 @@ def test_backward_passes_accumulate_like_jax(one_rank):
 
 
 def test_unported_options_raise():
-    """The wire and overlap planes are ported (test_torch_wire*.py); what
-    still raises is Adasum, and bad values of their options."""
+    """The wire and overlap planes and Adasum are ported
+    (test_torch_wire*.py, test_torch_adasum.py); what raises is bad
+    values of their options, and Adasum where a process-group reduction
+    is asked for."""
     opt = torch.optim.SGD([torch.nn.Parameter(torch.zeros(2))], lr=0.1)
     for kw in ({"wire_policy": "int9"}, {"overlap_depth": 9},
                {"quantized_wire": True, "op": hvd.Max}):
@@ -206,8 +208,8 @@ def test_unported_options_raise():
         hvd.DistributedOptimizer(opt, backward_passes_per_step=0)
     with pytest.raises(ValueError, match="named_parameters"):
         hvd.DistributedOptimizer(opt, named_parameters=[])
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        hvd.spmd.allreduce(torch.zeros(2), op=hvd.Adasum)
+    with pytest.raises(ValueError, match="ADASUM is not a process-group"):
+        hvd.spmd.torch_op(hvd.Adasum)
 
 
 def test_init_refusals(monkeypatch):

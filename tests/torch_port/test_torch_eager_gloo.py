@@ -105,12 +105,29 @@ def test_chip_smoke_ranks_mode_on_cpu():
     parameters bitwise equal across the ranks, the ZeRO chain, and the 3D
     layouts and FSDP (``rank_layout``, the full model being ``tiny`` at
     its depth).  A failed check raises in its rank."""
+    _rehearse(("dp",))
+
+
+def test_chip_smoke_ranks_sequence_expert_adasum_on_cpu():
+    """``chip_smoke.py --ranks N``'s parts (d)-(f), rehearsed on four gloo
+    ranks: the ``tiny`` Llama's flash ring over 64 tokens and Ulysses and
+    the plain ring over 32 against one rank's full-sequence step (loss and
+    every gradient), the bf16 ring training steps with the first loss
+    against the no-grad forward and parameters bitwise equal across ranks;
+    the MoE ``mini`` and ``mixtral-tiny`` expert-parallel path against the
+    dense one and three training steps; Adasum over the ``tiny`` buckets
+    against the float64 model, the root and eager delta optimizers, and the
+    two-level layout.  A failed check raises in its rank."""
+    _rehearse(("sequence", "expert", "adasum"))
+
+
+def _rehearse(parts):
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     import chip_smoke
+    ports = {name: _free_port() for name in chip_smoke.RANK_PORTS}
     ctx = tmp.spawn(chip_smoke.rank_worker,
-                    args=(4, _free_port(), _free_port(), "tiny", "cpu", 4,
-                          32, _free_port(), _free_port()),
+                    args=(4, ports, "tiny", "cpu", 4, 32, parts),
                     nprocs=4, join=False)
     deadline = time.monotonic() + 120
     while not ctx.join(timeout=5):

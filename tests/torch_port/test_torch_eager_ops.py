@@ -142,8 +142,10 @@ def test_hook_optimizer_refusals(runtimes):
     model = _mlp()
     named = list(model.named_parameters())
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TT.DistributedOptimizer(opt, op=hvd.Adasum)
+    # Adasum is no refusal: it gives the delta optimizer, with no hooks
+    delta = TT.DistributedOptimizer(opt, op=hvd.Adasum)
+    assert isinstance(delta, torch.optim.SGD)
+    assert not hasattr(delta, "_hook_handles")
     with pytest.raises(ValueError, match="duplicate"):
         TT.DistributedOptimizer(opt, named_parameters=named[:1] + named)
     with pytest.raises(ValueError, match="not named"):
@@ -350,8 +352,8 @@ def test_scanned_step_matches_jax(runtimes):
 
 
 def test_surface_has_the_jax_frontends_names():
-    """Every name of ``horovod_tpu.torch.__all__`` but ``elastic`` and
-    ``Adasum`` (later slices) is on the port's eager API."""
-    missing = set(JT.__all__) - {"elastic", "Adasum"} - set(TT.__all__)
+    """Every name of ``horovod_tpu.torch.__all__`` but ``elastic`` (a later
+    slice) is on the port's eager API."""
+    missing = set(JT.__all__) - {"elastic"} - set(TT.__all__)
     assert not missing, sorted(missing)
     assert all(hasattr(TT, n) for n in TT.__all__)

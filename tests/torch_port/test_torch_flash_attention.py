@@ -196,8 +196,9 @@ def test_chip_check_rejects_a_dropped_tile():
         assert not ok and tile == pytest.approx(1.0)
 
 
-# Every shape the first kernels' wrapper accepted: bf16 with S a multiple of
-# 64, fp32 with S a multiple of 32, D in {64, 128}, H a multiple of HK.
+# Every shape the kernels' wrapper accepts: bf16 with S a multiple of 64,
+# fp32 with S a multiple of 32, D in {32, 64, 128} (32 since the MoE
+# Llama's heads), H a multiple of HK.
 @pytest.mark.parametrize("dtype,B,S,H,HK,D", [
     (torch.bfloat16, 4, 2048, 32, 8, 64),
     (torch.bfloat16, 1, 64, 2, 1, 64),
@@ -208,6 +209,8 @@ def test_chip_check_rejects_a_dropped_tile():
     (torch.float32, 2, 256, 8, 2, 64),
     (torch.float32, 1, 32, 4, 2, 128),
     (torch.float32, 1, 96, 2, 2, 64),
+    (torch.bfloat16, 2, 256, 8, 4, 32),
+    (torch.float32, 1, 64, 4, 2, 32),
 ])
 def test_kernel_shapes_accepts_every_supported_shape(dtype, B, S, H, HK, D):
     assert TF.kernel_shapes((B, S, H, D), (B, S, HK, D), (B, S, HK, D),
@@ -217,7 +220,7 @@ def test_kernel_shapes_accepts_every_supported_shape(dtype, B, S, H, HK, D):
 @pytest.mark.parametrize("dtype,q,kv,match", [
     (torch.bfloat16, (1, 96, 2, 64), (1, 96, 2, 64), "multiple of its 64"),
     (torch.float32, (1, 48, 2, 64), (1, 48, 2, 64), "multiple of its 32"),
-    (torch.bfloat16, (1, 64, 2, 32), (1, 64, 2, 32), "head dim"),
+    (torch.bfloat16, (1, 64, 2, 48), (1, 64, 2, 48), "head dim"),
     (torch.bfloat16, (1, 64, 6, 64), (1, 64, 4, 64), "multiple of kv heads"),
     (torch.float16, (1, 64, 2, 64), (1, 64, 2, 64), "bf16 or fp32"),
     (torch.bfloat16, (1, 64, 2, 64), (1, 128, 2, 64), "does not match"),
@@ -265,7 +268,7 @@ def test_parse_ptxas_reads_registers_and_spills():
 
 
 # Every instantiation of the three kernels as nvcc mangles it (bf16 and
-# fp32, D = 64 and 128), and as the profiler shows one demangled.
+# fp32, D = 32, 64 and 128), and as the profiler shows one demangled.
 _BF16 = "PK13__nv_bfloat16S3_S3_"
 _MANGLED = {
     "fwd_mma_kernel": _BF16 + "PS1_Pfiiiif",
@@ -279,7 +282,7 @@ _MANGLED = {
 
 @pytest.mark.parametrize("key,kind", [
     *((f"_ZN12_GLOBAL__N_1{len(fn)}{fn}ILi{D}EEEv{args}", "flash attention")
-      for fn, args in _MANGLED.items() for D in (64, 128)),
+      for fn, args in _MANGLED.items() for D in (32, 64, 128)),
     ("void (anonymous namespace)::dq_mma_kernel<64>(__nv_bfloat16 const*, "
      "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
      "float const*, float const*, __nv_bfloat16*, int, int, int, int, float)",

@@ -106,6 +106,6 @@ def test_dq_kernel_is_deterministic():
 def test_kernel_rejects_unsupported_head_dim():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    q = torch.zeros(1, 64, 2, 32, device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros(1, 64, 2, 48, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         F.flash_forward_cuda(q, q, q)
