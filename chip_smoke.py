@@ -17,8 +17,8 @@ Phases, in order; any failure exits non-zero before the result line:
    edges (non-causal, GQA groups 1 and 8, S not a multiple of 128, fp32,
    D=32: the MoE Llama's head dim),
    dq's and dk/dv's bitwise determinism, with kernel, plain and library
-   times at the training shape and the 8b shape (the library backward,
-   SDPA's, covers dq and dk/dv together);
+   times at the training shape, the 8b shape and MoE ``mini``'s (the
+   library backward, SDPA's, covers dq and dk/dv together);
 4. model: the ``mini`` Llama loss in bf16 with the kernels as ``attn_fn``
    against the same loss with the plain ``causal_attention``;
 5. train: the ``1b`` Llama at full width and depth, data-parallel through
@@ -89,15 +89,28 @@ Phases, in order; any failure exits non-zero before the result line:
    ``lse`` and ``delta`` over their union, as the ring's backward feeds
    them; the MoE ``mini`` loss in bf16 with the kernels (head dim 32)
    against the plain attention; Adasum at one rank the identity;
-9. printed last, after phase 12: a ``{"kernels": [...]}`` JSON line (the
-   rows at the training shape, each with its 8b-shape ``d128`` numbers
-   and resources, its ring-shape ``ring`` numbers and the launches of
-   each phase), then the ``{"ok": true, "device": {...}}`` JSON line.
+13. launch: phase 5's step started through the port's launcher, ``python
+   -m horovod_tpu_torch.runner.launch -np 1 --gpu --coordinator-port P
+   --controller-port Q --output-filename DIR python3 chip_smoke.py
+   --launched DIR`` (free ports, the parent's cached memory released and
+   ``check_build()`` printed first): the worker trains ``1b`` for 3 steps
+   on phase 5's weights and batches, each loss within 1e-4 of phase 5's
+   (bitwise equality printed), each kernel launched 16 x 3 times, its
+   step ms beside phase 5's and its start-up on the launch's clock; then
+   ``horovod_tpu_torch.run`` of a one-rank NCCL allreduce of a CUDA
+   tensor;
+9. printed last, after phase 13: a ``{"kernels": [...]}`` JSON line (the
+   rows at the training shape, each with its 8b-shape ``d128`` and MoE
+   ``mini``-shape ``d32`` numbers, D=128 resources, its ring-shape
+   ``ring`` numbers and the launches of each phase), then the ``{"ok":
+   true, "device": {...}}`` JSON line.
 
     python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum]
 
 runs, after the device and build phases, the eager path across 4 ranks
-(one process and one card each, NCCL, the controller negotiating over TCP)
+(one process and one card each, started by the port's launcher as
+``chip_smoke.py --rank-worker <json>``; NCCL, the controller negotiating
+over TCP)
 instead of phases 3-8: each eager op against an oracle of every rank's
 inputs, then the ``1b`` step data-parallel at batch 4 x 2048 per rank,
 first through the root package's ``DistributedOptimizer`` (one fused
@@ -396,6 +409,12 @@ def check_case(heading: str, label: str, outputs, dtype) -> dict:
     return errs
 
 
+# the cases of phase 3 that are timed, and the key of the kernels line's
+# rows their numbers go under ("train" is the rows' own): D=128 at the 8b
+# shape, D=32 at the shape phase 12 runs the MoE mini loss at
+TIMED_CASES = {"train": None, "8b D=128": "d128", "MoE mini D=32": "d32"}
+
+
 def phase_kernels(F, torch, card: str):
     """Each kernel against its plain version; returns the kernels' rows at
     the training shape."""
@@ -438,14 +457,14 @@ def phase_kernels(F, torch, card: str):
             f"{str(dtype)[6:]} causal={causal}", label,
             (("out", out, r_out), ("lse", lse, r_lse), ("dq", dq, r_dq),
              ("dk", dk, r_dk), ("dv", dv, r_dv)), dtype)
-        if label not in ("train", "8b D=128"):
+        if label not in TIMED_CASES:
             continue
         shape = dict(B=B, S=S, H=H, HK=HK, D=D)
         timed = kernel_rows(F, torch, card, label, q, k, v, do, lse, delta,
                             causal, errs, shape, dtype)
-        if label == "8b D=128":  # the 8b path's instantiations
+        if label != "train":  # the 8b path's and the MoE Llama's heads
             for name, r in timed.items():
-                rows[name]["d128"] = {key: r[key] for key in (
+                rows[name][TIMED_CASES[label]] = {key: r[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape")}
             del q, k, v, do, out, lse, delta, dq, dk, dv
@@ -2914,21 +2933,26 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 RANK_PARTS = ("dp", "sequence", "expert", "adasum")
 
 
-def rank_worker(rank: int, n: int, ports, cfg_name: str = "1b",
-                device_type: str = "cuda", batch: int = TRAIN_BATCH,
-                seq: int = TRAIN_SEQ, parts=RANK_PARTS) -> None:
-    """One rank of ``--ranks N``: one process, one card.  ``ports``: free
-    ports for the process groups and controllers of the parts, by name
-    (``store``, ``ctrl``, ``wire``, ``layout``, ``seq``, ``ctrl2``,
-    ``hier``).  With N >= 4 and even, the two-level wire configurations
-    and Adasum run on process groups laid out as two hosts of N/2 ranks.  A
-    rank that fails prints its traceback and exits at once: its peers,
-    waiting in a collective, are then ended by the spawning process
-    instead of waiting out NCCL's timeout.  With N = 4 the layout plane
-    (``rank_layout``) runs after the ZeRO chain, on a flat group of its
-    own; sequence and expert parallelism and Adasum run last, on another."""
+def rank_worker(spec: dict) -> None:
+    """One rank of ``--ranks N`` (``--rank-worker <json>``): one process,
+    one card, started by the port's launcher, whose env gives its rank and
+    the job's size.  ``spec``: the free ports for the process groups and
+    controllers of the parts, by name (``store``, ``ctrl``, ``wire``,
+    ``layout``, ``seq``, ``ctrl2``, ``hier``; the launcher was given
+    ``store`` and ``ctrl`` as its coordinator and controller ports), and
+    ``cfg``, ``device``, ``batch``, ``seq`` and ``parts``.  With N >= 4
+    and even, the two-level wire configurations and Adasum run on process
+    groups laid out as two hosts of N/2 ranks.  A rank that fails prints
+    its traceback and exits at once: the launcher then ends its peers,
+    waiting in a collective, instead of their waiting out NCCL's timeout.
+    With N = 4 the layout plane (``rank_layout``) runs after the ZeRO
+    chain, on a flat group of its own; sequence and expert parallelism and
+    Adasum run last, on another."""
     try:
-        rank_run(rank, n, ports, cfg_name, device_type, batch, seq, parts)
+        rank_run(int(os.environ["HOROVOD_RANK"]),
+                 int(os.environ["HOROVOD_SIZE"]), spec["ports"], spec["cfg"],
+                 spec["device"], spec["batch"], spec["seq"],
+                 tuple(spec["parts"]))
     except BaseException:
         import traceback
         traceback.print_exc()
@@ -3076,30 +3100,207 @@ def rank_dp(torch, np, hvd, ht, llama, F, mpi_ops, rank, n, dev, cfg_name,
 RANK_PORTS = ("store", "ctrl", "wire", "layout", "seq", "ctrl2", "hier")
 
 
+def ranks_argv(n: int, parts, cfg_name: str = "1b",
+               device_type: str = "cuda", batch: int = TRAIN_BATCH,
+               seq: int = TRAIN_SEQ) -> list:
+    """The port launcher's arguments for ``--ranks N``: ``-np N`` (with
+    ``--gpu`` on the card) and free coordinator and controller ports, each
+    rank ``chip_smoke.py --rank-worker <json>``."""
+    ports = {name: free_port() for name in RANK_PORTS}
+    spec = {"ports": ports, "cfg": cfg_name, "device": device_type,
+            "batch": batch, "seq": seq, "parts": list(parts)}
+    return (["-np", str(n)] + (["--gpu"] if device_type == "cuda" else [])
+            + ["--coordinator-port", str(ports["store"]),
+               "--controller-port", str(ports["ctrl"]), sys.executable,
+               os.path.abspath(__file__), "--rank-worker",
+               json.dumps(spec)])
+
+
 def phase_ranks(torch, n: int, parts) -> None:
-    """``--ranks N``: the paths across N cards, one process each."""
-    import torch.multiprocessing as tmp
+    """``--ranks N``: the paths across N cards, one process each, started
+    by the port's launcher (``runner/launch.py``)."""
+    from horovod_tpu_torch.runner import launch
     require(torch.cuda.device_count() >= n,
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
-    ports = {name: free_port() for name in RANK_PORTS}
-    ctx = tmp.spawn(rank_worker, args=(n, ports, "1b", "cuda", TRAIN_BATCH,
-                                       TRAIN_SEQ, parts),
-                    nprocs=n, join=False)
+    rc = launch.run_commandline(ranks_argv(n, parts))
+    require(rc == 0, f"--ranks {n}: the launcher returned {rc}")
+
+
+LAUNCH_STEPS = 3         # phase 13: 1 warm-up and 2 timed steps
+
+
+def launched_worker(out_dir: str) -> int:
+    """``--launched DIR``: phase 13's worker, started by the port's
+    launcher (``-np 1 --gpu``).  Phase 5's configuration (``1b`` at full
+    width and depth, bf16, AdamW, the flash kernels, ``ce_chunks=8``, the
+    same seeded weights and the first ``LAUNCH_STEPS`` of its batches)
+    through ``DistributedOptimizer`` on ``cuda:<local rank>``; its losses,
+    step times, the kernels' launches and its clock readings land in
+    ``DIR/launched.json``."""
+    t_main = time.time()
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = hvd.init().device
+    require(dev.type == "cuda", f"the launched worker runs on {dev}")
+    t_init = time.time()
+    cfg = llama.CONFIGS["1b"]
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    step = hvd.make_train_step(
+        model, lambda m, ids: llama.loss_fn(m, ids, attn_fn=hvd.flash_attention,
+                                            ce_chunks=8), opt)
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, (TRAIN_BATCH * hvd.size(), TRAIN_SEQ + 1),
+        dtype=np.int32)).to(dev) for _ in range(LAUNCH_STEPS)]
+    torch.cuda.synchronize()
+    t_ready = time.time()
+    F.reset_launches()
+    losses, step_ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(b)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    report = {"losses": losses, "step_ms": step_ms,
+              "launches": dict(F.LAUNCHES), "device": str(dev),
+              "rank": hvd.rank(), "size": hvd.size(), "t_main": t_main,
+              "t_init": t_init, "t_ready": t_ready,
+              "peak_bytes": torch.cuda.max_memory_allocated()}
+    hvd.shutdown()
+    with open(os.path.join(out_dir, "launched.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def launched_allreduce(n: int) -> dict:
+    """``run()``'s function in phase 13: a one-rank NCCL allreduce of a
+    CUDA tensor of ``n`` elements."""
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    dev = hvd.init().device
+    t = torch.arange(n, dtype=torch.float32, device=dev)
+    dist.all_reduce(t)
+    out = {"device": t.device.type, "backend": dist.get_backend(),
+           "sum": float(t.double().sum()), "size": hvd.size()}
+    hvd.shutdown()
+    return out
+
+
+def phase_launch(torch, card: str, ref_losses, ref_step_ms: float) -> dict:
+    """Phase 13: phase 5's step started through the port's launcher as a
+    user starts it, ``python -m horovod_tpu_torch.runner.launch -np 1 --gpu
+    ... python3 chip_smoke.py --launched DIR``, with free coordinator and
+    controller ports (never the defaults), then ``horovod_tpu_torch.run``
+    of a one-rank NCCL allreduce on the card.  Returns the launched
+    worker's kernel launches."""
+    import shutil
+    import tempfile
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runner import launch
+    torch.cuda.empty_cache()
+    print(f"launch: parent holds {torch.cuda.memory_reserved()} bytes "
+          "reserved after empty_cache", flush=True)
+    print(launch.check_build(), flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_launch_")
+    ports = [free_port(), free_port()]
+    require(not {29500, 29499} & set(ports), f"ports {ports}")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+           "1", "--gpu", "--coordinator-port", str(ports[0]),
+           "--controller-port", str(ports[1]), "--output-filename", out_dir,
+           sys.executable, os.path.abspath(__file__), "--launched", out_dir]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    t0 = time.time()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, start_new_session=True)
     try:
-        while not ctx.join(timeout=600):
-            pass
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+        rc = "killed at 600 s"
+    wall = time.time() - t0
+    if rc != 0:
+        for stream in ("stdout", "stderr"):
+            fp = os.path.join(out_dir, "rank.0", stream)
+            if os.path.exists(fp):
+                with open(fp, errors="replace") as f:
+                    print(f"launch: worker {stream} tail:\n"
+                          + f.read()[-4000:], flush=True)
+    require(rc == 0, f"the launched 1b worker: launcher returned {rc}")
+    with open(os.path.join(out_dir, "launched.json")) as f:
+        r = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ref = ref_losses[:LAUNCH_STEPS]
+    diffs = [abs(a - b) for a, b in zip(r["losses"], ref)]
+    bitwise = r["losses"] == ref
+    timed = r["step_ms"][1:]
+    ms = sum(timed) / len(timed)
+    print(f"launch [1b -np 1 --gpu] {r['device']} rank {r['rank']} of "
+          f"{r['size']}: losses " + " ".join(f"{x:.5f}" for x in r["losses"])
+          + " (phase 5: " + " ".join(f"{x:.5f}" for x in ref)
+          + f"), max |diff| {max(diffs):.3g}, bitwise equal: {bitwise}",
+          flush=True)
+    print(f"launch [1b] [{card}]: step {ms:.1f} ms (steps 2-{LAUNCH_STEPS}, "
+          f"each {', '.join(f'{x:.1f}' for x in timed)}; phase 5 "
+          f"{ref_step_ms:.1f} ms); first step {r['step_ms'][0]:.1f} ms; "
+          f"peak memory {r['peak_bytes'] / 2**30:.2f} GiB; worker's python "
+          f"up {r['t_main'] - t0:.2f} s after the launch, hvd.init done at "
+          f"{r['t_init'] - t0:.2f} s, model and optimizer ready at "
+          f"{r['t_ready'] - t0:.2f} s; launcher exited at {wall:.2f} s",
+          flush=True)
+    print("launch [1b] launches " + json.dumps(r["launches"]), flush=True)
+    require(r["device"].startswith("cuda"), f"worker device {r['device']}")
+    for i, d in enumerate(diffs):
+        require(d <= EAGER_LOSS_TOL, f"launched step {i}: loss "
+                f"{r['losses'][i]} vs phase 5's {ref[i]}")
+    from horovod_tpu_torch.models import llama
+    layers = llama.CONFIGS["1b"].n_layers
+    for name in REPLACES:
+        require(r["launches"].get(name) == layers * LAUNCH_STEPS,
+                f"{name} launched {r['launches'].get(name)} times in the "
+                f"launched worker, expected {layers * LAUNCH_STEPS}")
+
+    import chip_smoke as this  # importable by name in the run() workers
+    n = 1 << 20
+    t0 = time.time()
+    res = hvd.run(this.launched_allreduce, args=(n,), np=1,
+                  coordinator_port=free_port())
+    print(f"launch [run(fn, np=1)]: {json.dumps(res)} in "
+          f"{time.time() - t0:.2f} s", flush=True)
+    require(len(res) == 1 and res[0]["device"] == "cuda"
+            and res[0]["backend"] == "nccl"
+            and res[0]["sum"] == float(n * (n - 1) // 2),
+            f"run(): {res}")
+    return r["launches"]
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    if len(args) == 2 and args[0] in ("--rank-worker", "--launched"):
+        # a worker the port's launcher started (--ranks N, phase 13)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        if args[0] == "--launched":
+            return launched_worker(args[1])
+        rank_worker(json.loads(args[1]))
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    ranks, parts, args = 1, RANK_PARTS, sys.argv[1:]
+    ranks, parts = 1, RANK_PARTS
     if args[:1] == ["--ranks"] and len(args) in (2, 4):
         ranks = int(args[1])
         if len(args) == 4 and args[2] == "--parts":
@@ -3172,6 +3373,7 @@ def main() -> int:
     layout = phase_layout(torch, np, hvd, llama, F, card, zero_runs)
     ring_rows, ring_launches, moe_launches = phase_sequence(
         torch, np, hvd, llama, F, L, card)
+    launched = phase_launch(torch, card, losses, step_ms)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -3180,6 +3382,7 @@ def main() -> int:
         row["launches_layout"] = layout[row["name"]]
         row["launches_ring_n1"] = ring_launches[row["name"]]
         row["launches_moe_mini"] = moe_launches[row["name"]]
+        row["launches_launch"] = launched[row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -22,6 +22,10 @@ native controller (``horovod_tpu_torch.torch``).
                                    named_parameters=model.named_parameters())
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
 
+Jobs start under the port's own launcher, ``python -m
+horovod_tpu_torch.runner.launch -np N python3 train.py`` (``runner/``), or
+from a program with ``hvd.run(fn, np=N)``.
+
 The package imports neither JAX nor ``horovod_tpu``; the pieces it shares
 with the JAX package (reduce ops, knobs, exceptions, the native core's
 sources) are its own copies.
@@ -47,7 +51,10 @@ from .parallel.data_parallel import (cast_params, make_microbatched_train_step,
 from .parallel.expert import make_moe_fn
 from .parallel.sequence import (make_ring_attn_fn, make_ulysses_attn_fn,
                                 ring_attention, ulysses_attention)
+from .runner.api import run
 from .runtime import init, shutdown, is_initialized
+
+__version__ = "0.3.0"
 
 
 def rank() -> int:
@@ -96,5 +103,5 @@ __all__ = [
     "make_scanned_train_step", "cast_params", "serve", "prefetch",
     "adasum_allreduce", "adasum_hierarchical", "ring_attention",
     "ulysses_attention", "make_ring_attn_fn", "make_ulysses_attn_fn",
-    "make_moe_fn",
+    "make_moe_fn", "run",
 ]

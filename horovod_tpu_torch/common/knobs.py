@@ -3,10 +3,10 @@
 wire and overlap planes, the input prefetch and ZeRO
 (``data/loader.py``, ``parallel/zero.py``), the 3D layout plane
 (``parallel/layout.py``), the eager API's controller
-(``runtime.ensure_core``) and the serving engine (``serve/config.py``
-``from_knobs``) need, with the same names, defaults and parsing (env >
-override > default); ``current`` reads one live (env > the runtime's
-snapshot > default)."""
+(``runtime.ensure_core``), the serving engine (``serve/config.py``
+``from_knobs``) and the launcher's rendezvous (``runner/``) need, with the
+same names, defaults and parsing (env > override > default); ``current``
+reads one live (env > the runtime's snapshot > default)."""
 
 from __future__ import annotations
 
@@ -114,6 +114,37 @@ _knob("HOROVOD_LOCAL_SIZE", -1, int, "Process count on this host.")
 _knob("HOROVOD_COORDINATOR_ADDR", "", str,
       "host:port of the rendezvous for multi-process runs (rank 0 serves "
       "the torch.distributed TCP store there).")
+_knob("HOROVOD_CROSS_RANK", -1, int, "Host index of this process.")
+_knob("HOROVOD_CROSS_SIZE", -1, int, "Number of hosts.")
+_knob("HOROVOD_HOSTNAME", "", str, "Hostname assigned by the launcher.")
+# --- the launcher and its rendezvous KV (runner/) ---
+_knob("HOROVOD_START_TIMEOUT", 300, int,
+      "Seconds a worker waits for the torch.distributed store at "
+      "HOROVOD_COORDINATOR_ADDR during bring-up before giving up "
+      "(reference: horovodrun --start-timeout).")
+_knob("HOROVOD_GLOO_TIMEOUT_SECONDS", 30, int,
+      "Rendezvous KV client patience: how long a worker polls the HTTP "
+      "rendezvous for a key before giving up (reference: "
+      "--gloo-timeout-seconds).")
+_knob("HOROVOD_RENDEZVOUS_ADDR", "", str, "Rendezvous HTTP server address.")
+_knob("HOROVOD_RENDEZVOUS_PORT", 0, int, "Rendezvous HTTP server port.")
+_knob("HOROVOD_KV_RETRIES", 4, int,
+      "Max retries for rendezvous KV writes on transient connection "
+      "errors, with exponential backoff + jitter.")
+_knob("HOROVOD_KV_RETRY_BACKOFF_MS", 100, int,
+      "Initial rendezvous KV retry backoff in ms (doubles per attempt, "
+      "capped at 2000 ms, jittered).")
+_knob("HOROVOD_KV_SHARDS", 1, int,
+      "Rendezvous-KV shard count (the launcher's --kv-shards): every scope "
+      "is owned by exactly one shard server per the deterministic "
+      "scope->shard map (runner/kvshard.py).  Must be >= 1; rejected at "
+      "init() otherwise.")
+_knob("HOROVOD_KV_SHARD_ADDRS", "", str,
+      "Comma-separated host:port list of the KV shard servers, primary "
+      "(shard 0) first, stamped by the launcher when HOROVOD_KV_SHARDS > 1 "
+      "and read by runner/http_client's per-scope routing.  Must list "
+      "HOROVOD_KV_SHARDS entries; rejected at init() otherwise.  Empty = "
+      "unsharded.")
 
 # --- the eager API's native controller (runtime.ensure_core) ---
 _knob("HOROVOD_CONTROLLER", "auto", str,

@@ -29,10 +29,24 @@ column-parallel) gives a ``MaskPartial`` value, and its reduction after
 unsqueezed shape and raises (``IndexError: too many indices``).
 :func:`llama_loss_fn` therefore gathers the logits' vocab dim over tp (an
 all-gather of activations; every parameter stays sharded) before the
-cross-entropy.  A sequence whose length the mesh's axis sizes do not
-divide is slow to propagate: on four gloo ranks, a step of the ``tiny``
-Llama at 15 positions did not finish in 5 minutes (DTensor's
-redistribution-cost search), where one at 16 positions takes seconds.
+cross-entropy.
+
+The attention runs on explicitly placed activations
+(:func:`placed_attention`): q, k and v are redistributed to rows over the
+data axes and heads over tp, and the attention computes on each rank's
+local tensors.  Left to propagation, the attention's first ``einsum``
+(``layers.causal_attention``, ``bqhrd,bkhd->bhrqk``) stalled the step: on
+four gloo ranks of a (1, 2, 2) mesh, DTensor's strategy expansion for it
+spends its time in the graph search of redistribution costs
+(``_redistribute.find_min_cost_path``, from
+``generate_redistribute_costs``).  The ``tiny`` Llama on 8 rows did not
+finish a step in 70 s at 11, 12, 14 and 15 positions (and not in 5
+minutes at 15, the JAX test's shape), where 16, 17, 18, 20 and 24
+positions finished (the whole four-process run in 21-25 s at 17-24); so
+the trigger is a short sequence, not one the mesh does not divide, and
+why short sequences search longer was not found.  With the placement, 8,
+12 and 15 positions each finish, the whole run in 17-26 s (PyTorch 2.13
+on the CPU).
 """
 
 from __future__ import annotations
@@ -153,14 +167,44 @@ def init_opt_state(optimizer: type, model: nn.Module, **optimizer_kwargs
     return optimizer(model.parameters(), **optimizer_kwargs)
 
 
+# q/k/v ``[B, S, heads, head_dim]`` at the attention: rows over the data
+# axes, heads over tp (the column-parallel wq/wk/wv's output split)
+ATTN_SPEC: Spec = (("dp", "fsdp"), None, "tp", None)
+
+
+def placed_attention(attn_fn: Optional[Callable] = None) -> Callable:
+    """An ``attn_fn`` for the sharded model: q, k and v are redistributed
+    to :data:`ATTN_SPEC` and ``attn_fn`` (the plain
+    ``layers.causal_attention`` when None) runs on each rank's local rows
+    and heads, whose GQA groups stay whole (a contiguous split of the
+    heads splits the kv heads alike).  The output re-enters as a DTensor of
+    the same placement, so no sharding strategy is searched for the
+    attention's operators (module docstring)."""
+    from torch.distributed.tensor import DTensor
+    from ..models import layers as L
+    inner = attn_fn or L.causal_attention
+
+    def attn(q, k, v):
+        if not isinstance(q, DTensor):
+            return inner(q, k, v)
+        mesh = q.device_mesh
+        place = placements(ATTN_SPEC, mesh)
+        o = inner(*(t.redistribute(mesh, place).to_local()
+                    for t in (q, k, v)))
+        return DTensor.from_local(o, mesh, place, run_check=False,
+                                  shape=q.shape, stride=q.stride())
+    return attn
+
+
 def llama_loss_fn(model: nn.Module, ids: torch.Tensor,
                   attn_fn: Optional[Callable] = None) -> torch.Tensor:
-    """``llama.loss_fn`` for a model sharded by :func:`shard_params`: the
-    logits' vocab dim gathered over its mesh axes before the cross-entropy
-    (module docstring)."""
+    """``llama.loss_fn`` for a model sharded by :func:`shard_params`:
+    attention through :func:`placed_attention`, and the logits' vocab dim
+    gathered over its mesh axes before the cross-entropy (module
+    docstring)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     from ..models import layers as L
-    logits = model(ids[:, :-1], attn_fn=attn_fn)
+    logits = model(ids[:, :-1], attn_fn=placed_attention(attn_fn))
     if isinstance(logits, DTensor):
         last = logits.ndim - 1
         logits = logits.redistribute(placements=[

@@ -2,12 +2,13 @@
 ``Runtime``/``init``/``shutdown`` over ``torch.distributed``.
 
 One process drives one device.  The process group is NCCL on a CUDA device
-and gloo on the CPU.  With ``HOROVOD_SIZE > 1`` (what ``hvdrun`` stamps) the
-group rendezvouses at ``HOROVOD_COORDINATOR_ADDR`` with rank
-``HOROVOD_RANK``; a single process uses an in-process store and opens no
-port.  The device is ``cuda:<local_rank>`` unless the caller passes
-``device="cpu"``; with no CUDA device and no ``device="cpu"``, ``init``
-raises.
+and gloo on the CPU.  With ``HOROVOD_SIZE > 1`` (what the launcher,
+``python -m horovod_tpu_torch.runner.launch``, stamps) the group
+rendezvouses at ``HOROVOD_COORDINATOR_ADDR`` with rank ``HOROVOD_RANK``,
+waiting at most ``HOROVOD_START_TIMEOUT`` seconds for its peers; a single
+process uses an in-process store and opens no port.  The device is
+``cuda:<local_rank>`` unless the caller passes ``device="cpu"``; with no
+CUDA device and no ``device="cpu"``, ``init`` raises.
 
 The eager API (``horovod_tpu_torch.torch``) negotiates its collectives
 through the native controller (``common/basics.py``), which
@@ -26,6 +27,7 @@ pp subgroups (``Runtime.layout``).  With it unset there is no layout.
 from __future__ import annotations
 
 import atexit
+import datetime
 import threading
 from typing import Any, Optional, Union
 
@@ -52,6 +54,27 @@ def _pick_device(device: Union[str, torch.device, None],
     return torch.device("cuda", local_rank)
 
 
+def validate_kv_knobs(knobs) -> None:
+    """The launcher's KV shard knobs, checked at ``init`` as
+    ``horovod_tpu/runtime.py`` checks them, so a malformed map fails
+    bring-up, not a KV op mid-run (``runner/http_client.py`` reads the env
+    lazily, so nothing is installed)."""
+    n = knobs["HOROVOD_KV_SHARDS"]
+    if n < 1:
+        raise ValueError(
+            f"HOROVOD_KV_SHARDS={n} invalid; the rendezvous KV needs at "
+            "least one shard (docs/control-plane.md)")
+    if knobs["HOROVOD_KV_SHARD_ADDRS"]:
+        from .runner.kvshard import parse_shard_addrs
+        addrs = parse_shard_addrs(knobs["HOROVOD_KV_SHARD_ADDRS"])
+        if len(addrs) != n:
+            raise ValueError(
+                f"HOROVOD_KV_SHARD_ADDRS lists {len(addrs)} shard(s) but "
+                f"HOROVOD_KV_SHARDS={n}; the scope->shard map is a modulus "
+                "of the count, so the two must agree "
+                "(docs/control-plane.md)")
+
+
 class Runtime:
     """Holds the process group (and, on a two-level layout, this rank's
     host and cross-host groups; under ``HOROVOD_LAYOUT``, its dp, tp and pp
@@ -74,6 +97,7 @@ class Runtime:
                     f"{name}: the controller's autotuning, timeline and "
                     "flight recorder come with the measurement-planes slice "
                     "(ROADMAP queue 1 item 8)")
+        validate_kv_knobs(knobs)
         self._controller = knobs["HOROVOD_CONTROLLER"].strip().lower()
         if self._controller not in ("auto", "tcp", "none"):
             raise ValueError(
@@ -108,7 +132,14 @@ class Runtime:
                     raise RuntimeError(
                         "HOROVOD_SIZE > 1 needs HOROVOD_COORDINATOR_ADDR "
                         "(host:port) for the rendezvous")
-                dist.init_process_group(backend, init_method=f"tcp://{coord}",
+                # the store's timeout bounds the bring-up only; the
+                # group's collectives keep the backend's own timeout
+                host, _, port = coord.rpartition(":")
+                store = dist.TCPStore(
+                    host, int(port), self._size, is_master=self._rank == 0,
+                    timeout=datetime.timedelta(
+                        seconds=knobs["HOROVOD_START_TIMEOUT"]))
+                dist.init_process_group(backend, store=store,
                                         rank=self._rank,
                                         world_size=self._size)
             else:

@@ -5,7 +5,9 @@ ranks' inputs, a plain optimizer and BatchNorm on the full batch in the
 same process, and the root rank's optimizer state."""
 
 import os
+import signal
 import socket
+import subprocess
 import sys
 import time
 
@@ -122,16 +124,23 @@ def test_chip_smoke_ranks_sequence_expert_adasum_on_cpu():
 
 
 def _rehearse(parts):
+    """Four gloo ranks of ``chip_smoke.py --rank-worker``, started as
+    ``--ranks 4`` starts them: through the port's launcher, here a
+    subprocess in a session of its own, killed with its ranks at 115 s."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     import chip_smoke
-    ports = {name: _free_port() for name in chip_smoke.RANK_PORTS}
-    ctx = tmp.spawn(chip_smoke.rank_worker,
-                    args=(4, ports, "tiny", "cpu", 4, 32, parts),
-                    nprocs=4, join=False)
-    deadline = time.monotonic() + 120
-    while not ctx.join(timeout=5):
-        if time.monotonic() > deadline:
-            for p in ctx.processes:
-                p.terminate()
-            pytest.fail("gloo ranks did not finish in 120 s")
+    argv = chip_smoke.ranks_argv(4, parts, "tiny", "cpu", 4, 32)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch"] + argv,
+        cwd=REPO, env=env, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=115)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        pytest.fail("gloo ranks did not finish in 115 s")
+    assert rc == 0, f"a rank failed: the launcher returned {rc}"

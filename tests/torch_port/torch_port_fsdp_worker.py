@@ -18,11 +18,9 @@ ROWS, SEQ = 8, 16
 
 
 def batch():
-    """tests/test_fsdp.py's draw (``RandomState(0)``, 8 rows) with 17
-    tokens a row, 16 positions: at its 16 tokens (15 positions) DTensor's
-    sharding propagation of one step did not finish in 5 minutes on four
-    gloo ranks, spent in its redistribution-cost search."""
-    return np.random.RandomState(0).randint(0, 256, (ROWS, SEQ + 1))
+    """tests/test_fsdp.py's draw: ``RandomState(0)``, 8 rows of 16 tokens
+    (15 positions)."""
+    return np.random.RandomState(0).randint(0, 256, (ROWS, SEQ))
 
 
 def _np(t):
