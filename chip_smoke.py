@@ -99,13 +99,28 @@ Phases, in order; any failure exits non-zero before the result line:
    step ms beside phase 5's and its start-up on the launch's clock; then
    ``horovod_tpu_torch.run`` of a one-rank NCCL allreduce of a CUDA
    tensor;
-9. printed last, after phase 13: a ``{"kernels": [...]}`` JSON line (the
+14. fleet: the serving fleet as a user starts it, ``python -m
+   horovod_tpu_torch.runner.launch -np 1 --gpu --serve DIR --serve-port P
+   --serve-ttl T`` (free ports, the parent's cached memory released),
+   over two ``1b`` servables written by ``serve.save_servable`` from
+   phase 6's weights, fp32 and bf16; the parent is the client: it waits
+   for the fleet's stats key, posts phase 6's 16 requests at once to
+   ``/generate`` and reads the ndjson streams.  Each token must arrive
+   exactly once and in order, the fp32 streams must equal full-forward
+   greedy and all 16 bf16 requests must finish their 64 tokens;
+   ``/serve/stats`` must show the router's and the engine's views with a
+   prefix hit; ``POST /admin/drain`` must answer the drained ack and the
+   launcher exit 0; no attention kernel may launch.  Printed: TTFT
+   p50/p99, TPOT p50 and decode tokens/s as the client measured them
+   over HTTP beside phase 6's in-process figures, and the fleet's first
+   ready seconds on the launch's clock;
+9. printed last, after phase 14: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128`` and MoE
    ``mini``-shape ``d32`` numbers, D=128 resources, its ring-shape
-   ``ring`` numbers and the launches of each phase), then the ``{"ok":
-   true, "device": {...}}`` JSON line.
+   ``ring`` numbers and the launches of each phase, ``launches_fleet``
+   the fleets'), then the ``{"ok": true, "device": {...}}`` JSON line.
 
-    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum]
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, started by the port's launcher as
@@ -174,7 +189,20 @@ timed beside ``op=Average``; the ``1b`` step through
 ``DistributedOptimizer(op=Adasum)`` (parameters bitwise equal, step ms);
 and on two hosts of two, ``adasum_hierarchical`` against the numpy model
 and the routed ``op=Adasum`` bitwise equal to the flat recursion.
-``--parts`` runs a subset (default: all).
+The ``serve`` part is not a rank worker: the parent serves phase 14's
+16 requests on one card in process (fp32 ``1b``, held to full-forward
+greedy), writes the servable, and starts ``launch -np N --gpu --serve``
+with ``HOROVOD_SERVE_PREFILL_RANKS=2`` (ranks 0-1 prefill, the rest
+decode; each prompt's KV crosses between cards through ``serve_kv``) as
+the client: the streams must equal the one-card tokens byte for byte,
+with one handoff per request and every follower's scheduling digest its
+sub-fleet rank 0's; it prints the handoff's seconds (p50/p99) and the
+bytes a handoff record carries.  Then two replica fleets of N/2 ranks
+behind one router (``--replicas 2 --replica-id 0|1``, replica 1 joining
+replica 0's router), replica 1 killed once a stream it serves has carried
+8 tokens: every stream must still equal the one-card tokens byte for
+byte, the router's re-dispatches counted in ``/serve/stats``, replica 0
+drained to exit 0.  ``--parts`` runs a subset (default: all).
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -184,6 +212,7 @@ TF32 is off for matrix products and convolutions
 from __future__ import annotations
 
 import gc
+import http.client
 import json
 import math
 import os
@@ -736,9 +765,10 @@ def device_profile(torch, fn, label: str, top: int = 8) -> float:
     return busy
 
 
-def phase_serve(torch, np, hvd, llama, serve, F, card: str) -> None:
+def phase_serve(torch, np, hvd, llama, serve, F, card: str) -> dict:
     """The serving path: 1b behind ServeEngine, timed in bf16, its tokens
-    held against the full forward, and exact in fp32."""
+    held against the full forward, and exact in fp32.  Returns the timed
+    run's TTFT/TPOT/tokens-per-second figures for phase 14."""
     import dataclasses
     hvd.init()
     dev = torch.device("cuda", hvd.local_rank())
@@ -797,6 +827,10 @@ def phase_serve(torch, np, hvd, llama, serve, F, card: str) -> None:
           flush=True)
     require(pc["hits"] >= 1 and st["prefill_chunks"] > len(reqs),
             "the timed run saw no prefix hit or no chunked prefill")
+    figures = {"ttft_p50": float(np.percentile(ttft, 50)),
+               "ttft_p99": float(np.percentile(ttft, 99)),
+               "tpot_p50": float(np.percentile(tpot, 50)),
+               "tok_s": st["tokens_decode"] / wall}
     S = scfg.max_slots
 
     rng = np.random.RandomState(2)
@@ -885,6 +919,7 @@ def phase_serve(torch, np, hvd, llama, serve, F, card: str) -> None:
     del engine, model
     torch.cuda.empty_cache()
     hvd.shutdown()
+    return figures
 
 
 def free_port() -> int:
@@ -2930,7 +2965,7 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 
 # --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
 # path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
-RANK_PARTS = ("dp", "sequence", "expert", "adasum")
+RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve")
 
 
 def rank_worker(spec: dict) -> None:
@@ -3122,8 +3157,19 @@ def phase_ranks(torch, n: int, parts) -> None:
     from horovod_tpu_torch.runner import launch
     require(torch.cuda.device_count() >= n,
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
-    rc = launch.run_commandline(ranks_argv(n, parts))
-    require(rc == 0, f"--ranks {n}: the launcher returned {rc}")
+    worker_parts = [p for p in parts if p != "serve"]
+    if worker_parts:
+        rc = launch.run_commandline(ranks_argv(n, worker_parts))
+        require(rc == 0, f"--ranks {n}: the launcher returned {rc}")
+    if "serve" in parts:
+        # the serving fleet: the parent starts the launcher in --serve
+        # mode and is the client (no --rank-worker)
+        import numpy as np
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        rank_serve(torch, np, n, card)
 
 
 LAUNCH_STEPS = 3         # phase 13: 1 warm-up and 2 timed steps
@@ -3287,6 +3333,559 @@ def phase_launch(torch, card: str, ref_losses, ref_step_ms: float) -> dict:
     return r["launches"]
 
 
+FLEET_TTL = 900          # the fleets' --serve-ttl: a backstop, the drain ends them
+FLEET_DEADLINE = 600     # seconds a fleet launch may take from start to exit
+FLEET_PREFILL_RANKS = 2  # --parts serve: ranks 0-1 prefill, 2-3 decode
+
+
+def http_json(port: int, method: str, path: str, body=None,
+              timeout: float = 60.0):
+    """``(status, decoded JSON or None)`` of one request to the router."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        data = None if body is None else json.dumps(body).encode()
+        conn.request(method, path, body=data,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read()
+        try:
+            return resp.status, json.loads(raw) if raw else None
+        except ValueError:
+            return resp.status, None
+    finally:
+        conn.close()
+
+
+def start_fleet_clients(port: int, prompts: list, new_tokens: int):
+    """``POST /generate`` of every prompt at once, one thread each, reading
+    each ndjson stream as it arrives: per request the send time, the
+    replica that serves it, each part's arrival time and tokens, and the
+    done record, filled in place.  Returns the records and the threads."""
+    out = [{"parts": [], "done": None, "error": None} for _ in prompts]
+
+    def client(i: int) -> None:
+        rec = out[i]
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=FLEET_DEADLINE)
+            body = json.dumps({"tokens": prompts[i],
+                               "max_new_tokens": new_tokens}).encode()
+            rec["t_send"] = time.perf_counter()
+            conn.request("POST", "/generate", body=body,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            rec["status"] = resp.status
+            rec["rid"] = resp.getheader("X-Serve-Request-Id")
+            rec["replica"] = resp.getheader("X-Serve-Replica")
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                t = time.perf_counter()
+                msg = json.loads(line)
+                if "done" in msg:
+                    rec["done"] = msg
+                elif "tokens" in msg:
+                    rec["parts"].append((t, [int(x) for x in msg["tokens"]]))
+                else:
+                    rec["error"] = msg
+            conn.close()
+        except Exception as e:  # surfaced by the caller's checks
+            rec["error"] = repr(e)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    return out, threads
+
+
+def fleet_clients(port: int, prompts: list, new_tokens: int) -> list:
+    out, threads = start_fleet_clients(port, prompts, new_tokens)
+    for t in threads:
+        t.join()
+    return out
+
+
+def fleet_worker_reports(out_dir: str, n: int) -> list:
+    """Each worker's ``SERVE-DONE`` line (rank, role, ticks, scheduling
+    digest, attention-kernel launches, final engine stats)."""
+    reps = []
+    for rank in range(n):
+        with open(os.path.join(out_dir, f"rank.{rank}", "stdout"),
+                  errors="replace") as f:
+            lines = [ln for ln in f if ln.startswith("SERVE-DONE")]
+        require(len(lines) == 1, f"fleet rank {rank}: no SERVE-DONE line")
+        m = re.match(r"SERVE-DONE rank (\d+) role (\w+) sub_rank (\d+) "
+                     r"ticks (\d+) sched_digest (\w*) launches (\{.*?\}) "
+                     r"stats (\{.*\})$", lines[0].strip())
+        require(m is not None, f"fleet rank {rank}: {lines[0][:200]}")
+        reps.append({"rank": int(m[1]), "role": m[2], "sub_rank": int(m[3]),
+                     "ticks": int(m[4]), "digest": m[5],
+                     "launches": json.loads(m[6]),
+                     "stats": json.loads(m[7])})
+    return reps
+
+
+def launch_fleet(servable: str, n: int, port: int, env_extra: dict,
+                 device_type: str, extra_args=()) -> tuple:
+    """Start ``python -m horovod_tpu_torch.runner.launch -np n --gpu
+    --serve servable --serve-port port`` (``--serve-device cpu`` in place
+    of ``--gpu`` off the card) in a session of its own, with free
+    coordinator and controller ports, each rank's output under a fresh
+    directory.  Returns the launcher's process and that directory."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_out_")
+    ports = [port, free_port(), free_port()]
+    require(not {29500, 29499} & set(ports), f"ports {ports}")
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+           str(n)] + (["--gpu"] if device_type == "cuda" else
+                      ["--serve-device", device_type]) + [
+           "--serve", servable, "--serve-port", str(port),
+           "--serve-ttl", str(FLEET_TTL), "--coordinator-port",
+           str(ports[1]), "--controller-port", str(ports[2]),
+           "--output-filename", out_dir] + list(extra_args)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), **env_extra)
+    return subprocess.Popen(cmd, cwd=here, env=env,
+                            start_new_session=True), out_dir
+
+
+def end_fleet(label: str, proc, out_dir: str, n: int) -> None:
+    """Kill a launch that failed, with its workers, and print the tails
+    of their output."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+    for rank in range(n):
+        for stream in ("stdout", "stderr"):
+            fp = os.path.join(out_dir, f"rank.{rank}", stream)
+            if os.path.exists(fp):
+                with open(fp, errors="replace") as f:
+                    print(f"{label}: rank {rank} {stream} tail:\n"
+                          + f.read()[-3000:], flush=True)
+
+
+def run_fleet(label: str, servable: str, n: int, prompts: list,
+              env_extra: dict, ready_keys=("stats",),
+              device_type: str = "cuda") -> dict:
+    """``python -m horovod_tpu_torch.runner.launch -np n --gpu --serve
+    servable`` on free ports (``--serve-device cpu`` in place of ``--gpu``
+    off the card, for rehearsals); waits for the ready stats keys, posts every
+    prompt at once to ``/generate`` and reads the streams, reads
+    ``/serve/stats``, drains (``POST /admin/drain``) and requires the
+    drained ack and the launcher's exit code 0.  A launch that fails, or
+    does not end within FLEET_DEADLINE, fails the run."""
+    import shutil
+    port = free_port()
+    t0 = time.time()
+    proc, out_dir = launch_fleet(servable, n, port, env_extra, device_type)
+    r = {"out_dir": out_dir}
+    try:
+        while True:
+            require(proc.poll() is None,
+                    f"{label}: the launcher exited {proc.returncode} before "
+                    "the fleet was ready")
+            require(time.time() - t0 < FLEET_DEADLINE,
+                    f"{label}: not ready after {FLEET_DEADLINE} s")
+            ready = True
+            for key in ready_keys:
+                try:
+                    code, body = http_json(port, "GET", f"/serve/{key}",
+                                           timeout=5)
+                except OSError:
+                    code, body = None, None
+                ok = code == 200 and body is not None and (
+                    "engine" in body if key == "stats" else True)
+                ready = ready and ok
+            if ready:
+                break
+            time.sleep(0.1)
+        r["ready_s"] = time.time() - t0
+        t_start = time.perf_counter()
+        r["results"] = fleet_clients(port, prompts, SERVE_NEW_TOKENS)
+        r["wall"] = time.perf_counter() - t_start
+        # the engines' stats publishes are at most a second old: wait for
+        # the ones that count every request
+        deadline = time.time() + 10
+        while True:
+            _, st = http_json(port, "GET", "/serve/stats")
+            extra = {key: http_json(port, "GET", f"/serve/{key}")[1]
+                     for key in ready_keys if key != "stats"}
+            counted = st.get("engine", {}).get("completed") == len(
+                prompts) and all(e.get("handoffs") == len(prompts)
+                                 for e in extra.values())
+            if counted or time.time() > deadline:
+                break
+            time.sleep(0.2)
+        r["stats"], r["extra"] = st, extra
+        r["handoff_bytes"] = []
+        if "stats.prefill" in ready_keys:
+            for i in range(len(prompts)):
+                conn = http.client.HTTPConnection("127.0.0.1", port,
+                                                  timeout=30)
+                conn.request("GET", f"/serve_kv/handoff.{i:06d}")
+                resp = conn.getresponse()
+                raw = resp.read()
+                conn.close()
+                require(resp.status == 200, f"{label}: no handoff {i}")
+                r["handoff_bytes"].append(len(raw))
+        code, ack = http_json(port, "POST", "/admin/drain", {},
+                              timeout=120)
+        r["drain"] = (code, ack)
+        rc = proc.wait(timeout=max(10.0, FLEET_DEADLINE
+                                   - (time.time() - t0)))
+        r["exit_s"] = time.time() - t0
+    except BaseException:
+        end_fleet(label, proc, out_dir, n)
+        raise
+    require(rc == 0, f"{label}: the launcher returned {rc}")
+    require(r["drain"][0] == 200 and r["drain"][1].get("drained") is True,
+            f"{label}: drain answered {r['drain']}")
+    r["workers"] = fleet_worker_reports(out_dir, n)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return r
+
+
+def fleet_streams(label: str, r: dict, n_req: int) -> list:
+    """Each request's streamed tokens, required complete (64 tokens, each
+    exactly once and in order: the parts' concatenation is the done
+    record's token list)."""
+    outs = []
+    for i, rec in enumerate(r["results"]):
+        require(rec is not None and rec.get("status") == 200
+                and rec["error"] is None and rec["done"] is not None,
+                f"{label}: request {i}: {str(rec)[:300]}")
+        streamed = [t for _, toks in rec["parts"] for t in toks]
+        require(streamed == rec["done"]["tokens"]
+                and len(streamed) == SERVE_NEW_TOKENS,
+                f"{label}: request {i} streamed {len(streamed)} tokens, "
+                f"done record {len(rec['done']['tokens'])}, equal "
+                f"{streamed == rec['done']['tokens']}")
+        outs.append(streamed)
+    require(len(outs) == n_req, f"{label}: {len(outs)} streams")
+    return outs
+
+
+def fleet_timing(np, label: str, r: dict, card: str,
+                 ref: "dict | None") -> dict:
+    """TTFT p50/p99, TPOT p50 and decode tokens/s as the client measured
+    them over HTTP, printed beside phase 6's in-process figures."""
+    ttft, tpot = [], []
+    for rec in r["results"]:
+        t_first, t_last = rec["parts"][0][0], rec["parts"][-1][0]
+        ttft.append((t_first - rec["t_send"]) * 1e3)
+        tpot.append((t_last - t_first) * 1e3 / (SERVE_NEW_TOKENS - 1))
+    st = r["stats"]["engine"]
+    fig = {"ttft_p50": float(np.percentile(ttft, 50)),
+           "ttft_p99": float(np.percentile(ttft, 99)),
+           "tpot_p50": float(np.percentile(tpot, 50)),
+           "tok_s": st["tokens_decode"] / r["wall"]}
+    vs = (lambda k, f: f" (phase 6 in-process {ref[k]:{f}})") if ref else \
+        (lambda k, f: "")
+    print(card, flush=True)
+    print(f"{label} over HTTP: {len(r['results'])} requests in "
+          f"{r['wall']:.3f} s; TTFT p50 {fig['ttft_p50']:.1f} ms"
+          f"{vs('ttft_p50', '.1f')}, p99 {fig['ttft_p99']:.1f} ms"
+          f"{vs('ttft_p99', '.1f')}; TPOT p50 {fig['tpot_p50']:.2f} ms"
+          f"{vs('tpot_p50', '.2f')}; decode {fig['tok_s']:.1f} tokens/s"
+          f"{vs('tok_s', '.1f')}; prefix hits "
+          f"{st['prefix_cache'].get('hits')}, spec accepted "
+          f"{st['spec']['accepted_tokens']}; first ready {r['ready_s']:.2f} "
+          f"s after the launch, launcher gone at {r['exit_s']:.2f} s",
+          flush=True)
+    return fig
+
+
+def fleet_launches(label: str, r: dict) -> dict:
+    launches = {name: sum(w["launches"].get(name, 0) for w in r["workers"])
+                for name in REPLACES}
+    print(f"{label} attention-kernel launches {json.dumps(launches)}",
+          flush=True)
+    require(not any(launches.values()),
+            f"{label}: the fleet launched a flash-attention kernel")
+    return launches
+
+
+def greedy_check(torch, model, label: str, prompts: list,
+                 outs: list) -> None:
+    """Each request's tokens against full-forward greedy: one fp32 forward
+    over prompt + output, whose argmax at every emitted position must be
+    the emitted token."""
+    same = 0
+    for p, out in zip(prompts, outs):
+        gap, agree = logit_gaps(torch, model, p, out)
+        same += agree == len(out)
+        if agree != len(out):
+            print(f"{label}: a request agrees with greedy at {agree} of "
+                  f"{len(out)} positions (largest gap {gap:.3g})",
+                  flush=True)
+    print(f"{label}: {same} of {len(outs)} requests byte-identical to "
+          f"full-forward greedy over {SERVE_NEW_TOKENS} tokens", flush=True)
+    require(same == len(outs), f"{label}: tokens differ from greedy")
+
+
+def phase_fleet(torch, np, serve, card: str, ref: dict,
+                device_type: str = "cuda") -> dict:
+    """Phase 14: the serving fleet as a user starts it, ``python -m
+    horovod_tpu_torch.runner.launch -np 1 --gpu --serve DIR --serve-port P
+    --serve-ttl T``, once over an fp32 and once over a bf16 ``1b``
+    servable written with ``serve.save_servable`` from phase 6's weights;
+    the parent is the client.  Returns the fleets' kernel launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.models import llama
+    torch.cuda.empty_cache()
+    print(f"fleet: parent holds {torch.cuda.memory_reserved()} bytes "
+          "reserved after empty_cache", flush=True)
+    dev = torch.device(device_type, 0)
+    cfg = llama.CONFIGS["1b"]
+    prompts = serve_traffic(np.random.RandomState(0), cfg.vocab)
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    launches = {name: 0 for name in REPLACES}
+    try:
+        for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            label = f"fleet [1b {tag} -np 1]"
+            cfg_d = dataclasses.replace(cfg, dtype=dtype)
+            model = llama.init(cfg_d, torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+            d = os.path.join(root, tag)
+            t0 = time.time()
+            serve.save_servable(d, "llama", cfg_d, model)
+            size = sum(os.path.getsize(os.path.join(dp, f))
+                       for dp, _, fs in os.walk(d) for f in fs)
+            print(f"{label}: save_servable wrote {size} bytes in "
+                  f"{time.time() - t0:.2f} s", flush=True)
+            if tag == "bf16":
+                del model
+                model = None
+            torch.cuda.empty_cache()
+            r = run_fleet(label, d, 1, prompts, {},
+                          device_type=device_type)
+            outs = fleet_streams(label, r, len(prompts))
+            st = r["stats"]
+            require("router" in st and "engine" in st
+                    and st["engine"]["prefix_cache"]["hits"] >= 1,
+                    f"{label}: /serve/stats {str(st)[:300]}")
+            print(f"{label}: /serve/stats router {json.dumps(st['router'])}"
+                  f"; engine completed {st['engine']['completed']}, "
+                  f"prefix hits {st['engine']['prefix_cache']['hits']}; "
+                  f"drain ack engine_final completed "
+                  f"{r['drain'][1].get('engine_final', {}).get('completed')}",
+                  flush=True)
+            fleet_timing(np, label, r, card, ref if tag == "bf16" else None)
+            for k, v in fleet_launches(label, r).items():
+                launches[k] += v
+            if tag == "fp32":
+                greedy_check(torch, model, label, prompts, outs)
+                del model
+                torch.cuda.empty_cache()
+            shutil.rmtree(d, ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def rank_serve(torch, np, n: int, card: str,
+               device_type: str = "cuda") -> None:
+    """``--ranks N --parts serve``: the disaggregated fleet across N cards,
+    ``launch -np N --gpu --serve DIR`` with ``HOROVOD_SERVE_PREFILL_RANKS``
+    = 2 (ranks 0-1 prefill, the rest decode; each prompt's KV crosses
+    between cards through ``serve_kv``), over an fp32 ``1b`` servable of
+    phase 6's weights; the parent is the client.  The tokens must equal
+    one card's in-process engine's byte for byte (themselves held to
+    full-forward greedy), with one handoff per request and every
+    follower's scheduling digest its sub-fleet rank 0's."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from horovod_tpu_torch import serve
+    from horovod_tpu_torch.models import llama
+    dev = torch.device(device_type, 0)
+    cfg = dataclasses.replace(llama.CONFIGS["1b"], dtype=torch.float32)
+    prompts = serve_traffic(np.random.RandomState(0), cfg.vocab)
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    # the fleet's configuration: the knobs' defaults, max_seq_len clamped
+    # to the model's as the worker clamps it
+    scfg = serve.ServeConfig()
+    scfg = dataclasses.replace(scfg, max_seq_len=min(scfg.max_seq_len,
+                                                     cfg.max_seq))
+    engine = serve.ServeEngine(model, scfg, device=dev)
+    reqs = [engine.submit(p, SERVE_NEW_TOKENS, req_id=f"r{i}")
+            for i, p in enumerate(prompts)]
+    engine.flush()
+    engine.close()
+    ref = [r.out_tokens for r in reqs]
+    label = f"serve [1b fp32 -np {n}, {FLEET_PREFILL_RANKS} prefill]"
+    greedy_check(torch, model, "serve [1b fp32 one card, in-process]",
+                 prompts, ref)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        d = os.path.join(root, "fp32")
+        serve.save_servable(d, "llama", cfg, model)
+        del model, engine
+        torch.cuda.empty_cache()
+        r = run_fleet(label, d, n, prompts,
+                      {"HOROVOD_SERVE_PREFILL_RANKS":
+                       str(FLEET_PREFILL_RANKS)},
+                      ready_keys=("stats", "stats.prefill"),
+                      device_type=device_type)
+        disaggregated_checks(np, label, r, prompts, ref, card)
+        replica_kill(np, d, n, prompts, ref, card, device_type)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def disaggregated_checks(np, label: str, r: dict, prompts: list, ref: list,
+                         card: str) -> None:
+    """The disaggregated run's contract and numbers (``rank_serve``)."""
+    from horovod_tpu_torch import serve
+    outs = fleet_streams(label, r, len(prompts))
+    same = sum(a == b for a, b in zip(outs, ref))
+    print(f"{label}: {same} of {len(ref)} streams byte-identical to one "
+          "card's tokens", flush=True)
+    require(same == len(ref), f"{label}: tokens differ from one card's")
+    pre, dec = r["extra"]["stats.prefill"], r["stats"]["engine"]
+    print(f"{label}: handoffs {pre['handoffs']} (prefill rank 0), imports "
+          f"{dec['imports']} (decode rank 0), requests {len(prompts)}",
+          flush=True)
+    require(pre["handoffs"] == len(prompts) == dec["imports"],
+            f"{label}: {pre['handoffs']} handoffs, {dec['imports']} imports")
+    by_rank = {w["rank"]: w for w in r["workers"]}
+    for w in r["workers"]:
+        lead = by_rank[w["rank"] - w["sub_rank"]]
+        print(f"{label}: rank {w['rank']} ({w['role']}) {w['ticks']} ticks, "
+              f"sched_digest {w['digest']} (its rank 0: {lead['digest']})",
+              flush=True)
+        require(w["digest"] == lead["digest"] and w["ticks"] == lead["ticks"],
+                f"{label}: rank {w['rank']} left lockstep")
+    hand = [rec["done"]["timing"].get("handoff", 0.0) * 1e3
+            for rec in r["results"]]
+    nbytes = r["handoff_bytes"]
+    blocks = [-(-len(p) // serve.ServeConfig().block_size) for p in prompts]
+    block_bytes = dec["kv_pool"]["block_bytes"]
+    print(card, flush=True)
+    print(f"{label}: handoff (export to decode admission, the done "
+          f"records' timing) p50 {np.percentile(hand, 50):.1f} ms, p99 "
+          f"{np.percentile(hand, 99):.1f} ms; a handoff record carries "
+          f"{int(np.median(nbytes))} bytes at the median ({min(nbytes)}-"
+          f"{max(nbytes)}; prompts of {min(blocks)}-{max(blocks)} blocks of "
+          f"{block_bytes} bytes, hex doubles them)", flush=True)
+    fleet_timing(np, label, r, card, None)
+    fleet_launches(label, r)
+
+
+REPLICA_KILL_AFTER = 8   # tokens streamed from replica 1 before it dies
+
+
+def replica_kill(np, servable: str, n: int, prompts: list, ref: list,
+                 card: str, device_type: str = "cuda") -> None:
+    """Two replica fleets of n/2 ranks behind one router: ``launch --serve
+    --replicas 2 --replica-id 0`` hosts the router on cards 0..n/2-1,
+    ``--replica-id 1`` joins it on the others.  The parent posts the 16
+    requests, kills replica 1's launch (its workers too) once a stream it
+    serves has carried REPLICA_KILL_AFTER tokens, and requires every
+    stream to finish byte-identical to one card's tokens, the router's
+    re-dispatches counted in ``/serve/stats``, and replica 0 to drain to
+    exit 0 with its ranks in lockstep.  The drain's answer may not come:
+    the router lives in replica 0's launcher, which exits with its
+    drained workers while the drain still waits for replica 1's ack."""
+    import shutil
+    label = f"serve [1b fp32, 2 replicas x {n // 2} ranks]"
+    port = free_port()
+    half = n // 2
+    cards = [",".join(str(c) for c in range(k * half, (k + 1) * half))
+             for k in range(2)]
+    t0 = time.time()
+    procs = []
+    try:
+        for k in range(2):
+            env = {"HOROVOD_SERVE_DRAIN_TIMEOUT": "15"}
+            if device_type == "cuda":
+                env["CUDA_VISIBLE_DEVICES"] = cards[k]
+            procs.append(launch_fleet(
+                servable, half, port, env, device_type,
+                ("--replicas", "2", "--replica-id", str(k))))
+            if k == 0:  # replica 0's launch hosts the router: up first
+                while True:
+                    require(procs[0][0].poll() is None and
+                            time.time() - t0 < FLEET_DEADLINE,
+                            f"{label}: replica 0's router did not start")
+                    try:
+                        http_json(port, "GET", "/serve/stats", timeout=5)
+                        break
+                    except OSError:
+                        time.sleep(0.1)
+        while True:
+            require(all(p.poll() is None for p, _ in procs)
+                    and time.time() - t0 < FLEET_DEADLINE,
+                    f"{label}: the replicas were not both up")
+            _, st = http_json(port, "GET", "/serve/stats", timeout=5)
+            if (st or {}).get("replicas", {}).get("live") == [0, 1]:
+                break
+            time.sleep(0.2)
+        ready_s = time.time() - t0
+        out, threads = start_fleet_clients(port, prompts, SERVE_NEW_TOKENS)
+        while not any(rec.get("replica") == "1" and
+                      sum(len(t) for _, t in rec["parts"])
+                      >= REPLICA_KILL_AFTER for rec in out):
+            require(time.time() - t0 < FLEET_DEADLINE and
+                    any(t.is_alive() for t in threads),
+                    f"{label}: replica 1 never streamed "
+                    f"{REPLICA_KILL_AFTER} tokens")
+            time.sleep(0.01)
+        on_1 = [i for i, rec in enumerate(out) if rec.get("replica") == "1"
+                and rec["done"] is None]
+        os.killpg(procs[1][0].pid, 9)
+        procs[1][0].wait()
+        t_kill = time.time()
+        for t in threads:
+            t.join(timeout=FLEET_DEADLINE)
+        wall = time.time() - t_kill
+        _, st = http_json(port, "GET", "/serve/stats")
+        try:
+            code, ack = http_json(port, "POST", "/admin/drain", {},
+                                  timeout=120)
+        except (http.client.RemoteDisconnected, ConnectionError):
+            code, ack = "no answer (the router's launcher exited)", {}
+        rc = procs[0][0].wait(timeout=120)
+    except BaseException:
+        for k, (p, out_dir) in enumerate(procs):
+            end_fleet(f"{label} replica {k}", p, out_dir, half)
+        raise
+    require(rc == 0, f"{label}: replica 0's launcher returned {rc}")
+    workers = fleet_worker_reports(procs[0][1], half)
+    require(len({w["digest"] for w in workers}) == 1,
+            f"{label}: replica 0's ranks left lockstep")
+    outs = fleet_streams(label, {"results": out}, len(prompts))
+    same = sum(a == b for a, b in zip(outs, ref))
+    redispatched = st["replicas"]["redispatches"]
+    served = [sum(rec.get("replica") == str(k) for rec in out)
+              for k in range(2)]
+    print(f"{label}: ready {ready_s:.2f} s after the first launch; "
+          f"requests placed {served[0]} / {served[1]}; replica 1 killed "
+          f"with {len(on_1)} of its streams in flight; the router "
+          f"re-dispatched {redispatched}; every stream done {wall:.2f} s "
+          f"after the kill; {same} of {len(ref)} streams byte-identical to "
+          f"one card's tokens; replica 0 completed "
+          f"{workers[0]['stats']['completed']} requests and exited 0; "
+          f"drain: {code}, replicas drained {ack.get('replicas_drained')}",
+          flush=True)
+    require(same == len(ref), f"{label}: tokens differ from one card's")
+    # (a replica whose stats heartbeat is late is dark to the router even
+    # alive, so re-dispatches may exceed the streams in flight at the kill)
+    require(len(on_1) >= 1 and redispatched >= 1,
+            f"{label}: {redispatched} re-dispatches for {len(on_1)} "
+            "streams in flight on the dead replica")
+    require(ack.get("replicas_drained") in (None, [0]),
+            f"{label}: drain ack {ack}")
+    for _, out_dir in procs:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
 def main() -> int:
     args = sys.argv[1:]
     if len(args) == 2 and args[0] in ("--rank-worker", "--launched"):
@@ -3364,7 +3963,7 @@ def main() -> int:
     phase_model(torch, hvd, llama, L)
     launches, losses, step_ms, tok_s, busy, params = phase_train(
         torch, np, hvd, llama, F)
-    phase_serve(torch, np, hvd, llama, serve, F, card)
+    serve_ref = phase_serve(torch, np, hvd, llama, serve, F, card)
     eager = phase_eager(torch, np, hvd, llama, F, card, losses, step_ms,
                         tok_s, busy, params)
     del params
@@ -3374,6 +3973,7 @@ def main() -> int:
     ring_rows, ring_launches, moe_launches = phase_sequence(
         torch, np, hvd, llama, F, L, card)
     launched = phase_launch(torch, card, losses, step_ms)
+    fleet = phase_fleet(torch, np, serve, card, serve_ref)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -3383,6 +3983,7 @@ def main() -> int:
         row["launches_ring_n1"] = ring_launches[row["name"]]
         row["launches_moe_mini"] = moe_launches[row["name"]]
         row["launches_launch"] = launched[row["name"]]
+        row["launches_fleet"] = fleet[row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -200,6 +200,45 @@ _knob("HOROVOD_SERVE_PREFILL_RANKS", 0, int,
 _knob("HOROVOD_SERVE_SPILL_BLOCKS", 0, int,
       "Host-RAM KV spill capacity in blocks behind the device pool (0 = "
       "off). Needs the prefix cache on; must be >= 0.")
+_knob("HOROVOD_SERVE_JOURNAL", True, _parse_bool,
+      "Request journal + redrive: the router journals every accepted "
+      "request to KV scope 'serve_journal'; after a fleet reset the new "
+      "rank 0 re-admits unfinished requests past their already-streamed "
+      "prefix. 0 disables (a reset drops in-flight requests).")
+_knob("HOROVOD_SERVE_DRAIN_TIMEOUT", 30.0, float,
+      "Graceful-drain budget in seconds (POST /admin/drain): how long the "
+      "router waits for the fleet's drained ack, and how long rank 0 keeps "
+      "serving in-flight work after the signal. Must be positive.")
+_knob("HOROVOD_SERVE_SHED_HIGH", 0, int,
+      "Load-shedding high watermark on pending requests: at or above it "
+      "the router answers 429 + Retry-After until the low watermark. 0 = "
+      "the router's max_pending. Must be >= 0 and >= the low watermark.")
+_knob("HOROVOD_SERVE_SHED_LOW", 0, int,
+      "Load-shedding low watermark (hysteresis): admission resumes when "
+      "pending requests fall to it. 0 = high - max(1, high / 4). Must be "
+      ">= 0.")
+_knob("HOROVOD_SERVE_DIRECT", True, _parse_bool,
+      "Direct token streaming: rank 0 streams token parts to the router "
+      "over one chunked POST /serve/stream connection, mirrored into "
+      "'serve_out'; on connection loss each record falls back to a KV PUT. "
+      "0 = every part rides the KV.")
+_knob("HOROVOD_SERVE_POLL_INTERVAL", 0.02, float,
+      "Base seconds between the router's 'serve_out' probes while it "
+      "streams a response (the fallback cadence behind the wakeup "
+      "condition). Must be positive.")
+_knob("HOROVOD_SERVE_REPLICA_DEAD_S", 3.0, float,
+      "Dark-replica threshold in seconds: a replica whose stats heartbeat "
+      "is older is routed around and its streams re-dispatched to a "
+      "survivor. Must be positive.")
+_knob("HOROVOD_SERVE_AFFINITY", True, _parse_bool,
+      "Prefix-affinity routing over the replicas' advertised radix-tree "
+      "fingerprints; misses fall back to least-loaded. 0 = least-loaded "
+      "only.")
+_knob("HOROVOD_ELASTIC_ROUND", 0, int,
+      "Reset-round number (0 on the first round and under the static "
+      "launcher). The serving fleet uses it as the plan-stream epoch: "
+      "'serve_plan' keys are namespaced by it, so a restarted fleet never "
+      "replays a previous incarnation's plan.")
 
 
 class Knobs:

@@ -11,9 +11,13 @@ default (``moe_dense_reference``) or expert-parallel through an injected
 parameters: a model built with ``ep_size`` ranks holds its rank's experts
 only (:func:`shard_experts`).
 
-The serving half of the JAX module (``apply_cached``, ``init_cache``,
-``copy_blocks``, ``dropfree_moe_fn``) is not ported yet (ROADMAP queue 1
-item 7).
+The serving half: :func:`dropfree_moe_fn` (capacity equal to the token
+count, so a request's logits never depend on its batchmates),
+:func:`init_cache` and :func:`copy_blocks` (Llama's pool layout), and
+:meth:`MoeLlama.apply_cached` over the paged pool, whose attention half is
+``LlamaLayer._attn_cached``.  Serving needs every expert on the rank: an
+expert-sharded model (:func:`shard_experts`) is refused there, not routed
+around.
 """
 
 from __future__ import annotations
@@ -167,6 +171,88 @@ class MoeLlama(nn.Module):
         x = self.final_norm(x)
         return self.lm_head(x), torch.stack(auxes).mean()
 
+    def require_all_experts(self) -> None:
+        """Serving needs every expert on the rank: raise for a model that
+        holds a share of them (:func:`shard_experts`)."""
+        n_local = self.layers[0].moe.wi.shape[0]
+        if n_local != self.cfg.n_experts:
+            raise ValueError(
+                f"the MoE model holds {n_local} of {self.cfg.n_experts} "
+                "experts (shard_experts); serving needs every expert on "
+                "the rank")
+
+    @torch.no_grad()
+    def apply_cached(self, tokens: Tensor, cache: Dict[str, Tensor],
+                     block_tables: Tensor, lengths: Tensor, n_new: Tensor,
+                     moe_fn: Optional[Callable] = None
+                     ) -> Tuple[Tensor, Dict[str, Tensor], Tensor]:
+        """Mixed prefill/decode forward over the paged pool (the JAX
+        package's ``moe_llama.apply_cached``; the slot-table contract of
+        ``Llama.apply_cached``).  Writes the chunk's k/v into ``cache`` in
+        place and returns ``(logits [S, C, vocab], cache, the mean router
+        aux)``.  ``moe_fn`` defaults to :func:`dropfree_moe_fn`, the
+        batch-invariant serving routing."""
+        cfg = self.cfg
+        self.require_all_experts()
+        moe_fn = moe_fn if moe_fn is not None else dropfree_moe_fn(cfg)
+        tokens, block_tables, lengths, n_new = (
+            t.long() for t in (tokens, block_tables, lengths, n_new))
+        S, C = tokens.shape
+        dev = tokens.device
+        cos, sin = L.rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                                device=dev)
+        cols = torch.arange(C, device=dev)
+        positions = lengths[:, None] + cols[None]
+        valid = cols[None] < n_new[:, None]
+        x = L.embedding(self.embed.table, tokens).to(cfg.dtype)
+        auxes = []
+        for i, layer in enumerate(self.layers):
+            x = x + layer._attn_cached(
+                layer.attn_norm(x), cos, sin, cache["k"][i], cache["v"][i],
+                block_tables, positions, valid)
+            y, aux = layer._moe_block(layer.ffn_norm(x), moe_fn)
+            x = x + y
+            auxes.append(aux)
+        logits = self.lm_head(self.final_norm(x))
+        return logits, cache, torch.stack(auxes).mean()
+
+
+def dropfree_moe_fn(cfg: MoeLlamaConfig) -> Callable:
+    """Batch-invariant dense MoE for serving: capacity equals the token
+    count, so no token is ever capacity-dropped and a request's logits
+    cannot depend on which requests share its tick.  Pass the same fn to
+    the full forward when comparing against the cached path."""
+    def fn(p_moe: Dict[str, Tensor], tokens: Tensor):
+        return _ep.moe_dense_reference(
+            p_moe, tokens, cfg.n_experts, capacity=tokens.shape[0],
+            experts_per_token=cfg.experts_per_token)
+    return fn
+
+
+def init_cache(cfg: MoeLlamaConfig, num_blocks: int, block_size: int,
+               dtype: Optional[torch.dtype] = None,
+               device: Union[str, torch.device, None] = None
+               ) -> Dict[str, Tensor]:
+    """The paged KV pool of the attention half: exactly Llama's layout
+    (``llama.init_cache``)."""
+    return Ll.init_cache(_llama_cfg(cfg), num_blocks, block_size,
+                         dtype=dtype, device=device)
+
+
+def copy_blocks(cache: Dict[str, Tensor], src: Tensor, dst: Tensor) -> None:
+    """Copy-on-write block clone for the prefix cache: exactly Llama's."""
+    Ll.copy_blocks(cache, src, dst)
+
+
+def apply_cached(model: MoeLlama, tokens: Tensor, cache: Dict[str, Tensor],
+                 block_tables: Tensor, lengths: Tensor, n_new: Tensor,
+                 moe_fn: Optional[Callable] = None
+                 ) -> Tuple[Tensor, Dict[str, Tensor], Tensor]:
+    """:meth:`MoeLlama.apply_cached` as a function of the model, the JAX
+    package's calling shape."""
+    return model.apply_cached(tokens, cache, block_tables, lengths, n_new,
+                              moe_fn=moe_fn)
+
 
 def init(cfg: MoeLlamaConfig, generator: Optional[torch.Generator] = None,
          device: Union[str, torch.device, None] = None) -> MoeLlama:
@@ -267,4 +353,5 @@ def moe_llama_params_from_jax(tree: Dict[str, Any], cfg: MoeLlamaConfig,
 
 
 __all__ = ["MoeLlamaConfig", "CONFIGS", "MoeLlama", "init", "loss_fn",
-           "param_count", "shard_experts", "moe_llama_params_from_jax"]
+           "param_count", "shard_experts", "moe_llama_params_from_jax",
+           "init_cache", "apply_cached", "copy_blocks", "dropfree_moe_fn"]

@@ -23,12 +23,12 @@ The JAX client also counts unavailable shards into the metrics registry
 from __future__ import annotations
 
 import os
-import random
 import time
 import urllib.error
 import urllib.request
 from typing import List, Optional, Tuple
 
+from ..common.util import backoff_delays
 from .kvshard import parse_shard_addrs, shard_for_scope
 
 # Explicit override (tests, ShardedKVClient): wins over the env map.
@@ -74,22 +74,6 @@ def resolve_kv_addr(addr: str, port: int,
     idx = shard_for_scope(scope, len(shards))
     a, p = shards[idx]
     return a, p, idx
-
-
-def backoff_delays(retries: int, base_ms: float, cap_ms: float = 2000.0,
-                   rng=None) -> List[float]:
-    """Exponential-backoff schedule in SECONDS with jitter: attempt i
-    sleeps U[step/2, step] where step = min(cap, base * 2**i) (the JAX
-    package's ``common/util.backoff_delays``).  ``rng`` (a
-    ``random.Random``) makes the jitter deterministic for tests."""
-    rng = rng or random
-    out: List[float] = []
-    step = float(base_ms)
-    for _ in range(max(0, retries)):
-        step_c = min(step, float(cap_ms))
-        out.append(rng.uniform(step_c / 2.0, step_c) / 1000.0)
-        step *= 2.0
-    return out
 
 
 def _retry_delays(retries: Optional[int]):

@@ -16,6 +16,22 @@ and accept loop; scopes are owned per the deterministic
 server-side reads go to the owning shard's store in-process.  A dark shard
 therefore stalls only the scopes it owns.
 
+The serving fleet's front door is here, as on the JAX server
+(``serve/router.py``, ``serve/stream.py``; docs/serving.md):
+
+  * ``POST /generate`` enqueues a request onto scope ``serve_req``
+    (journaled to ``serve_journal``) and streams the fleet's tokens back
+    as ndjson;
+  * ``POST /serve/stream`` is rank 0's persistent direct token stream,
+    mirrored into the ``serve_out`` store in-process;
+  * ``GET /serve/stats`` and ``GET /serve/trace`` render the router's and
+    the engine's views and the per-request trace rollup;
+  * ``POST /admin/drain`` stops admission and drains the fleet to exit 0.
+
+``serve_out`` and ``serve_kv`` writes wake the stream drains through keyed
+per-request conditions (:func:`add_stream_waiter`, :func:`wake_stream`)
+and the broadcast ``kv_wakeup``.
+
 The JAX server also renders the planes the port does not have yet.  Each
 of those routes answers 404 here, with no body, until its plane lands
 (:data:`PLANE_ROUTES` names the ROADMAP item of each); a key stored under
@@ -42,12 +58,68 @@ PLANE_ROUTES: Dict[Tuple[str, str, str], str] = {
     ("GET", "series", ""): "4.3",
     ("GET", "alerts", ""): "4.3",
     ("GET", "perf", ""): "4.2",
-    ("GET", "serve", "stats"): "3.4",
-    ("GET", "serve", "trace"): "3.4",
-    ("POST", "generate", ""): "3.4",
-    ("POST", "serve", "stream"): "3.4",
-    ("POST", "admin", "drain"): "3.4",
 }
+# serve_out writes wake the router's stream drains (serve/router.py waits
+# on kv_wakeup instead of busy-polling); serve_kv writes wake the decode
+# sub-fleet's handoff probes.  Matching is on the base name, so replica
+# scoped variants (serve_out.r01, ...; serve/replica.py) wake too.
+_WAKEUP_SCOPES = ("serve_out", "serve_kv")
+
+
+def add_stream_waiter(server, scope: str, req_key: str):
+    """Register a per-request wakeup condition for one stream drain
+    (serve/router.py) and return it, or None on a server without the
+    waiter registry, where the caller falls back to the broadcast
+    ``kv_wakeup``.  Keyed waiters wake a stream on its own records only,
+    not every waiting stream on every record."""
+    waiters = getattr(server, "kv_waiters", None)
+    lock = getattr(server, "kv_waiters_lock", None)
+    if waiters is None or lock is None:
+        return None
+    with lock:
+        ent = waiters.get((scope, req_key))
+        if ent is None:
+            ent = waiters[(scope, req_key)] = [threading.Condition(), 0]
+        ent[1] += 1  # refcount: a re-dispatched stream may share a key
+        return ent[0]
+
+
+def drop_stream_waiter(server, scope: str, req_key: str) -> None:
+    waiters = getattr(server, "kv_waiters", None)
+    lock = getattr(server, "kv_waiters_lock", None)
+    if waiters is None or lock is None:
+        return
+    with lock:
+        ent = waiters.get((scope, req_key))
+        if ent is not None:
+            ent[1] -= 1
+            if ent[1] <= 0:
+                del waiters[(scope, req_key)]
+
+
+def wake_stream(server, scope: str, key: str) -> None:
+    """Wake the stream drain waiting on this record: the per-request
+    condition when one is registered (``serve_out`` keys are
+    ``req.NNNNNN.part.*`` / ``req.NNNNNN.done``), then the broadcast
+    condition for unkeyed waiters."""
+    if scope.split(".r", 1)[0] not in _WAKEUP_SCOPES:
+        return
+    waiters = getattr(server, "kv_waiters", None)
+    lock = getattr(server, "kv_waiters_lock", None)
+    if waiters is not None and lock is not None:
+        req = key.split(".part.", 1)[0]
+        if req.endswith(".done"):
+            req = req[:-len(".done")]
+        with lock:
+            ent = waiters.get((scope, req))
+        if ent is not None:
+            cond = ent[0]
+            with cond:
+                cond.notify_all()
+    cond = getattr(server, "kv_wakeup", None)
+    if cond is not None:
+        with cond:
+            cond.notify_all()
 
 
 def store_for(server, scope: str):
@@ -89,14 +161,39 @@ class _KVHandler(BaseHTTPRequestHandler):
                 time.time()  # type: ignore[attr-defined]
         self.send_response(200)
         self.end_headers()
+        wake_stream(self.server, scope, key)
 
     def do_POST(self) -> None:  # noqa: N802
-        # every POST route of the JAX server belongs to a plane still to
-        # come (PLANE_ROUTES), and a POST elsewhere is 404 there too
-        self._not_found()
+        scope, key = self._split()
+        if scope == "generate" and not key:
+            from ..serve import router as serve_router
+            serve_router.handle_generate(self)
+        elif scope == "serve" and key == "stream":
+            from ..serve import stream as serve_stream
+            serve_stream.handle_stream(self)
+        elif scope == "admin" and key == "drain":
+            from ..serve import router as serve_router
+            serve_router.handle_drain(self)
+        else:
+            # the JAX server's other POST routes are 404 there too
+            self._not_found()
+
+    def _serve_json(self, obj) -> None:
+        body = json.dumps(obj).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
     def do_GET(self) -> None:  # noqa: N802
         scope, key = self._split()
+        if scope == "serve" and key in ("stats", "trace"):
+            from ..serve import router as serve_router
+            render = (serve_router.render_stats if key == "stats"
+                      else serve_router.render_trace)
+            self._serve_json(render(self.server))
+            return
         if ("GET", scope, key) in PLANE_ROUTES:
             self._not_found()
             return
@@ -170,6 +267,12 @@ class RendezvousServer:
         self._final_kv_times: List[dict] = []
 
     def start(self) -> int:
+        wakeup = threading.Condition()
+        # keyed stream waiters (add_stream_waiter), shared across the shard
+        # httpds like the broadcast condition, so a stream's records wake
+        # it whichever shard its scope hashes to
+        waiters: Dict[Tuple[str, str], list] = {}
+        waiters_lock = threading.Lock()
         stores: List[ThreadingHTTPServer] = []
         for i in range(self._shards):
             # Only the primary gets the requested port; shard servers
@@ -182,6 +285,9 @@ class RendezvousServer:
             httpd.kv_requests = 0  # type: ignore[attr-defined]
             httpd.kv_stopped = False  # type: ignore[attr-defined]
             httpd.shard_index = i  # type: ignore[attr-defined]
+            httpd.kv_wakeup = wakeup  # type: ignore[attr-defined]
+            httpd.kv_waiters = waiters  # type: ignore[attr-defined]
+            httpd.kv_waiters_lock = waiters_lock  # type: ignore[attr-defined]
             stores.append(httpd)
         for httpd in stores:
             httpd.kv_stores = stores  # type: ignore[attr-defined]

@@ -24,6 +24,18 @@ On the first worker that exits nonzero the launcher ends the others
 (SIGTERM, then SIGKILL after 10 s) and returns that worker's code; Ctrl-C
 returns 130.
 
+``--serve DIR`` runs the serving fleet in place of a training command:
+every slot runs ``python -m horovod_tpu_torch.serve.worker DIR`` over the
+servable directory (``serve.save_servable``), and the rendezvous server is
+the router (``POST /generate``, ``GET /serve/stats``, ``POST
+/admin/drain``) on ``--serve-port`` (else ``HOROVOD_SERVE_PORT``, else an
+ephemeral port the banner prints).  ``--replicas N --replica-id K`` stamp
+``HOROVOD_SERVE_REPLICAS``/``_REPLICA_ID``; a launch with K > 0 joins the
+router that replica 0's launch hosts (:func:`serve_router_join`), as the
+JAX launcher's help describes the replicated tier.  The JAX launcher also turns
+on the metrics and heartbeat planes under ``--serve``; the port has
+neither yet (ROADMAP queue 1 items 4.1 and 4.3) and stamps neither.
+
 The JAX launcher also drives planes the port does not have yet.  Their
 flags are refused with exit code 2 and the ROADMAP item that brings them
 (:data:`REFUSED`), so no flag is ever silently ignored; the few flags that
@@ -54,11 +66,6 @@ PROG = "python -m horovod_tpu_torch.runner.launch"
 
 # dest -> (flag, what it needs, the ROADMAP queue 1 item that brings it)
 REFUSED: Dict[str, tuple] = {
-    "serve": ("--serve", "the serving fleet", "3.4"),
-    "serve_port": ("--serve-port", "the serving fleet", "3.4"),
-    "serve_ttl": ("--serve-ttl", "the serving fleet", "3.4"),
-    "replicas": ("--replicas", "the serving fleet", "3.4"),
-    "replica_id": ("--replica-id", "the serving fleet", "3.4"),
     "metrics_port": ("--metrics-port", "the metrics registry", "4.1"),
     "timeline_filename": ("--timeline-filename", "the timeline", "4.1"),
     "timeline_merge": ("--timeline-merge", "the timeline", "4.1"),
@@ -240,15 +247,38 @@ def make_parser() -> argparse.ArgumentParser:
                    help="YAML config (reference schema: params and "
                         "stall_check sections)")
     p.add_argument("--postmortem", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--serve", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--serve", default=None, metavar="CKPT_DIR",
+                   help="serving mode (docs/serving.md): instead of a "
+                        "training command, every slot runs a "
+                        "continuous-batching inference worker over the "
+                        "servable directory (serve.json + checkpoint); "
+                        "the rendezvous server grows a POST /generate "
+                        "router, GET /serve/stats and POST /admin/drain. "
+                        "Unlike the JAX launcher it does not turn on the "
+                        "metrics and heartbeat planes, which the port "
+                        "does not have yet (ROADMAP queue 1 items 4.1 "
+                        "and 4.3)")
     p.add_argument("--serve-port", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="pin the rendezvous/router port for --serve "
+                        "(HOROVOD_SERVE_PORT; default: the knob, else "
+                        "an ephemeral port printed at startup)")
     p.add_argument("--serve-ttl", type=float, default=None,
-                   help=argparse.SUPPRESS)
+                   help="seconds the serving fleet stays up before a "
+                        "clean exit (0/omitted = until interrupted or "
+                        "drained)")
+    p.add_argument("--serve-device", default=None, metavar="DEVICE",
+                   help="with --serve: the workers' device (passed as "
+                        "their --device); default cuda:<local rank>, and "
+                        "'cpu' is the only way onto the CPU")
     p.add_argument("--replicas", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="with --serve: total serving replica fleets "
+                        "behind the shared router "
+                        "(HOROVOD_SERVE_REPLICAS)")
     p.add_argument("--replica-id", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="with --serve: this launch's replica index "
+                        "(0..replicas-1, HOROVOD_SERVE_REPLICA_ID); "
+                        "replica 0 hosts the router, the rest join it at "
+                        "--serve-port")
     p.add_argument("--alerts", default=None, help=argparse.SUPPRESS)
     p.add_argument("--chaos", default=None, help=argparse.SUPPRESS)
     p.add_argument("--scenario", default=None, help=argparse.SUPPRESS)
@@ -368,6 +398,14 @@ def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
     if args.stall_check_time_seconds is not None:
         env["HOROVOD_STALL_CHECK_TIME_SECONDS"] = \
             str(args.stall_check_time_seconds)
+    if getattr(args, "serve", None):
+        # this launch's fleet is replica K of N behind a shared router
+        # (the JAX launcher also stamps HOROVOD_METRICS and
+        # HOROVOD_HEARTBEAT here: ROADMAP queue 1 items 4.1 and 4.3)
+        if getattr(args, "replicas", None) is not None:
+            env["HOROVOD_SERVE_REPLICAS"] = str(args.replicas)
+        if getattr(args, "replica_id", None) is not None:
+            env["HOROVOD_SERVE_REPLICA_ID"] = str(args.replica_id)
     for dest, flag in NO_EFFECT.items():
         if getattr(args, dest, None) is not None:
             print(f"{PROG}: {flag} has no effect on the PyTorch port "
@@ -641,6 +679,49 @@ def stamp_kv_shard_env(updates: Dict[str, str], coord_host: str,
         f"{coord_host}:{p}" for p in rendezvous.shard_ports)
 
 
+def resolve_serve_port(args: argparse.Namespace) -> int:
+    """--serve's router port: flag > HOROVOD_SERVE_PORT env > 0
+    (ephemeral; the startup banner prints the bound port)."""
+    if not getattr(args, "serve", None):
+        return 0
+    if getattr(args, "serve_port", None) is not None:
+        return args.serve_port
+    try:
+        return int(os.environ.get("HOROVOD_SERVE_PORT", "") or 0)
+    except ValueError:
+        return 0
+
+
+def serve_router_join(args: argparse.Namespace) -> Optional[tuple]:
+    """``(addr, port)`` of the router a replica fleet other than replica 0
+    joins, else None: replica 0's launch hosts the router at
+    ``--serve-port`` (HOROVOD_SERVE_PORT) on this host, or on the host
+    HOROVOD_RENDEZVOUS_ADDR names in the launcher's env, and the other
+    replicas' workers serve through it under their scoped KV names
+    (``serve/replica.py``).  The JAX launcher's help promises this, but
+    every JAX launch starts a router of its own."""
+    if not getattr(args, "serve", None) or not getattr(args, "replica_id",
+                                                       None):
+        return None
+    port = resolve_serve_port(args)
+    if not port:
+        raise ValueError(f"--replica-id {args.replica_id} joins replica "
+                         "0's router: give its port with --serve-port")
+    return os.environ.get("HOROVOD_RENDEZVOUS_ADDR") or "127.0.0.1", port
+
+
+def serve_worker_command(args: argparse.Namespace) -> List[str]:
+    """The worker vector --serve substitutes for a training command: one
+    continuous-batching inference worker per slot (serve/worker.py)."""
+    cmd = [sys.executable, "-m", "horovod_tpu_torch.serve.worker",
+           args.serve]
+    if getattr(args, "serve_ttl", None):
+        cmd += ["--ttl", str(args.serve_ttl)]
+    if getattr(args, "serve_device", None):
+        cmd += ["--device", args.serve_device]
+    return cmd
+
+
 class _Terminated(Exception):
     """SIGTERM to the launcher: end the workers as Ctrl-C does."""
 
@@ -661,10 +742,24 @@ def launch_static(args: argparse.Namespace, command: List[str],
     np_ = args.num_proc or sum(h.slots for h in host_infos)
     slots = hosts_mod.get_host_assignments(host_infos, np_)
     kv_shards = resolve_kv_shards(args)
+    join = serve_router_join(args)
+    if join is not None and kv_shards > 1:
+        raise ValueError("--kv-shards: a replica fleet that joins replica "
+                         "0's router uses that router's KV")
     if rendezvous is None:
-        rendezvous = RendezvousServer(shards=kv_shards)
+        rendezvous = RendezvousServer(
+            port=0 if join else resolve_serve_port(args), shards=kv_shards)
         rendezvous.start()
     rdv_port = rendezvous.port
+    if join is not None:
+        print(f"{PROG}: serving {args.serve} as replica {args.replica_id}"
+              f" behind the router at http://{join[0]}:{join[1]}",
+              file=sys.stderr, flush=True)
+    elif getattr(args, "serve", None):
+        print(f"{PROG}: serving {args.serve}: POST http://"
+              f"{socket.gethostname()}:{rdv_port}/generate  (stats: GET "
+              "/serve/stats, drain: POST /admin/drain)",
+              file=sys.stderr, flush=True)
     for slot in slots:
         rendezvous.put("rank", str(slot.rank),
                        repr(slot.to_env()).encode())
@@ -686,8 +781,9 @@ def launch_static(args: argparse.Namespace, command: List[str],
         # coordinator/controller addresses too.
         updates = dict(knob_env)
         updates.update(slot.to_env())
-        updates["HOROVOD_RENDEZVOUS_ADDR"] = coord_host
-        updates["HOROVOD_RENDEZVOUS_PORT"] = str(rdv_port)
+        updates["HOROVOD_RENDEZVOUS_ADDR"] = join[0] if join else coord_host
+        updates["HOROVOD_RENDEZVOUS_PORT"] = str(join[1] if join
+                                                 else rdv_port)
         updates["HOROVOD_CONTROLLER_PORT"] = str(args.controller_port)
         stamp_kv_shard_env(updates, coord_host, rendezvous, kv_shards)
         if np_ > 1:
@@ -796,6 +892,25 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
     command = args.command
     if command and command[0] == "--":
         command = command[1:]
+    if args.serve:
+        if command:
+            print(f"{PROG}: --serve supplies the worker command; drop the "
+                  f"trailing command ({' '.join(command)})",
+                  file=sys.stderr)
+            return 2
+        if args.replica_id is not None and args.replicas is None:
+            print(f"{PROG}: --replica-id needs --replicas",
+                  file=sys.stderr)
+            return 2
+        if args.replicas is not None and \
+                not 0 <= (args.replica_id or 0) < args.replicas:
+            print(f"{PROG}: --replica-id {args.replica_id} out of range "
+                  f"for --replicas {args.replicas}", file=sys.stderr)
+            return 2
+        command = serve_worker_command(args)
+    elif args.serve_device:
+        print(f"{PROG}: --serve-device needs --serve", file=sys.stderr)
+        return 2
     if not command:
         print(f"{PROG}: no training command given", file=sys.stderr)
         return 2

@@ -88,6 +88,8 @@ class Runtime:
         validate_overlap_knobs(knobs)
         from .parallel.zero import validate_zero_knobs
         validate_zero_knobs(knobs)
+        from .serve.config import validate_serve_knobs
+        validate_serve_knobs(knobs)
         from .parallel.layout import (build_layout, resolve_layout,
                                       validate_layout_knobs)
         for name in ("HOROVOD_AUTOTUNE", "HOROVOD_TIMELINE",

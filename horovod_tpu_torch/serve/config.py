@@ -1,8 +1,9 @@
 """Serving-plane configuration: the port's own copy of
 ``horovod_tpu/serve/config.py``'s ``ServeConfig`` and ``from_knobs``, with
-the same fields, defaults, validation and messages.  Free of torch and of
-the model, like the reference.  The router-only knob checks
-(``validate_serve_knobs``) come with the serving fleet.
+the same fields, defaults, validation and messages, and
+``validate_serve_knobs``, the init-time check of the whole
+``HOROVOD_SERVE_*`` surface (``runtime.py``).  Free of torch and of the
+model, like the reference.
 """
 
 from __future__ import annotations
@@ -146,3 +147,38 @@ def from_knobs(knobs: Any, **overrides: Any) -> ServeConfig:
     cfg = ServeConfig(**kw)
     cfg.validate()
     return cfg
+
+
+def validate_serve_knobs(knobs: Any) -> None:
+    """Init-time validation contract (runtime.py): a bad HOROVOD_SERVE_*
+    value must fail hvd.init(), not a serving tick hours later."""
+    from_knobs(knobs)
+    drain = float(_opt(knobs, "HOROVOD_SERVE_DRAIN_TIMEOUT", 30.0))
+    if drain <= 0:
+        raise ValueError(
+            f"HOROVOD_SERVE_DRAIN_TIMEOUT={drain} invalid; the drain "
+            "budget must be positive seconds (docs/serving.md)")
+    high = int(_opt(knobs, "HOROVOD_SERVE_SHED_HIGH", 0))
+    low = int(_opt(knobs, "HOROVOD_SERVE_SHED_LOW", 0))
+    if high < 0 or low < 0:
+        raise ValueError(
+            f"HOROVOD_SERVE_SHED_HIGH={high} / HOROVOD_SERVE_SHED_LOW="
+            f"{low} invalid; shed watermarks must be >= 0 "
+            "(docs/serving.md)")
+    if high and low and low > high:
+        raise ValueError(
+            f"HOROVOD_SERVE_SHED_LOW={low} exceeds "
+            f"HOROVOD_SERVE_SHED_HIGH={high}; hysteresis needs "
+            "low <= high (docs/serving.md)")
+    poll = float(_opt(knobs, "HOROVOD_SERVE_POLL_INTERVAL", 0.02))
+    if poll <= 0:
+        raise ValueError(
+            f"HOROVOD_SERVE_POLL_INTERVAL={poll} invalid; the router's "
+            "stream-probe interval must be positive seconds "
+            "(docs/control-plane.md)")
+    dead = float(_opt(knobs, "HOROVOD_SERVE_REPLICA_DEAD_S", 3.0))
+    if dead <= 0:
+        raise ValueError(
+            f"HOROVOD_SERVE_REPLICA_DEAD_S={dead} invalid; the router's "
+            "dark-replica threshold must be positive seconds "
+            "(docs/serving.md#replicated-tier)")

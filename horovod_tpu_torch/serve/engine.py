@@ -1,9 +1,10 @@
 """Continuous-batching inference engine: the port of
-``horovod_tpu/serve/engine.py`` (mixed role, one device).
+``horovod_tpu/serve/engine.py`` (one device).
 
-One preallocated paged KV pool (``models/llama.py`` ``init_cache``), a
+One preallocated paged KV pool (``init_cache`` of the model's module), a
 static-shape slot table ``[max_slots, prefill_chunk]``, and one mixed
-prefill/decode step per tick.  Hand the engine the model, it serves:
+prefill/decode step per tick.  Hand the engine the model (``Llama`` or
+``MoeLlama``, whose step routes through ``dropfree_moe_fn``), it serves:
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import serve
@@ -26,16 +27,29 @@ tokens into pinned host memory), then plans and enqueues the next, so the
 host schedules while the card computes.  Nothing between plan and launch
 reads a device tensor.
 
-Not here yet: the prefill/decode roles (disaggregation), the fleet
-(worker, router, streams, journal, replicas), servable loading, and the
-serve metrics and spans.
+Prefill/decode disaggregation (``role="prefill"``/``"decode"``): a
+prefill engine hands each finished prefill off as a JSON-safe record
+(:meth:`ServeEngine.export_handoff`: the prompt blocks' KV through
+:func:`encode_block_payload`, and the first sampled token), a decode engine
+imports it straight into decode state (:meth:`ServeEngine.import_prefill`).
+:func:`save_servable`/:func:`load_servable` write and read the directory
+``python -m horovod_tpu_torch.runner.launch --serve DIR`` serves
+(``serve/worker.py``).
+
+Departures: each rank holds the whole pool, where the JAX engine shards
+its blocks over the mesh's data axis (``cache_shardings``, ROADMAP queue 1
+item 3.3); the ``hvd_serve_*`` metrics, the per-request timeline spans and
+the memory plane's KV-pool provider wait for items 4.1 and 4.2.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import hashlib
 import json
+import os
+import sys
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -44,6 +58,7 @@ import torch
 
 from .. import runtime as _rt
 from ..models import llama as _llama
+from ..models import moe_llama as _moe
 from .config import ServeConfig
 
 
@@ -415,6 +430,14 @@ class Request:
         self.first_token_t: Optional[float] = None
         self.done_t: Optional[float] = None
         self.finish_reason: Optional[str] = None
+        # Causal trace context (serve/trace.py): minted by the router at
+        # admission, attached at submit, rides the handoff record to the
+        # decode side so both fleets' records link on the same rid.
+        self.trace: Optional[Dict[str, Any]] = None
+        self.handoff_s: float = 0.0  # decode-side measured export->import
+        # Prefill-side durations that rode the handoff record (queue_s,
+        # prefill_s): perf_counter stamps are process-local.
+        self.upstream: Optional[Dict[str, float]] = None
 
     @property
     def prompt_len(self) -> int:
@@ -711,30 +734,72 @@ class Scheduler:
         self.completed += 1
 
 
+# --------------------------------------------------- block payload codec
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16"}
+_NAME_DTYPES = {v: k for k, v in _DTYPE_NAMES.items()}
+
+
+def encode_block_payload(payload: Dict[str, torch.Tensor]
+                         ) -> Dict[str, Any]:
+    """One pool block's KV (``_read_block``'s ``{"k", "v"}`` of ``[L, bs,
+    kv_heads, hd]``) as the JAX codec's JSON-safe record: dtype name,
+    shape and the raw bytes as hex.  bf16 is named ``"bfloat16"`` (the
+    JAX record's ml_dtypes name) over its raw 2-byte words, so a JAX
+    handoff and a port handoff of the same KV are equal as JSON."""
+    out: Dict[str, Any] = {}
+    for k, t in payload.items():
+        t = t.detach().to("cpu").contiguous()
+        out[k] = {"dtype": _DTYPE_NAMES[t.dtype], "shape": list(t.shape),
+                  "hex": t.view(torch.uint8).numpy().tobytes().hex()}
+    return out
+
+
+def decode_block_payload(enc: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`encode_block_payload`, for the JAX codec's
+    records too: CPU tensors of the named dtype."""
+    out = {}
+    for k, v in enc.items():
+        raw = bytearray(bytes.fromhex(v["hex"]))
+        t = torch.frombuffer(raw, dtype=torch.uint8) if raw else \
+            torch.empty(0, dtype=torch.uint8)
+        out[k] = t.view(_NAME_DTYPES[v["dtype"]]).reshape(v["shape"])
+    return out
+
+
 # ---------------------------------------------------------------- engine
 def _normalize(device: torch.device) -> torch.device:
     """``cuda`` -> ``cuda:<current>``: the device a tensor made there has."""
     return torch.empty(0, device=device).device
 
 
+def _model_module(model):
+    """The module whose ``init_cache``/``copy_blocks`` serve ``model``: the
+    port's counterpart of the JAX engine's model-module argument."""
+    if isinstance(model, _moe.MoeLlama):
+        model.require_all_experts()
+        return _moe
+    if isinstance(model, _llama.Llama):
+        return _llama
+    raise TypeError(f"ServeEngine serves Llama or MoeLlama, not "
+                    f"{type(model).__name__}")
+
+
 class ServeEngine:
     """The continuous-batching engine: the host scheduler and one mixed
     prefill/decode step over the paged pool.
 
-    ``model`` is the port's ``Llama`` (its weights already on the
-    device).  The pool and the step live on ``device``: the one given,
-    else the runtime's (``hvd.init()``), else the current CUDA device.
-    With no CUDA device and no ``device="cpu"`` construction raises.
+    ``model`` is the port's ``Llama`` or ``MoeLlama`` holding every
+    expert (its weights already on the device).  ``role`` is the
+    disaggregation split (:class:`Scheduler`).  The pool and the step live
+    on ``device``: the one given, else the runtime's (``hvd.init()``),
+    else the current CUDA device.  With no CUDA device and no
+    ``device="cpu"`` construction raises.
     """
 
-    def __init__(self, model: "_llama.Llama", cfg: ServeConfig,
-                 role: str = "mixed",
+    def __init__(self, model, cfg: ServeConfig, role: str = "mixed",
                  device: Union[str, torch.device, None] = None):
-        if role != "mixed":
-            raise NotImplementedError(
-                f"serve role {role!r}: prefill/decode disaggregation comes "
-                "with the serving-fleet slice; the port serves the mixed "
-                "role only")
+        self._mod = _model_module(model)
         cfg.validate(model_max_seq=model.cfg.max_seq)
         self.device = _normalize(_rt.resolve_device(device))
         weights = model.embed.table.device
@@ -744,8 +809,11 @@ class ServeEngine:
         self.model = model
         self.cfg = cfg
         self.scheduler = Scheduler(cfg, role=role)
-        self.cache = _llama.init_cache(model.cfg, cfg.cache_blocks,
-                                       cfg.block_size, device=self.device)
+        self.cache = self._mod.init_cache(model.cfg, cfg.cache_blocks,
+                                          cfg.block_size, device=self.device)
+        self._moe_fn = (_moe.dropfree_moe_fn(model.cfg)
+                        if self._mod is _moe else None)
+        self._handoffs = 0
         self._spill: Optional[HostSpillPool] = None
         if cfg.spill_blocks > 0 and self.scheduler.prefix is not None:
             self._spill = HostSpillPool(cfg.spill_blocks, self._read_block,
@@ -783,10 +851,12 @@ class ServeEngine:
     # ------------------------------------------------------------ intake
     def submit(self, tokens, max_new_tokens: int,
                req_id: Optional[str] = None,
-               eos_id: Optional[int] = None) -> Request:
+               eos_id: Optional[int] = None,
+               trace: Optional[Dict[str, Any]] = None) -> Request:
         req = Request(tokens, max_new_tokens, req_id=req_id,
                       eos_id=eos_id if eos_id is not None
                       else self.cfg.eos_id)
+        req.trace = trace
         return self.scheduler.submit(req)
 
     def has_work(self) -> bool:
@@ -801,19 +871,84 @@ class ServeEngine:
 
     def _write_block(self, block: int,
                      payload: Dict[str, torch.Tensor]) -> None:
-        """Write one block's host payload back into the pool (spill
-        reload); stream-ordered before the next step reads it."""
+        """Write one block's host payload into the pool (spill reload,
+        handoff import); stream-ordered before the next step reads it."""
         for name, pool in self.cache.items():
             pool[:, block].copy_(payload[name])
+
+    # ------------------------------------------------------ disaggregation
+    def export_handoff(self, req: Request, first_token: int
+                       ) -> Dict[str, Any]:
+        """Serialize one finished prefill for a decode engine: the
+        request's identity and budget, the first sampled token, and the
+        prompt blocks' KV as encoded payloads (the JAX record).  A pure
+        read: the caller decides when to finish the request."""
+        n_blocks = -(-req.prompt_len // self.cfg.block_size)
+        return {
+            "req_id": req.req_id,
+            "tokens": list(req.tokens),
+            "max_new_tokens": req.max_new_tokens,
+            "eos_id": req.eos_id,
+            "first_token": int(first_token),
+            "trace": req.trace,
+            "queue_s": (req.admitted_t - req.submitted_t
+                        if req.admitted_t is not None else None),
+            "prefill_s": (time.perf_counter() - req.admitted_t
+                          if req.admitted_t is not None else None),
+            # wall clock, not perf_counter: the stamps cross processes
+            "exported_t": time.time(),
+            "blocks": [encode_block_payload(self._read_block(b))
+                       for b in req.blocks[:n_blocks]],
+        }
+
+    def import_prefill(self, handoff: Dict[str, Any]) -> Request:
+        """Decode-side intake of a prefill engine's handoff record: queue
+        it for installation (``Scheduler._drain_imports``); the request
+        enters the slot table in decode state with its prompt KV written
+        from the payload, skipping prefill.  (The JAX engine also counts
+        it and records a HANDOFF span: ROADMAP queue 1 item 4.1.)"""
+        req = Request(handoff["tokens"], int(handoff["max_new_tokens"]),
+                      req_id=handoff.get("req_id"),
+                      eos_id=(handoff.get("eos_id")
+                              if handoff.get("eos_id") is not None
+                              else self.cfg.eos_id))
+        req.trace = handoff.get("trace")
+        req.upstream = {k: float(handoff[k])
+                        for k in ("queue_s", "prefill_s")
+                        if handoff.get(k) is not None} or None
+        exported_t = handoff.get("exported_t")
+        if exported_t is not None:
+            req.handoff_s = max(0.0, time.time() - float(exported_t))
+        payloads = [decode_block_payload(p) for p in handoff["blocks"]]
+        self.scheduler.queue_import(req, payloads,
+                                    int(handoff["first_token"]))
+        return req
+
+    def prefix_fps(self) -> Tuple[List[str], str]:
+        """This engine's radix-tree advertisement for the replica router:
+        (fingerprints, digest), which rank 0 piggybacks on the stats
+        publish (serve/replica.py)."""
+        from .replica import fold_digest, prefix_fingerprints
+        if self.scheduler.prefix is None:
+            return [], fold_digest([])
+        fps = prefix_fingerprints(self.scheduler.prefix)
+        return fps, fold_digest(fps)
 
     # -------------------------------------------------------------- tick
     def step(self) -> Dict[str, Any]:
         """Run one engine tick.  Returns the COMPLETED tick's report (one
         tick of pipeline lag): {"tick", "processed", "emitted": {req_id:
-        [new tokens]}, "finished": [Request]}, an idle report when nothing
-        completed."""
+        [new tokens]}, "finished": [Request], "handoff": [records]}, an
+        idle report when nothing completed."""
         report = self._harvest()
         self._dispatch()
+        # Handoff installs surface their first token (sampled by the
+        # prefill engine) in this report: the emission order a mixed
+        # engine would have produced at prefill completion.
+        for req, toks in self.scheduler.take_import_emits():
+            report["emitted"].setdefault(req.req_id, []).extend(toks)
+            if req.state == "done":
+                report["finished"].append(req)
         return report
 
     def flush(self) -> List[Dict[str, Any]]:
@@ -825,6 +960,10 @@ class ServeEngine:
 
     def _dispatch(self) -> None:
         work = self.scheduler.plan()
+        # handoff imports staged by the plan land in the pool before this
+        # tick's step reads it (stream-ordered copies)
+        for b, payload in self.scheduler.take_pending_writes():
+            self._write_block(b, payload)
         if not work:
             return
         cfg = self.cfg
@@ -875,9 +1014,14 @@ class ServeEngine:
         which prefill reads at its last valid position and speculative
         decode verifies its drafts against.  argmax takes the first
         maximum, as the JAX engine's does."""
-        _llama.copy_blocks(self.cache, copy_src, copy_dst)
-        logits = self.model.apply_cached(tokens, self.cache, block_tables,
-                                         lengths, n_new)
+        self._mod.copy_blocks(self.cache, copy_src, copy_dst)
+        if self._moe_fn is not None:
+            logits = self.model.apply_cached(tokens, self.cache, block_tables,
+                                             lengths, n_new,
+                                             moe_fn=self._moe_fn)[0]
+        else:
+            logits = self.model.apply_cached(tokens, self.cache,
+                                             block_tables, lengths, n_new)
         return logits.float().argmax(-1).to(torch.int32)
 
     def _fold_sched(self, work, copies) -> None:
@@ -895,7 +1039,7 @@ class ServeEngine:
     def _harvest(self) -> Dict[str, Any]:
         if not self._inflight:
             return {"tick": None, "processed": 0, "emitted": {},
-                    "finished": []}
+                    "finished": [], "handoff": []}
         tick, work, done, used = self._inflight.popleft()
         if done is not None:
             done.synchronize()  # the tick's tokens are in host memory
@@ -903,6 +1047,7 @@ class ServeEngine:
         now = time.perf_counter()
         emitted: Dict[str, List[int]] = {}
         finished: List[Request] = []
+        handoffs: List[Dict[str, Any]] = []
         for slot, req, n in work:
             decode_row = req.state != "prefill"
             if not decode_row:
@@ -912,6 +1057,18 @@ class ServeEngine:
                 self._prefill_chunks += 1
                 if req.pos < req.prompt_len:
                     continue  # still prefilling next tick
+                if self.scheduler.role == "prefill":
+                    # Disaggregation: this engine's job ends at prefill
+                    # completion.  Export the prompt KV and the first
+                    # token, keep the prefix warm in this tree, free the
+                    # slot; the decode side emits the first token.
+                    first = int(tokens_host[slot, n - 1])
+                    self.scheduler.register_prefix(req)
+                    handoffs.append(self.export_handoff(req, first))
+                    self.scheduler.finish(req, "prefill_done")
+                    finished.append(req)
+                    self._handoffs += 1
+                    continue
                 req.state = "decode"
                 self.scheduler.register_prefix(req)
                 new_toks = [int(tokens_host[slot, n - 1])]
@@ -948,7 +1105,7 @@ class ServeEngine:
             if decode_row:
                 self._tokens_decode += emitted_n
         return {"tick": tick, "processed": used, "emitted": emitted,
-                "finished": finished}
+                "finished": finished, "handoff": handoffs}
 
     # -------------------------------------------------------------- view
     def kv_pool(self) -> Dict[str, Any]:
@@ -1002,7 +1159,7 @@ class ServeEngine:
             "waiting": s.queue_depth,
             "completed": s.completed,
             "imports": s.imports,
-            "handoffs": 0,
+            "handoffs": self._handoffs,
             "free_blocks": s.allocator.free_count,
             "kv_pool": self.kv_pool(),
             "batch_fill": round(self._last_fill, 4),
@@ -1033,3 +1190,83 @@ class ServeEngine:
         if self._spill is not None:
             out["spill"] = self._spill.counters()
         return out
+
+
+# ----------------------------------------------------- servable loading
+SERVE_MANIFEST = "serve.json"
+
+_MODEL_MODULES = {"llama": _llama, "moe_llama": _moe}
+
+
+def save_servable(directory: str, model_name: str, config, model,
+                  step: int = 0) -> None:
+    """Write a servable directory: ``serve.json`` (the model family and
+    its config, with the JAX manifest's keys) beside a checkpoint of the
+    model's state dict (``checkpoint.py``): what ``launch --serve DIR``
+    serves.  As in the JAX function the config's ``dtype`` is not written;
+    the checkpoint keeps the tensors' own dtype."""
+    from .. import checkpoint as ckpt
+    if model_name not in _MODEL_MODULES:
+        raise ValueError(f"model {model_name!r} unknown; expected one of "
+                         f"{sorted(_MODEL_MODULES)}")
+    cfg_dict = {f.name: getattr(config, f.name)
+                for f in dataclasses.fields(config) if f.name != "dtype"}
+    if ckpt._is_writer():
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, SERVE_MANIFEST), "w") as f:
+            json.dump({"model": model_name, "config": cfg_dict}, f)
+    state = model.state_dict() if isinstance(model, torch.nn.Module) \
+        else model
+    ckpt.save_checkpoint(directory, step, params=state)
+
+
+def load_servable(directory: str,
+                  device: Union[str, torch.device, None] = None):
+    """Read a servable directory -> (model module, model config, model on
+    ``device``).  ``serve.json``: {"model": "llama"|"moe_llama",
+    "config": <name in CONFIGS or kwarg dict>, "seed": int?}.  The
+    weights come from the latest checkpoint under the directory; with no
+    checkpoint, a seeded random init serves (smoke mode, labelled on
+    stderr as the JAX function labels it).  The model's dtype is a
+    ``dtype`` name in the manifest's config dict, else the checkpoint's
+    tensors', else the config's own."""
+    from .. import checkpoint as ckpt
+    with open(os.path.join(directory, SERVE_MANIFEST)) as f:
+        manifest = json.load(f)
+    name = manifest.get("model", "llama")
+    if name not in _MODEL_MODULES:
+        raise ValueError(f"serve.json model {name!r} unknown; expected "
+                         f"one of {sorted(_MODEL_MODULES)}")
+    module = _MODEL_MODULES[name]
+    spec = manifest.get("config", "tiny")
+    dtype = None
+    if isinstance(spec, str):
+        model_cfg = module.CONFIGS[spec]
+    else:
+        spec = dict(spec)
+        named = spec.pop("dtype", None)
+        model_cfg = type(module.CONFIGS["tiny"])(**spec)
+        if named is not None:
+            dtype = _NAME_DTYPES[str(named)]
+    dev = _rt.resolve_device(device)
+    mgr = ckpt.CheckpointManager(directory, max_to_keep=10_000)
+    latest = mgr.latest_step()
+    state = mgr.load_item(latest) if latest is not None else None
+    if dtype is None and state:
+        dtype = next(t.dtype for t in state.values()
+                     if t.is_floating_point())
+    if dtype is not None:
+        model_cfg = dataclasses.replace(model_cfg, dtype=dtype)
+    if state is not None:
+        model = (module.MoeLlama if module is _moe else module.Llama)(
+            model_cfg, dev)
+        model.load_state_dict(state)
+        return module, model_cfg, model
+    seed = int(manifest.get("seed", 0))
+    print(f"[hvd.serve] no checkpoint under {directory}; serving "
+          f"seed={seed} random-init params (smoke mode)",
+          file=sys.stderr, flush=True)
+    model = module.init(model_cfg,
+                        torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    return module, model_cfg, model

@@ -119,12 +119,13 @@ def test_args_to_env_matches_jax(flags):
 
 def test_parser_takes_every_jax_flag():
     """Every option string of the JAX parser parses here (refused or not),
-    and the port adds only ``--gpu``."""
+    and the port adds only ``--gpu`` and ``--serve-device`` (the serving
+    workers' explicit device: the only way onto the CPU)."""
     def options(parser):
         return {o for a in parser._actions for o in a.option_strings}
     jax_opts, port_opts = options(JL.make_parser()), options(TL.make_parser())
     assert jax_opts <= port_opts
-    assert port_opts - jax_opts == {"--gpu"}
+    assert port_opts - jax_opts == {"--gpu", "--serve-device"}
 
 
 def _cfg(tmp_path, text):

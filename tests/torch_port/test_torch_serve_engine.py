@@ -544,10 +544,14 @@ def test_kv_pool_counts_the_blocks_users_hold(tiny):
 
 def test_engine_device_and_role(tiny):
     """No fallback: without a CUDA device and without device='cpu' the
-    engine raises; the disaggregated roles are not ported yet."""
+    engine raises.  An unknown role raises; the two disaggregated roles
+    construct."""
     _, _, model = tiny
-    with pytest.raises(NotImplementedError, match="fleet"):
-        ServeEngine(model, _cfg(), role="prefill", device="cpu")
+    with pytest.raises(ValueError, match="role"):
+        ServeEngine(model, _cfg(), role="both", device="cpu")
+    for role in ("prefill", "decode"):
+        engine = ServeEngine(model, _cfg(), role=role, device="cpu")
+        assert engine.stats()["role"] == role
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
