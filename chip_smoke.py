@@ -110,17 +110,47 @@ Phases, in order; any failure exits non-zero before the result line:
    greedy and all 16 bf16 requests must finish their 64 tokens;
    ``/serve/stats`` must show the router's and the engine's views with a
    prefix hit; ``POST /admin/drain`` must answer the drained ack and the
-   launcher exit 0; no attention kernel may launch.  Printed: TTFT
+   launcher exit 0; no attention kernel may launch.  After its streams
+   end each fleet's ``GET /metrics`` must be lint-clean, count 16 TTFT
+   samples and 16 requests, a prefix hit, and decode tokens equal to the
+   tokens the client read less one a request (a request's first token
+   comes off its last prefill chunk and, as in the JAX engine, counts
+   under neither phase); the fp32 fleet traces (``--timeline-filename``)
+   and its ``GET /timeline`` must hold the ROUTE, PREFILL and DECODE
+   spans of every request.  Printed: TTFT
    p50/p99, TPOT p50 and decode tokens/s as the client measured them
    over HTTP beside phase 6's in-process figures, and the fleet's first
    ready seconds on the launch's clock;
-9. printed last, after phase 14: a ``{"kernels": [...]}`` JSON line (the
+15. measure: the measurement plane as a user starts it, ``python -m
+   horovod_tpu_torch.runner.launch -np 1 --gpu --timeline-filename F
+   --timeline-mark-cycles --autotune --autotune-log-file L
+   --autotune-warmup-samples 1 --autotune-steps-per-sample 2
+   --metrics-port P python3 chip_smoke.py --measured DIR`` with
+   ``HOROVOD_CONTROLLER=tcp`` (free ports): (a) phase 7's hook-driven
+   ``1b`` step for phase 5's 8 steps on its weights and batches, each
+   loss within 1e-4 of phase 5's; the trace file loads, every gradient
+   bucket's name has NEGOTIATE, QUEUE and an EXEC span of positive width
+   (measured on the card by the start and done events of its collective)
+   in that order at every step; cycle marks and the native core's spans
+   are on it, and the native tuner moved off its start; (b) phase 5's
+   direct ``DistributedOptimizer`` step under
+   ``hvd.autotuner().measure(nbytes=...)``: the tuned threshold takes at
+   least two values, each in the autotune log, the fused sync re-plans
+   for each, and every loss is within 1e-4 of phase 5's (bitwise
+   equality printed: at one rank the sync is a copy).  While the worker
+   waits the parent reads ``GET /metrics``: lint-clean, a ``rank="0"``
+   and a ``rank="driver"`` series, controller cycles above 0.  Printed:
+   each path's step ms with the plane beside phase 7's and phase 5's
+   without it, the ratio (the plane's cost), and the kernels' launches
+   (16 a step each, both paths);
+9. printed last, after phase 15: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128`` and MoE
    ``mini``-shape ``d32`` numbers, D=128 resources, its ring-shape
    ``ring`` numbers and the launches of each phase, ``launches_fleet``
-   the fleets'), then the ``{"ok": true, "device": {...}}`` JSON line.
+   the fleets', ``launches_measure`` phase 15's), then the ``{"ok":
+   true, "device": {...}}`` JSON line.
 
-    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve]
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, started by the port's launcher as
@@ -202,7 +232,17 @@ behind one router (``--replicas 2 --replica-id 0|1``, replica 1 joining
 replica 0's router), replica 1 killed once a stream it serves has carried
 8 tokens: every stream must still equal the one-card tokens byte for
 byte, the router's re-dispatches counted in ``/serve/stats``, replica 0
-drained to exit 0.  ``--parts`` runs a subset (default: all).
+drained to exit 0.  The ``measure`` part is not a rank worker either:
+the parent starts ``launch -np N --gpu --timeline-merge M --autotune
+--autotune-warmup-samples 1 --autotune-steps-per-sample 2
+--metrics-port P`` over the hook-driven ``1b`` step under
+``hvd.autotuner().measure`` (8 steps of 4 x 2048 per card): the merged
+trace must have N rank lanes with their clock offsets, the tuned
+threshold must be equal on every rank at every step (and move), the
+parameters bitwise equal across ranks (checksum allgather), ``GET
+/metrics`` lint-clean with N rank labels and the driver's, and the
+launcher must print its straggler report.  ``--parts`` runs a subset
+(default: all).
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -1086,7 +1126,7 @@ def phase_eager(torch, np, hvd, llama, F, card: str, ref_losses,
     del step, opt, model, batches
     torch.cuda.empty_cache()
     ht.shutdown()
-    return launches
+    return launches, step_ms
 
 
 def codec_checks(torch, llama, dev) -> None:
@@ -2965,7 +3005,7 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 
 # --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
 # path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
-RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve")
+RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve", "measure")
 
 
 def rank_worker(spec: dict) -> None:
@@ -3157,7 +3197,7 @@ def phase_ranks(torch, n: int, parts) -> None:
     from horovod_tpu_torch.runner import launch
     require(torch.cuda.device_count() >= n,
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
-    worker_parts = [p for p in parts if p != "serve"]
+    worker_parts = [p for p in parts if p not in ("serve", "measure")]
     if worker_parts:
         rc = launch.run_commandline(ranks_argv(n, worker_parts))
         require(rc == 0, f"--ranks {n}: the launcher returned {rc}")
@@ -3170,6 +3210,14 @@ def phase_ranks(torch, n: int, parts) -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
         rank_serve(torch, np, n, card)
+    if "measure" in parts:
+        # the measurement plane: the parent starts the launcher with the
+        # plane's flags and reads what the ranks report
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        rank_measure(torch, n, card)
 
 
 LAUNCH_STEPS = 3         # phase 13: 1 warm-up and 2 timed steps
@@ -3468,20 +3516,67 @@ def end_fleet(label: str, proc, out_dir: str, n: int) -> None:
                           + f.read()[-3000:], flush=True)
 
 
+def metric_value(text: str, name: str, **labels: str) -> float:
+    """The sum of the samples of ``name`` in a Prometheus exposition whose
+    labels include ``labels``."""
+    total = 0.0
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    for line in text.splitlines():
+        head, _, value = line.rpartition(" ")
+        if head.split("{", 1)[0] == name and all(w in head for w in want):
+            total += float(value)
+    return total
+
+
+def http_text(port: int, path: str, timeout: float = 30.0) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        require(resp.status == 200, f"GET {path}: {resp.status}")
+        return body
+    finally:
+        conn.close()
+
+
+def fleet_spans(merged: dict) -> dict:
+    """rid -> the span names the merged timeline holds for it."""
+    spans: dict = {}
+    for e in merged["traceEvents"]:
+        rid = (e.get("args") or {}).get("rid")
+        if e.get("ph") == "X" and rid:
+            spans.setdefault(rid, set()).add(e["name"])
+    return spans
+
+
 def run_fleet(label: str, servable: str, n: int, prompts: list,
               env_extra: dict, ready_keys=("stats",),
-              device_type: str = "cuda") -> dict:
+              device_type: str = "cuda", scrape: bool = False,
+              timeline: bool = False) -> dict:
     """``python -m horovod_tpu_torch.runner.launch -np n --gpu --serve
     servable`` on free ports (``--serve-device cpu`` in place of ``--gpu``
     off the card, for rehearsals); waits for the ready stats keys, posts every
     prompt at once to ``/generate`` and reads the streams, reads
     ``/serve/stats``, drains (``POST /admin/drain``) and requires the
     drained ack and the launcher's exit code 0.  A launch that fails, or
-    does not end within FLEET_DEADLINE, fails the run."""
+    does not end within FLEET_DEADLINE, fails the run.  With ``scrape``
+    it also reads ``GET /metrics`` once rank 0's snapshot counts every
+    request finished (the workers publish every second); with ``timeline`` the
+    workers trace (``--timeline-filename``) and ``GET /timeline`` is read
+    once it holds the ROUTE, PREFILL and DECODE spans of every request."""
     import shutil
+    import tempfile
     port = free_port()
     t0 = time.time()
-    proc, out_dir = launch_fleet(servable, n, port, env_extra, device_type)
+    env_extra = dict(env_extra, HOROVOD_METRICS_INTERVAL="1",
+                     HOROVOD_TIMELINE_MERGE_INTERVAL="1")
+    extra_args = []
+    if timeline:
+        extra_args = ["--timeline-filename", os.path.join(
+            tempfile.mkdtemp(prefix="chip_smoke_fleet_tl_"), "trace.json")]
+    proc, out_dir = launch_fleet(servable, n, port, env_extra, device_type,
+                                 extra_args)
     r = {"out_dir": out_dir}
     try:
         while True:
@@ -3521,6 +3616,24 @@ def run_fleet(label: str, servable: str, n: int, prompts: list,
                 break
             time.sleep(0.2)
         r["stats"], r["extra"] = st, extra
+        deadline = time.time() + 30
+        while scrape:
+            text = http_text(port, "/metrics")
+            counted = metric_value(text, "hvd_serve_requests_total",
+                                   rank="0") == len(prompts)
+            if counted or time.time() > deadline:
+                r["metrics"] = text
+                break
+            time.sleep(0.5)
+        while timeline:
+            merged = json.loads(http_text(port, "/timeline"))
+            spans = fleet_spans(merged)
+            whole = all({"ROUTE", "PREFILL", "DECODE"} <= spans.get(
+                rec.get("rid"), set()) for rec in r["results"])
+            if whole or time.time() > deadline:
+                r["timeline"] = merged
+                break
+            time.sleep(0.5)
         r["handoff_bytes"] = []
         if "stats.prefill" in ready_keys:
             for i in range(len(prompts)):
@@ -3664,8 +3777,10 @@ def phase_fleet(torch, np, serve, card: str, ref: dict,
                 model = None
             torch.cuda.empty_cache()
             r = run_fleet(label, d, 1, prompts, {},
-                          device_type=device_type)
+                          device_type=device_type, scrape=True,
+                          timeline=tag == "fp32")
             outs = fleet_streams(label, r, len(prompts))
+            fleet_measure_checks(label, r, outs, prompts)
             st = r["stats"]
             require("router" in st and "engine" in st
                     and st["engine"]["prefix_cache"]["hits"] >= 1,
@@ -3687,6 +3802,53 @@ def phase_fleet(torch, np, serve, card: str, ref: dict,
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return launches
+
+
+def fleet_measure_checks(label: str, r: dict, outs: list,
+                         prompts: list) -> None:
+    """Phase 14's scrape of the fleet's ``/metrics`` after its streams
+    ended, and of ``/timeline`` where the fleet traced: a lint-clean
+    exposition, one TTFT sample a request, the decode tokens the client
+    read, a prefix hit; the ROUTE, PREFILL and DECODE spans of every
+    request.  As in the JAX engine, a request's first token comes off its
+    last prefill chunk and counts under neither phase, so the decode
+    counter holds the tokens streamed less one a request."""
+    from horovod_tpu_torch.utils import metrics as M
+    text = r["metrics"]
+    lint = M.lint_exposition(text)
+    ttft = metric_value(text, "hvd_serve_ttft_seconds_count", rank="0")
+    decode = metric_value(text, "hvd_serve_tokens_total", phase="decode",
+                          rank="0")
+    hits = metric_value(text, "hvd_serve_prefix_hits_total", rank="0")
+    done = metric_value(text, "hvd_serve_requests_total", rank="0")
+    streamed = sum(len(o) for o in outs)
+    direct = metric_value(text, "hvd_serve_stream_direct_tokens_total",
+                          rank="driver")
+    print(f"{label}: GET /metrics {len(text)} bytes, lint "
+          f"{'clean' if not lint else lint[:3]}; rank 0: TTFT samples "
+          f"{ttft:.0f}, requests {done:.0f}, decode tokens {decode:.0f} "
+          f"(streamed {streamed}, less one first token a request: "
+          f"{streamed - len(prompts)}), prefix hits {hits:.0f}; driver: "
+          f"direct-stream tokens {direct:.0f}", flush=True)
+    require(not lint, f"{label}: /metrics lint: {lint[:5]}")
+    require(ttft == len(prompts) == done,
+            f"{label}: {ttft} TTFT samples, {done} requests counted")
+    require(decode == streamed - len(prompts),
+            f"{label}: decode tokens {decode}, streamed {streamed}")
+    require(hits >= 1, f"{label}: no prefix hit counted")
+    if "timeline" in r:
+        spans = fleet_spans(r["timeline"])
+        missing = [rec.get("rid") for rec in r["results"]
+                   if not {"ROUTE", "PREFILL", "DECODE"} <= spans.get(
+                       rec.get("rid"), set())]
+        lanes = sorted({e["args"]["name"] for e in r["timeline"][
+            "traceEvents"] if e.get("name") == "process_name"})
+        print(f"{label}: GET /timeline {len(r['timeline']['traceEvents'])} "
+              f"events, lanes {lanes}; ROUTE, PREFILL and DECODE spans for "
+              f"{len(prompts) - len(missing)} of {len(prompts)} requests",
+              flush=True)
+        require(not missing, f"{label}: requests without their spans "
+                f"{missing}")
 
 
 def rank_serve(torch, np, n: int, card: str,
@@ -3886,13 +4048,440 @@ def replica_kill(np, servable: str, n: int, prompts: list, ref: list,
     for _, out_dir in procs:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+MEASURE_STEPS = WARMUP_STEPS + TIMED_STEPS + 1  # phase 15: phase 5's batches
+MEASURE_DEADLINE = 900   # seconds a measured launch may take to exit
+MEASURE_PHASES = ("NEGOTIATE", "QUEUE", "EXEC")
+
+
+def measured_worker(out_dir: str) -> int:
+    """``--measured DIR``: the worker of phase 15 and of ``--ranks N
+    --parts measure``, started by the port's launcher with the measurement
+    plane on (``--timeline-*``, ``--autotune*``, ``--metrics-port``).
+    ``DIR/spec.json`` gives the model, device, batch, sequence and steps,
+    and ``mode``:
+
+    * ``one``: (a) phase 7's hook-driven step (``horovod_tpu_torch.torch``
+      ``DistributedOptimizer``, negotiated through the native controller)
+      on phase 5's weights and batches, each step timed; (b) phase 5's
+      direct ``DistributedOptimizer`` step under
+      ``hvd.autotuner().measure(nbytes=...)``, the tuned threshold read
+      before each step;
+    * ``ranks``: the hook-driven step under ``measure`` on every rank,
+      the tuned threshold and cycle read after each step, then each
+      rank's parameter checksums.
+
+    Each rank writes ``DIR/measured.<rank>.json`` after a final metrics
+    publish and waits (at most 300 s) for ``DIR/scraped``, so the parent
+    reads ``GET /metrics`` while every rank's last snapshot is in."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as ht
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    cuda = spec["device"] == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    rt = ht.init(device=None if cuda else spec["device"])
+    dev, rank, n = rt.device, ht.rank(), ht.size()
+    require(rt.timeline is not None and rt.autotuner is not None
+            and rt.core is not None and rt.metrics_publisher is not None,
+            "the measurement plane is not on")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = llama.CONFIGS[spec["cfg"]]
+    rng = np.random.RandomState(0)  # phase 5's batches
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, (spec["batch"] * n, spec["seq"] + 1),
+        dtype=np.int32)).to(dev) for _ in range(spec["steps"])]
+
+    def loss(m, ids):
+        return llama.loss_fn(m, ids, attn_fn=hvd.flash_attention,
+                             ce_chunks=8)
+
+    def build(api):
+        model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        opt = api.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4,
+                              weight_decay=0.01),
+            named_parameters=model.named_parameters())
+        api.broadcast_parameters(model.state_dict(), root_rank=0)
+        api.broadcast_optimizer_state(opt, root_rank=0)
+        return model, opt, hvd.make_train_step(model, loss, opt)
+
+    out = {"rank": rank, "size": n, "device": str(dev),
+           "autotune_start": rt.core.autotune_state()}
+    tuner = hvd.autotuner()
+    model, opt, step = build(ht)
+    # the names the hook optimizer negotiates, one a bucket
+    out["groups"] = [f"group.{gid}." + opt._names.get(b[0], "noname")
+                     for gid, b in enumerate(opt._buckets)]
+    out["covered"] = (sum(len(b) for b in opt._buckets)
+                      == len(list(model.parameters())))
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    F.reset_launches()
+    losses, ms, thresholds, cycles = [], [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        if spec["mode"] == "ranks":
+            with tuner.measure(nbytes=nbytes):
+                losses.append(float(step(b)))
+                sync()
+            thresholds.append(rt.fusion_threshold())
+            cycles.append(tuner.cycle_ms)
+        else:
+            losses.append(float(step(b)))
+            sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out.update(losses_a=losses, ms_a=ms, launches_a=dict(F.LAUNCHES),
+               autotune_end=rt.core.autotune_state(),
+               thresholds=thresholds, cycles=cycles)
+    if spec["mode"] == "ranks":
+        import torch.distributed as dist
+        sums = param_checksums(torch, list(model.parameters()))
+        rows = [torch.empty_like(sums) for _ in range(n)]
+        dist.all_gather(rows, sums)
+        out["checksums_equal"] = all(torch.equal(rows[0], x) for x in rows)
+    del step, opt, model
+    if cuda:
+        torch.cuda.empty_cache()
+    if spec["mode"] == "one":
+        model, opt, step = build(hvd)
+        misses0 = rt.plan_cache.misses
+        F.reset_launches()
+        losses, ms, thresholds = [], [], []
+        for b in batches:
+            thresholds.append(rt.fusion_threshold())
+            t0 = time.perf_counter()
+            with tuner.measure(nbytes=nbytes):
+                losses.append(float(step(b)))
+                sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out.update(losses_b=losses, ms_b=ms, launches_b=dict(F.LAUNCHES),
+                   thresholds=thresholds, nbytes=nbytes,
+                   replans=rt.plan_cache.misses - misses0)
+        del step, opt, model
+    require(rt.metrics_publisher.publish_now(), "the metrics publish failed")
+    with open(os.path.join(out_dir, f"measured.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    deadline = time.time() + 300
+    while not os.path.exists(os.path.join(out_dir, "scraped")):
+        require(time.time() < deadline, "the parent never scraped")
+        time.sleep(0.1)
+    ht.shutdown()
+    return 0
+
+
+def start_measured(out_dir: str, n: int, device_type: str, flags: list):
+    """``python -m horovod_tpu_torch.runner.launch -np n [--gpu] <flags>
+    ... python3 chip_smoke.py --measured DIR`` in a session of its own,
+    with free coordinator and controller ports and the workers' output
+    under ``DIR/logs``; the native controller negotiates over TCP and the
+    workers publish their metrics and trace every second."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ports = [free_port(), free_port()]
+    require(not {29500, 29499} & set(ports), f"ports {ports}")
+    cmd = ([sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+            str(n)] + (["--gpu"] if device_type == "cuda" else [])
+           + ["--coordinator-port", str(ports[0]), "--controller-port",
+              str(ports[1]), "--output-filename",
+              os.path.join(out_dir, "logs")] + flags
+           + [sys.executable, os.path.abspath(__file__), "--measured",
+              out_dir])
+    env = dict(os.environ, HOROVOD_CONTROLLER="tcp",
+               HOROVOD_METRICS_INTERVAL="1",
+               HOROVOD_TIMELINE_MERGE_INTERVAL="1",
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    return subprocess.Popen(cmd, cwd=here, env=env, stderr=subprocess.PIPE,
+                            start_new_session=True)
+
+
+def finish_measured(label: str, proc, out_dir: str, n: int,
+                    metrics_port: int) -> tuple:
+    """Wait for every rank's ``measured.<rank>.json``, read ``GET
+    /metrics`` while the ranks wait, release them and wait for the
+    launcher.  Returns (each rank's report, the exposition, the
+    launcher's stderr).  A launch that fails or outlives
+    MEASURE_DEADLINE fails the run, with the workers' output tails."""
+    t0 = time.time()
+    files = [os.path.join(out_dir, f"measured.{r}.json") for r in range(n)]
+    err = b""
+    try:
+        while not all(os.path.exists(f) for f in files):
+            require(proc.poll() is None, f"{label}: the launcher exited "
+                    f"{proc.returncode} before every rank reported")
+            require(time.time() - t0 < MEASURE_DEADLINE,
+                    f"{label}: no report after {MEASURE_DEADLINE} s")
+            time.sleep(0.2)
+        text = http_text(metrics_port, "/metrics")
+        with open(os.path.join(out_dir, "scraped"), "w"):
+            pass
+        _, err = proc.communicate(timeout=max(
+            10.0, MEASURE_DEADLINE - (time.time() - t0)))
+    except BaseException:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+        err = err or proc.communicate()[1]
+        print(f"{label}: launcher stderr tail:\n"
+              + err.decode(errors="replace")[-3000:], flush=True)
+        end_fleet(label, proc, os.path.join(out_dir, "logs"), n)
+        raise
+    require(proc.returncode == 0,
+            f"{label}: the launcher returned {proc.returncode}: "
+            + err.decode(errors="replace")[-2000:])
+    reports = []
+    for f in files:
+        with open(f) as fh:
+            reports.append(json.load(fh))
+    return reports, text, err.decode(errors="replace")
+
+
+def lifecycle_checks(label: str, events: list, names: list,
+                     steps: int) -> int:
+    """Every name's lane holds ``steps`` NEGOTIATE, QUEUE and EXEC phases,
+    in that order step by step, each EXEC of positive width.  Returns the
+    EXEC spans checked."""
+    lanes = {e["args"]["name"]: e["pid"] for e in events
+             if e.get("name") == "process_name"}
+    checked = 0
+    for name in names:
+        require(name in lanes, f"{label}: no lane for {name}")
+        own = [e for e in events if e.get("pid") == lanes[name]
+               and e.get("name") in MEASURE_PHASES]
+        by = {(ph, kind): sorted(e["ts"] for e in own
+                                 if e["name"] == ph and e["ph"] == kind)
+              for ph in ("NEGOTIATE", "QUEUE") for kind in ("B", "E")}
+        exe = sorted((e for e in own if e["name"] == "EXEC"),
+                     key=lambda e: e["ts"])
+        require(all(len(v) == steps for v in by.values())
+                and len(exe) == steps,
+                f"{label}: {name}: {[(k, len(v)) for k, v in by.items()]},"
+                f" {len(exe)} EXEC spans in {steps} steps")
+        for k in range(steps):
+            chain = [by[("NEGOTIATE", "B")][k], by[("NEGOTIATE", "E")][k],
+                     by[("QUEUE", "B")][k], by[("QUEUE", "E")][k],
+                     exe[k]["ts"]]
+            require(chain == sorted(chain) and exe[k]["dur"] > 0,
+                    f"{label}: {name} step {k}: phases {chain}, EXEC "
+                    f"{exe[k]['dur']} us")
+            checked += 1
+    return checked
+
+
+def phase_measure(torch, card: str, ref_losses, ref_step_ms: float,
+                  eager_step_ms: float, device_type: str = "cuda",
+                  cfg_name: str = "1b", batch: int = TRAIN_BATCH,
+                  seq: int = TRAIN_SEQ) -> dict:
+    """Phase 15: the measurement plane on the 1b step, started as a user
+    starts it, ``launch -np 1 --gpu --timeline-filename F
+    --timeline-mark-cycles --autotune --autotune-log-file L
+    --autotune-warmup-samples 1 --autotune-steps-per-sample 2
+    --metrics-port P ... chip_smoke.py --measured DIR`` with
+    HOROVOD_CONTROLLER=tcp (``measured_worker``, mode ``one``).  Returns
+    the kernels' launches of the phase."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.utils import metrics as M
+    from horovod_tpu_torch.utils.timeline import load_trace_events
+    label = f"measure [{cfg_name} -np 1]"
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_measure_")
+    steps = len(ref_losses)
+    with open(os.path.join(out_dir, "spec.json"), "w") as f:
+        json.dump({"cfg": cfg_name, "device": device_type, "batch": batch,
+                   "seq": seq, "steps": steps, "mode": "one"}, f)
+    trace = os.path.join(out_dir, "trace.json")
+    log = os.path.join(out_dir, "autotune.csv")
+    mport = free_port()
+    proc = start_measured(out_dir, 1, device_type, [
+        "--timeline-filename", trace, "--timeline-mark-cycles",
+        "--autotune", "--autotune-log-file", log,
+        "--autotune-warmup-samples", "1", "--autotune-steps-per-sample", "2",
+        "--metrics-port", str(mport)])
+    (r,), text, _ = finish_measured(label, proc, out_dir, 1, mport)
+    events = load_trace_events(trace)
+    with open(log) as f:
+        rows = [ln.strip().split(",") for ln in f if ln.strip()]
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    for part in ("a", "b"):
+        got = r[f"losses_{part}"]
+        diffs = [abs(a - b) for a, b in zip(got, ref_losses)]
+        print(f"{label} ({part}) losses " + " ".join(f"{x:.5f}" for x in got)
+              + f"; phase 5's max |diff| {max(diffs):.3g}, bitwise equal: "
+              f"{got == list(ref_losses)}", flush=True)
+        require(len(got) == steps and max(diffs) <= EAGER_LOSS_TOL,
+                f"{label} ({part}): losses {got} vs phase 5's {ref_losses}")
+    # (a): the lifecycle of every gradient bucket, the cycle marks, the
+    # native spans, the native tuner
+    require(r["covered"], f"{label}: the buckets miss a parameter")
+    spans = lifecycle_checks(label, events, r["groups"], steps)
+    cycles = sum(e.get("name") == "CYCLE" for e in events)
+    native = sum(str(e.get("name", "")).startswith("cycle.")
+                 for e in events)
+    exec_ms = [e["dur"] / 1e3 for e in events if e.get("name") == "EXEC"]
+    print(f"{label} (a) trace: {len(events)} events; {len(r['groups'])} "
+          f"gradient buckets x {steps} steps with NEGOTIATE, QUEUE and "
+          f"EXEC ({spans} EXEC spans, width median "
+          f"{sorted(exec_ms)[len(exec_ms) // 2]:.3f} ms); {cycles} cycle "
+          f"marks; {native} native core spans", flush=True)
+    require(cycles > 0 and native > 0,
+            f"{label}: {cycles} cycle marks, {native} native spans")
+    a0, a1 = r["autotune_start"], r["autotune_end"]
+    print(f"{label} (a) native autotune: {a0} -> {a1}", flush=True)
+    require(a0 is not None and a1 is not None and (
+        a1["threshold"], a1["cycle_ms"]) != (a0["threshold"],
+                                             a0["cycle_ms"]),
+            f"{label}: the native tuner did not move: {a0} -> {a1}")
+    # (b): the Python tuner re-plans the fused sync
+    tuned = sorted(set(r["thresholds"]))
+    logged = {int(row[0]) for row in rows[1:]}
+    print(f"{label} (b) tuned threshold by step {r['thresholds']} "
+          f"({len(tuned)} values, {r['replans']} bucket plans made); log "
+          f"rows {rows[1:]}", flush=True)
+    require(rows and rows[0] == ["threshold_bytes", "cycle_ms",
+                                 "best_score_bytes_per_s"],
+            f"{label}: autotune log {rows[:1]}")
+    require(len(tuned) >= 2 and set(r["thresholds"][1:]) - {
+        r["thresholds"][0]} <= logged,
+            f"{label}: thresholds {r['thresholds']}, logged {logged}")
+    require(r["replans"] >= len(tuned),
+            f"{label}: {r['replans']} plans for {len(tuned)} thresholds")
+    # the scrape
+    lint = M.lint_exposition(text)
+    cyc = metric_value(text, "hvd_controller_cycles_total", rank="0")
+    print(f"{label}: GET /metrics {len(text)} bytes, lint "
+          f"{'clean' if not lint else lint[:3]}, rank 0 controller cycles "
+          f"{cyc:.0f}, collective ops "
+          f"{metric_value(text, 'hvd_collective_ops_total', rank='0'):.0f}"
+          f", negotiation ages "
+          f"{metric_value(text, 'hvd_negotiation_age_seconds_count', rank='0'):.0f}",
+          flush=True)
+    require(not lint, f"{label}: /metrics lint: {lint[:5]}")
+    require('rank="0"' in text and 'rank="driver"' in text and cyc > 0,
+            f"{label}: the scrape lacks rank 0, the driver or cycles")
+    # the kernels and the cost
+    per_step = llama.CONFIGS[cfg_name].n_layers if device_type == "cuda" \
+        else 0
+    launches = {}
+    for name in REPLACES:
+        for part in ("a", "b"):
+            got = r[f"launches_{part}"].get(name, 0)
+            require(got == per_step * steps,
+                    f"{label} ({part}): {name} launched {got} times, "
+                    f"expected {per_step} a step")
+        launches[name] = r["launches_a"].get(name, 0) + \
+            r["launches_b"].get(name, 0)
+    ms_a = sum(r["ms_a"][WARMUP_STEPS:]) / (steps - WARMUP_STEPS)
+    ms_b = sum(r["ms_b"][WARMUP_STEPS:]) / (steps - WARMUP_STEPS)
+    print(card, flush=True)
+    print(f"{label} [{card}]: step with the plane (steps "
+          f"{WARMUP_STEPS + 1}-{steps}, each synchronized): (a) hook-driven "
+          f"{ms_a:.1f} ms against phase 7's {eager_step_ms:.1f} ms, ratio "
+          f"{ms_a / eager_step_ms:.3f}; (b) direct under measure() "
+          f"{ms_b:.1f} ms against phase 5's {ref_step_ms:.1f} ms, ratio "
+          f"{ms_b / ref_step_ms:.3f}; launches {json.dumps(launches)}",
+          flush=True)
+    return launches
+
+
+def rank_measure(torch, n: int, card: str, device_type: str = "cuda",
+                 cfg_name: str = "1b", batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ) -> None:
+    """``--ranks N --parts measure``: the plane's parts that exist only
+    across ranks.  ``launch -np N --gpu --timeline-merge M --autotune
+    --autotune-warmup-samples 1 --autotune-steps-per-sample 2
+    --metrics-port P`` over the hook-driven 1b step under
+    ``hvd.autotuner().measure`` (``measured_worker``, mode ``ranks``;
+    each rank its own trace file beside M, as ``--timeline-merge`` makes
+    them): the merged trace's N rank lanes with their clock offsets, the
+    tuned threshold equal on all ranks at every step, the parameters
+    bitwise equal across ranks, N rank labels on ``/metrics`` and the
+    launcher's straggler report."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.utils import metrics as M
+    label = f"measure [{cfg_name} -np {n}]"
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_measure_")
+    with open(os.path.join(out_dir, "spec.json"), "w") as f:
+        json.dump({"cfg": cfg_name, "device": device_type, "batch": batch,
+                   "seq": seq, "steps": MEASURE_STEPS, "mode": "ranks"}, f)
+    merged_path = os.path.join(out_dir, "merged.json")
+    mport = free_port()
+    proc = start_measured(out_dir, n, device_type, [
+        "--timeline-merge", merged_path, "--autotune",
+        "--autotune-warmup-samples", "1", "--autotune-steps-per-sample", "2",
+        "--metrics-port", str(mport)])
+    reports, text, err = finish_measured(label, proc, out_dir, n, mport)
+    with open(merged_path) as f:
+        merged = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    lanes = sorted(e["args"]["name"] for e in merged["traceEvents"]
+                   if e.get("name") == "process_name")
+    clocks = merged["metadata"]["clock_sync"]
+    print(f"{label}: merged trace {len(merged['traceEvents'])} events, "
+          f"lanes {lanes}, clock offsets "
+          + ", ".join(f"rank {k}: {v['offset']:.6f} s (+/- "
+                      f"{v['uncertainty']})" for k, v in sorted(
+                          clocks.items())), flush=True)
+    require(lanes == [f"rank {i}" for i in range(n)]
+            and sorted(clocks) == sorted(str(i) for i in range(n))
+            and all(c["synced"] for c in clocks.values()),
+            f"{label}: lanes {lanes}, clocks {clocks}")
+    by_rank = sorted(reports, key=lambda x: x["rank"])
+    for r in by_rank:
+        require(r["thresholds"] == by_rank[0]["thresholds"]
+                and r["cycles"] == by_rank[0]["cycles"],
+                f"{label}: rank {r['rank']} tuned {r['thresholds']}, rank "
+                f"0 {by_rank[0]['thresholds']}")
+        require(r["checksums_equal"], f"{label}: parameters differ across "
+                "ranks")
+        require(r["groups"] == by_rank[0]["groups"]
+                and len(r["losses_a"]) == MEASURE_STEPS,
+                f"{label}: rank {r['rank']} report {str(r)[:200]}")
+    print(f"{label}: tuned threshold by step (every rank) "
+          f"{by_rank[0]['thresholds']}, cycle ms {by_rank[0]['cycles']}; "
+          "parameters bitwise equal across ranks (checksum allgather)",
+          flush=True)
+    require(len(set(by_rank[0]["thresholds"])) >= 2,
+            f"{label}: the threshold never moved")
+    lint = M.lint_exposition(text)
+    ranks_seen = sorted({m for m in re.findall(r'rank="(\w+)"', text)})
+    print(f"{label}: GET /metrics lint {'clean' if not lint else lint[:3]},"
+          f" rank labels {ranks_seen}", flush=True)
+    require(not lint and ranks_seen == sorted(
+        [str(i) for i in range(n)] + ["driver"]),
+        f"{label}: /metrics lint {lint[:3]}, ranks {ranks_seen}")
+    report = err[err.find("[hvd] straggler report"):]
+    require("[hvd] straggler report" in err and "slowest: rank" in report,
+            f"{label}: no straggler report in the launcher's stderr")
+    print(f"{label}: the launcher's {report.strip()}", flush=True)
+    ms = [sum(r["ms_a"][WARMUP_STEPS:]) / (MEASURE_STEPS - WARMUP_STEPS)
+          for r in by_rank]
+    print(card, flush=True)
+    print(f"{label} [{card}]: hook-driven step under measure() "
+          f"{max(ms):.1f} ms (slowest rank; steps {WARMUP_STEPS + 1}-"
+          f"{MEASURE_STEPS}, each synchronized)", flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
-    if len(args) == 2 and args[0] in ("--rank-worker", "--launched"):
-        # a worker the port's launcher started (--ranks N, phase 13)
+    if len(args) == 2 and args[0] in ("--rank-worker", "--launched",
+                                      "--measured"):
+        # a worker the port's launcher started (--ranks N, phases 13, 15)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         if args[0] == "--launched":
             return launched_worker(args[1])
+        if args[0] == "--measured":
+            return measured_worker(args[1])
         rank_worker(json.loads(args[1]))
         return 0
     import torch
@@ -3964,8 +4553,8 @@ def main() -> int:
     launches, losses, step_ms, tok_s, busy, params = phase_train(
         torch, np, hvd, llama, F)
     serve_ref = phase_serve(torch, np, hvd, llama, serve, F, card)
-    eager = phase_eager(torch, np, hvd, llama, F, card, losses, step_ms,
-                        tok_s, busy, params)
+    eager, eager_ms = phase_eager(torch, np, hvd, llama, F, card, losses,
+                                  step_ms, tok_s, busy, params)
     del params
     wire = phase_wire(torch, np, hvd, llama, F)
     zero, zero_runs = phase_zero(torch, np, hvd, llama, F, card)
@@ -3974,6 +4563,7 @@ def main() -> int:
         torch, np, hvd, llama, F, L, card)
     launched = phase_launch(torch, card, losses, step_ms)
     fleet = phase_fleet(torch, np, serve, card, serve_ref)
+    measure = phase_measure(torch, card, losses, step_ms, eager_ms)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -3984,6 +4574,7 @@ def main() -> int:
         row["launches_moe_mini"] = moe_launches[row["name"]]
         row["launches_launch"] = launched[row["name"]]
         row["launches_fleet"] = fleet[row["name"]]
+        row["launches_measure"] = measure[row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

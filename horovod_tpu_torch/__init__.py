@@ -24,7 +24,12 @@ native controller (``horovod_tpu_torch.torch``).
 
 Jobs start under the port's own launcher, ``python -m
 horovod_tpu_torch.runner.launch -np N python3 train.py`` (``runner/``), or
-from a program with ``hvd.run(fn, np=N)``.
+from a program with ``hvd.run(fn, np=N)``.  The measurement plane
+(``utils/``: the metrics registry, the timeline with its clock sync,
+autotuning, the stall inspector) is reached through ``hvd.autotuner()``,
+``hvd.metrics_snapshot()`` and ``hvd.start_timeline``/``stop_timeline``,
+and through the launcher's ``--metrics-port``, ``--timeline-filename``,
+``--timeline-merge`` and ``--autotune`` flags.
 
 The package imports neither JAX nor ``horovod_tpu``; the pieces it shares
 with the JAX package (reduce ops, knobs, exceptions, the native core's
@@ -90,10 +95,38 @@ def is_homogeneous() -> bool:
     return rt.size() == rt.local_size() * rt.cross_size()
 
 
+def autotuner():
+    """The live autotuner when HOROVOD_AUTOTUNE is enabled, else None
+    (reference: ParameterManager, parameter_manager.{h,cc}).  Feed it step
+    measurements via ``autotuner().measure(nbytes=...)``."""
+    return _rt.get().autotuner
+
+
+def metrics_snapshot() -> dict:
+    """Point-in-time snapshot of every metric family this process records
+    (native controller counters and histograms, collectives and fusion,
+    the stall inspector, the serving engine) as a JSON-able dict: the same
+    payload workers publish for the ``/metrics`` fleet view."""
+    return _rt.get().metrics_snapshot()
+
+
+def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
+    """Start writing the Chrome-trace timeline of this rank to
+    ``file_path`` (reference: horovod_start_timeline)."""
+    _rt.get().start_timeline(file_path, mark_cycles=mark_cycles)
+
+
+def stop_timeline() -> None:
+    """Stop the timeline and close its file (reference:
+    horovod_stop_timeline)."""
+    _rt.get().stop_timeline()
+
+
 __all__ = [
     "init", "shutdown", "is_initialized",
     "rank", "size", "local_rank", "local_size", "cross_rank", "cross_size",
-    "is_homogeneous",
+    "is_homogeneous", "autotuner", "metrics_snapshot", "start_timeline",
+    "stop_timeline",
     "ReduceOp", "Average", "Sum", "Adasum", "Min", "Max", "Product",
     "DistributedOptimizer", "sync_gradients", "sync_gradients_ef",
     "wire_residual_report", "Compression", "spmd", "wire", "overlap",

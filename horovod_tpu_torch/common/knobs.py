@@ -4,7 +4,8 @@ wire and overlap planes, the input prefetch and ZeRO
 (``data/loader.py``, ``parallel/zero.py``), the 3D layout plane
 (``parallel/layout.py``), the eager API's controller
 (``runtime.ensure_core``), the serving engine (``serve/config.py``
-``from_knobs``) and the launcher's rendezvous (``runner/``) need, with the
+``from_knobs``), the launcher's rendezvous (``runner/``) and the
+measurement plane (``utils/``, ``common/hvdlogging.py``) need, with the
 same names, defaults and parsing (env > override > default); ``current``
 reads one live (env > the runtime's snapshot > default)."""
 
@@ -156,15 +157,49 @@ _knob("HOROVOD_CYCLE_TIME", 1.0, float,
       "Background coordination cycle time in milliseconds (eager frontends).")
 _knob("HOROVOD_STALL_CHECK_TIME_SECONDS", 60, int,
       "Warn when ranks disagree about a tensor for this long.")
+_knob("HOROVOD_STALL_CHECK_DISABLE", False, _parse_bool,
+      "Disable the stalled-tensor watchdog.")
+_knob("HOROVOD_STALL_SHUTDOWN_TIME_SECONDS", 0, int,
+      "Abort training when a stall exceeds this many seconds (0 = never).")
+# --- the measurement plane (utils/: metrics, timeline, autotune, stall) ---
 _knob("HOROVOD_AUTOTUNE", False, _parse_bool,
-      "Enable Bayesian autotuning of fusion threshold and cycle time. Not "
-      "ported yet: setting it raises at init.")
+      "Enable Bayesian autotuning of fusion threshold and cycle time.")
+_knob("HOROVOD_AUTOTUNE_LOG", "", str, "CSV log file for autotune samples.")
+_knob("HOROVOD_AUTOTUNE_WARMUP_SAMPLES", 3, int, "Autotune warmup discard count.")
+_knob("HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE", 10, int, "Steps per autotune sample.")
+_knob("HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES", 20, int, "Max BO samples.")
+_knob("HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE", 0.8, float, "GP noise level.")
 _knob("HOROVOD_TIMELINE", "", str,
-      "Path of the Chrome-trace timeline JSON; empty disables. Not ported "
-      "yet: setting it raises at init.")
+      "Path of the Chrome-trace timeline JSON; empty disables. 'DYNAMIC' "
+      "registers the file lazily on start_timeline().")
+_knob("HOROVOD_TIMELINE_MARK_CYCLES", False, _parse_bool,
+      "Mark coordination cycles in the timeline.")
+_knob("HOROVOD_TIMELINE_MERGE_INTERVAL", 5.0, float,
+      "Seconds between trace-chunk publishes to the rendezvous KV scope "
+      "'timeline' (each publish also re-measures the rank's clock offset). "
+      "Workers publish whenever a timeline is active and a rendezvous "
+      "server is known; the launcher serves the merge at GET /timeline and "
+      "writes it with --timeline-merge.")
+_knob("HOROVOD_STRAGGLER_CHECK_SECS", 0.0, float,
+      "Driver-side live straggler check period in seconds: every period "
+      "the launcher compares per-rank negotiation-age p99 across the "
+      "fleet's metric snapshots, logs a warning naming the suspect rank "
+      "and sets the hvd_straggler_suspect gauge.  0 disables.  Needs the "
+      "metrics plane (HOROVOD_METRICS / --metrics-port).")
+_knob("HOROVOD_METRICS", False, _parse_bool,
+      "Enable the metrics plane: every worker records Counter/Gauge/"
+      "Histogram telemetry (utils/metrics.py) and publishes periodic "
+      "snapshots to the rendezvous KV; the launcher serves the fleet view "
+      "at /metrics (Prometheus text) and prints the end-of-run straggler "
+      "report.")
+_knob("HOROVOD_METRICS_INTERVAL", 5.0, float,
+      "Seconds between metric-snapshot publishes to the rendezvous KV.")
+_knob("HOROVOD_LOG_LEVEL", "warning", str,
+      "trace|debug|info|warning|error|fatal")
+_knob("HOROVOD_LOG_HIDE_TIME", False, _parse_bool, "Hide timestamps in logs.")
 _knob("HOROVOD_FLIGHT_RECORD", "", str,
       "Path of this rank's crash-time flight record. Not ported yet: "
-      "setting it raises at init.")
+      "setting it raises at init (ROADMAP queue 1 item 4.3).")
 
 _knob("HOROVOD_SERVE_PORT", 0, int,
       "Port of the serving fleet's request router (0 = ephemeral). Must be "

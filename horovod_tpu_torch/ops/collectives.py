@@ -18,19 +18,47 @@ splits read sizes back to the host; the data stays on the card.
 ``launch`` and ``wait_for`` are the side stream's two ends: the collective
 waits for the caller's stream, and the caller's stream waits for the
 collective.
+
+The measurement plane's hooks are here, as in the JAX module: each
+collective counts into ``hvd_collective_ops_total``,
+``hvd_collective_bytes_total`` and ``hvd_collective_latency_seconds`` (the
+host-side latency of the call: on a CUDA device the enqueue, since the
+collective itself runs on the side stream), and ``launch`` with ``names``
+traces the batch it runs as one EXEC span per name on the runtime's
+timeline.  The EXEC span's width is the collective's: on a CUDA device a
+start event recorded on the side stream before the batch and the done
+event recorded after it, resolved by the timeline's writer thread once
+the done event has completed (``Timeline.record_op`` with ``events``),
+with no synchronization for the trace's sake; on the CPU the batch has
+finished when ``launch`` returns and the host-measured duration stands.
+Either span is anchored at the host time of the enqueue.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..common.reduce_op import Average, ReduceOp
+from ..utils import metrics as _metrics
 from . import fusion, spmd
 
 Tensor = torch.Tensor
+
+
+def _rec(op: str, nbytes: int, t0: float) -> None:
+    """Metrics of one collective call: count, payload bytes and host-side
+    latency since ``t0`` (``time.perf_counter``)."""
+    _metrics.COLLECTIVE_OPS.inc(op=op)
+    _metrics.COLLECTIVE_BYTES.inc(nbytes, op=op)
+    _metrics.COLLECTIVE_LATENCY.observe(time.perf_counter() - t0, op=op)
+
+
+def _nbytes(tensors: Sequence[Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _size() -> int:
@@ -67,39 +95,47 @@ def allreduce_(tensors: Sequence[Tensor], op: ReduceOp = Average,
     """Reduce same-dtype ``tensors`` across ranks into ``outputs`` (default:
     in place): one collective over one packed buffer, or over the output
     itself when there is one contiguous output."""
+    t0 = time.perf_counter()
     outputs = list(tensors if outputs is None else outputs)
     if len(tensors) == 1 and outputs[0].is_contiguous():
         if outputs[0] is not tensors[0]:
             outputs[0].copy_(tensors[0])
         spmd.allreduce(outputs[0], op, prescale_factor, postscale_factor)
-        return outputs
-    return _packed(lambda buf: spmd.allreduce(buf, op, prescale_factor,
-                                              postscale_factor),
-                   tensors, outputs)
+    else:
+        _packed(lambda buf: spmd.allreduce(buf, op, prescale_factor,
+                                           postscale_factor),
+                tensors, outputs)
+    _rec("allreduce", _nbytes(tensors), t0)
+    return outputs
 
 
 def broadcast_(tensors: Sequence[Tensor], root_rank: int = 0,
                outputs: Optional[Sequence[Tensor]] = None) -> List[Tensor]:
     """Overwrite ``outputs`` (default: ``tensors``) on every rank with
     ``root_rank``'s ``tensors``: one collective, packed as ``allreduce_``."""
+    t0 = time.perf_counter()
     outputs = list(tensors if outputs is None else outputs)
     if len(tensors) == 1 and outputs[0].is_contiguous():
         if outputs[0] is not tensors[0]:
             outputs[0].copy_(tensors[0])
         dist.broadcast(outputs[0], src=root_rank)
-        return outputs
-
-    def bcast(buf: Tensor) -> Tensor:
-        dist.broadcast(buf, src=root_rank)
-        return buf
-    return _packed(bcast, tensors, outputs)
+    else:
+        def bcast(buf: Tensor) -> Tensor:
+            dist.broadcast(buf, src=root_rank)
+            return buf
+        _packed(bcast, tensors, outputs)
+    _rec("broadcast", _nbytes(tensors), t0)
+    return outputs
 
 
 def allgather(tensor: Tensor) -> Tensor:
     """Every rank's ``tensor`` (the same shape on every rank) concatenated
     along dim 0, in rank order; a 0-dim tensor counts as one row.  Two-level
     under HOROVOD_HIERARCHICAL_ALLGATHER (``spmd.allgather``)."""
-    return spmd.allgather(tensor.reshape(1) if tensor.dim() == 0 else tensor)
+    t0 = time.perf_counter()
+    out = spmd.allgather(tensor.reshape(1) if tensor.dim() == 0 else tensor)
+    _rec("allgather", _nbytes([tensor]), t0)
+    return out
 
 
 def allgather_ragged(tensor: Tensor) -> Tensor:
@@ -142,7 +178,9 @@ def alltoall(tensor: Tensor, splits: Optional[Sequence[int]] = None
                                                     device=t.device))
         recv = theirs.tolist()
     out = t.new_empty((sum(recv),) + tuple(t.shape[1:]))
+    t0 = time.perf_counter()
     dist.all_to_all_single(out, t, recv, send)
+    _rec("alltoall", _nbytes([t]), t0)
     return out, torch.tensor(recv, dtype=torch.int64)
 
 
@@ -155,6 +193,7 @@ def reducescatter(tensor: Tensor, op: ReduceOp = Average,
     if tensor.dim() == 0 or tensor.shape[0] % n:
         raise ValueError(f"reducescatter needs rows divisible by size ({n})")
     rows = tensor.shape[0] // n
+    t0 = time.perf_counter()
     if dist.get_backend() != "nccl":  # gloo: reduce every row, keep ours
         buf = allreduce_([tensor.clone(memory_format=torch.contiguous_format)],
                          op, prescale_factor, postscale_factor)[0]
@@ -163,14 +202,18 @@ def reducescatter(tensor: Tensor, op: ReduceOp = Average,
                       prescale_factor)
     out = buf.new_empty((rows,) + tuple(tensor.shape[1:]))
     dist.reduce_scatter_tensor(out, buf, op=spmd.torch_op(op))
-    return spmd.scale_(out, postscale_factor,
-                       n if op == ReduceOp.AVERAGE else 1)
+    out = spmd.scale_(out, postscale_factor,
+                      n if op == ReduceOp.AVERAGE else 1)
+    _rec("reducescatter", _nbytes([tensor]), t0)
+    return out
 
 
 def barrier_(device: torch.device) -> None:
     """Every rank reaches this point before any passes it (on the card: in
     stream order)."""
+    t0 = time.perf_counter()
     dist.all_reduce(torch.zeros(1, dtype=torch.int32, device=device))
+    _rec("barrier", 0, t0)
 
 
 # --------------------------------------------------------- side streams
@@ -187,28 +230,49 @@ def side_stream(device: torch.device) -> "torch.cuda.Stream":
 
 def launch(fn: Callable[[], object], tensors: Sequence[Tensor],
            device: torch.device,
-           ready: Optional[Sequence["torch.cuda.Event"]] = None):
+           ready: Optional[Sequence["torch.cuda.Event"]] = None,
+           names: Sequence[str] = (), nbytes: int = 0):
     """Run ``fn`` and return ``(result, done event)``.  On a CUDA device
     ``fn`` runs on the side stream, after ``ready`` (events recorded on the
     callers' streams when the inputs were handed over; default: the
     current stream's work so far); ``tensors`` are the caller's tensors it
     touches, kept from the allocator until the side stream is past them.
     On the CPU ``fn`` has finished when this returns, and the event is
-    None."""
+    None.  With ``names`` and an active timeline, ``fn``'s work is traced
+    as an EXEC span of ``nbytes`` on each name's lane (module docstring)."""
+    from .. import runtime as _rt
+    tl = _rt.get().timeline if names and _rt.is_initialized() else None
     if device.type != "cuda":
-        return fn(), None
+        if tl is None:
+            return fn(), None
+        ts_us, t0 = tl.now_us(), time.perf_counter()
+        result = fn()
+        dur_us = (time.perf_counter() - t0) * 1e6
+        for name in names:
+            tl.record_op(name, "EXEC", nbytes, duration_us=dur_us,
+                         ts_us=ts_us)
+        return result, None
     side = side_stream(device)
     if ready is None:
         side.wait_stream(torch.cuda.current_stream(device))
     else:
         for ev in ready:
             side.wait_event(ev)
+    start = None
+    if tl is not None:
+        ts_us = tl.now_us()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(side)
     with torch.cuda.stream(side):
         result = fn()
     for t in tensors:
         t.record_stream(side)
-    done = torch.cuda.Event()
+    done = torch.cuda.Event(enable_timing=start is not None)
     done.record(side)
+    if start is not None:
+        for name in names:
+            tl.record_op(name, "EXEC", nbytes, ts_us=ts_us,
+                         events=(start, done))
     return result, done
 
 

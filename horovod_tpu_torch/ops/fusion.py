@@ -5,7 +5,11 @@ Gradients are grouped greedily into few large same-dtype buckets (the
 reference Horovod's 128 MiB fusion buffer), each bucket is packed into one
 flat tensor, reduced by one collective, and unpacked.  Plans are cached by
 the exact (shapes, dtypes, threshold) signature, so steady-state training
-hits the cache every step.
+hits the cache every step.  Planning counts into the metrics registry as
+the JAX module does: each closed bucket's bytes
+(``hvd_fusion_bucket_bytes``) and why it closed
+(``hvd_fusion_bucket_flush_total``: threshold, filled or tail); the
+runtime's snapshot imports the cache's hits and misses.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from ..utils import metrics as _metrics
 
 
 class Bucket:
@@ -55,20 +61,28 @@ def make_plan(shapes: Sequence[Tuple[int, ...]],
     """
     open_buckets: Dict[torch.dtype, Bucket] = {}
     done: List[Bucket] = []
+
+    def close(b: Bucket, reason: str) -> None:
+        done.append(b)
+        _metrics.FUSION_FLUSHES.inc(reason=reason)
+        _metrics.FUSION_BUCKET_BYTES.observe(b.nbytes)
+
     for i, (shape, dtype) in enumerate(zip(shapes, dtypes)):
         nbytes = math.prod(shape) * dtype.itemsize
         b = open_buckets.get(dtype)
         if b is not None and b.nbytes + nbytes > threshold_bytes and b.indices:
-            done.append(b)  # next tensor would overflow the bucket
+            close(b, "threshold")  # next tensor would overflow the bucket
             b = None
         if b is None:
             b = Bucket(dtype)
             open_buckets[dtype] = b
         b.add(i, shape, nbytes)
         if b.nbytes >= threshold_bytes:
-            done.append(b)
+            close(b, "filled")
             del open_buckets[dtype]
-    done.extend(b for b in open_buckets.values() if b.indices)
+    for b in open_buckets.values():
+        if b.indices:
+            close(b, "tail")  # end-of-step leftover
     return BucketPlan(done, len(shapes))
 
 

@@ -29,6 +29,15 @@ caller's stream wait for it.  Nothing crosses to the host but sizes
 (without waiting) and in ``wait``, ``poll`` and ``join``.  Without a
 controller (one process, ``HOROVOD_CONTROLLER`` not ``tcp``) an op runs at
 submission.  The synchronous form of an op is ``wait(submit(op))``.
+
+With a timeline active, each negotiated name gets the reference's
+lifecycle on its lane (the JAX negotiated path's,
+``horovod_tpu/ops/negotiated.py``): NEGOTIATE from submission to the
+agreed response, QUEUE from the response to the enqueue of its batch, and
+the EXEC span of the batch's collectives (``collectives.launch``); each
+response batch marks a cycle (``HOROVOD_TIMELINE_MARK_CYCLES``).  The
+stall inspector watches every name from submission to its response, and
+the submission-to-response age lands in ``hvd_negotiation_age_seconds``.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 from ..common import basics as _basics
 from ..common.exceptions import HorovodInternalError
 from ..common.reduce_op import ReduceOp, Sum
+from ..utils import metrics as _metrics
 from . import collectives as C
 from . import spmd
 
@@ -105,7 +115,7 @@ class Op:
 
     __slots__ = ("name", "kind", "tensors", "outputs", "reduce_op", "pre",
                  "post", "root", "splits", "sig", "nbytes", "ready", "done",
-                 "finished", "result", "error")
+                 "finished", "result", "error", "submitted")
 
     def __init__(self, name: str, kind: str, tensors: Sequence[Tensor],
                  outputs: Optional[Sequence[Tensor]] = None,
@@ -130,6 +140,7 @@ class Op:
         self.finished = False
         self.result: Any = None
         self.error: Optional[BaseException] = None
+        self.submitted = 0.0  # time.monotonic() at submission
 
 
 def _dummy(sig: str, device: torch.device) -> Op:
@@ -275,16 +286,23 @@ class Engine:
                 raise HorovodInternalError(
                     f"{op.name!r} submitted after this rank joined")
             if self.core is None:
-                self._execute(OP_OF_KIND[op.kind], [op], [op.sig])
+                self._execute(OP_OF_KIND[op.kind], [op], [op.sig],
+                              op.nbytes)
                 return op
             self._pending[op.name] = op
+        op.submitted = time.monotonic()
+        rt = self._rt
+        if rt.timeline is not None:
+            rt.timeline.begin(op.name, "NEGOTIATE")
+        if rt.stall_inspector is not None:
+            rt.stall_inspector.record_submit(op.name)
         self.core.submit(op.name, op.sig, OP_OF_KIND[op.kind], op.nbytes)
         self.pump()
         return op
 
     # ----------------------------------------------------------- execute
     def _execute(self, op_type: int, ops: List[Optional[Op]],
-                 sigs: Sequence[str]) -> None:
+                 sigs: Sequence[str], nbytes: int) -> None:
         mine = [op for op in ops if op is not None]
         # a joined rank's zeros are made on the current stream, which the
         # side stream then waits for as a whole
@@ -295,7 +313,9 @@ class Engine:
         touched = [t for op in ops for t in op.tensors + (op.outputs or [])]
         try:
             launched, done = C.launch(lambda: run_batch(op_type, ops),
-                                      touched, self.device, ready)
+                                      touched, self.device, ready,
+                                      names=[op.name for op in mine],
+                                      nbytes=nbytes)
         except BaseException as e:
             for op in mine:
                 op.error, op.finished = e, True
@@ -318,7 +338,25 @@ class Engine:
         self.stats["responses"] += 1
         self.stats["names"] += len(resp.names)
         self.stats["zero_names"] += sum(op is None for op in ops)
-        self._execute(resp.op, ops, resp.sigs)
+        rt = self._rt
+        tl = rt.timeline
+        if tl is not None:
+            tl.mark_cycle()
+            arrival_us = tl.now_us()
+        now = time.monotonic()
+        for op in ops:
+            if op is None:
+                continue
+            if rt.stall_inspector is not None:
+                rt.stall_inspector.record_complete(op.name)  # observes age
+            else:
+                _metrics.NEGOTIATION_AGE.observe(now - op.submitted)
+            if tl is not None:
+                # agreed: negotiation over, queued behind its batch-mates
+                tl.end(op.name, "NEGOTIATE", ts_us=arrival_us)
+                tl.begin(op.name, "QUEUE", ts_us=arrival_us)
+                tl.end(op.name, "QUEUE")
+        self._execute(resp.op, ops, resp.sigs, resp.total_bytes)
 
     def pump(self) -> None:
         """Run every response that has arrived, without waiting."""

@@ -111,10 +111,15 @@ def resolve_zero_level(level: Optional[int] = None) -> int:
 
 def resolve_ag_prefetch(depth: Optional[int] = None) -> int:
     """The ZeRO-3 parameter all-gather prefetch depth: the argument, else
-    the HOROVOD_ZERO_AG_PREFETCH knob (read live)."""
+    the runtime's (the HOROVOD_ZERO_AG_PREFETCH knob read live, refined to
+    the autotuner's depth arm while it tunes), else the knob."""
     if depth is None:
-        from ..common.knobs import current
-        depth = int(current("HOROVOD_ZERO_AG_PREFETCH"))
+        from .. import runtime as _rt
+        if _rt.is_initialized():
+            depth = _rt.get().zero_ag_prefetch()
+        else:
+            from ..common.knobs import current
+            depth = int(current("HOROVOD_ZERO_AG_PREFETCH"))
     depth = int(depth)
     if not 1 <= depth <= MAX_OVERLAP_DEPTH:
         raise ValueError(f"zero AG prefetch depth {depth} out of range "

@@ -15,9 +15,10 @@ request whose target is the PRIMARY to the scope's owning shard via the
 deterministic ``runner/kvshard.shard_for_scope`` map; requests aimed at any
 other server pass through untouched.
 
-The JAX client also counts unavailable shards into the metrics registry
-(ROADMAP queue 1 item 4.1) and lets the chaos plane black the KV out (item
-4.5); the port has neither plane yet, so neither hook is here.
+Each transient failure against a shard of a sharded KV counts into
+``hvd_kv_shard_unavailable_total{shard=...}``, per attempt, as in the JAX
+client.  The JAX client also lets the chaos plane black the KV out
+(ROADMAP queue 1 item 4.5); the port has no chaos plane yet.
 """
 
 from __future__ import annotations
@@ -93,9 +94,19 @@ def _transient(e: Exception) -> bool:
                           TimeoutError))
 
 
+def _count_shard_unavailable(shard: int) -> None:
+    if _shard_map() is None:
+        return
+    try:  # telemetry must never take the KV op (or its retry) down
+        from ..utils import metrics as M
+        M.KV_SHARD_UNAVAILABLE.inc(shard=str(shard))
+    except Exception:
+        pass
+
+
 def put_kv(addr: str, port: int, scope: str, key: str,
            value: bytes, retries: Optional[int] = None) -> None:
-    addr, port, _ = resolve_kv_addr(addr, port, scope)
+    addr, port, shard = resolve_kv_addr(addr, port, scope)
     url = f"http://{addr}:{port}/{scope}/{key}"
     delays = _retry_delays(retries)
     for attempt in range(len(delays) + 1):
@@ -104,6 +115,8 @@ def put_kv(addr: str, port: int, scope: str, key: str,
             with urllib.request.urlopen(req, timeout=10):
                 return
         except Exception as e:
+            if _transient(e):
+                _count_shard_unavailable(shard)
             if attempt >= len(delays) or not _transient(e):
                 raise
             time.sleep(delays[attempt])
@@ -121,7 +134,7 @@ def get_kv(addr: str, port: int, scope: str, key: str,
     if timeout is None:
         from ..common.knobs import current
         timeout = float(current("HOROVOD_GLOO_TIMEOUT_SECONDS"))
-    addr, port, _ = resolve_kv_addr(addr, port, scope)
+    addr, port, shard = resolve_kv_addr(addr, port, scope)
     url = f"http://{addr}:{port}/{scope}/{key}"
     deadline = time.time() + timeout
     while True:
@@ -135,6 +148,8 @@ def get_kv(addr: str, port: int, scope: str, key: str,
                 return None
             time.sleep(poll_interval)
         except Exception as e:
+            if _transient(e):
+                _count_shard_unavailable(shard)
             if not _transient(e) or time.time() >= deadline:
                 raise
             time.sleep(poll_interval)
@@ -142,7 +157,7 @@ def get_kv(addr: str, port: int, scope: str, key: str,
 
 def delete_kv(addr: str, port: int, scope: str, key: str,
               retries: Optional[int] = None) -> bool:
-    addr, port, _ = resolve_kv_addr(addr, port, scope)
+    addr, port, shard = resolve_kv_addr(addr, port, scope)
     url = f"http://{addr}:{port}/{scope}/{key}"
     delays = _retry_delays(retries)
     for attempt in range(len(delays) + 1):
@@ -153,6 +168,8 @@ def delete_kv(addr: str, port: int, scope: str, key: str,
         except urllib.error.HTTPError:
             return False
         except Exception as e:
+            if _transient(e):
+                _count_shard_unavailable(shard)
             if attempt >= len(delays) or not _transient(e):
                 raise
             time.sleep(delays[attempt])

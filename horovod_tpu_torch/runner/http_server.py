@@ -32,6 +32,16 @@ The serving fleet's front door is here, as on the JAX server
 per-request conditions (:func:`add_stream_waiter`, :func:`wake_stream`)
 and the broadcast ``kv_wakeup``.
 
+The measurement plane's routes (``utils/``), as on the JAX server:
+
+  * ``GET /metrics`` renders the fleet's Prometheus text: the driver's
+    registry (``rank="driver"``) and every worker snapshot the ``metrics``
+    scope holds, rank-labeled;
+  * ``GET /clock`` returns this server's wall time, the reference clock of
+    the ranks' offset estimates (``utils/clocksync.py``);
+  * ``GET /timeline`` merges the ``timeline`` scope's chunks into one
+    rank-laned Chrome/Perfetto trace (``utils/timeline.py``).
+
 The JAX server also renders the planes the port does not have yet.  Each
 of those routes answers 404 here, with no body, until its plane lands
 (:data:`PLANE_ROUTES` names the ROADMAP item of each); a key stored under
@@ -40,6 +50,7 @@ one of their scope names is still a plain KV entry.
 
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
@@ -48,12 +59,13 @@ from typing import Dict, List, Optional, Tuple
 
 from .kvshard import MAP_KEY, MAP_SCOPE, shard_for_scope
 
+METRICS_SCOPE = "metrics"
+TIMELINE_SCOPE = "timeline"
+CLOCK_SCOPE = "clock"
+
 # (method, scope, key) of a route the JAX server renders -> the ROADMAP
 # queue 1 item whose plane brings it
 PLANE_ROUTES: Dict[Tuple[str, str, str], str] = {
-    ("GET", "metrics", ""): "4.1",
-    ("GET", "clock", ""): "4.1",
-    ("GET", "timeline", ""): "4.1",
     ("GET", "health", ""): "4.3",
     ("GET", "series", ""): "4.3",
     ("GET", "alerts", ""): "4.3",
@@ -131,6 +143,32 @@ def store_for(server, scope: str):
     return stores[shard_for_scope(scope, len(stores))]
 
 
+_TRACE_SEQ = itertools.count()
+
+
+def trace_span(server, lane: str, name: str, start_t: float,
+               dur_s: float, args: Optional[Dict] = None) -> None:
+    """Router-side request span as a synthetic timeline chunk on rank 0's
+    process lane: worker chunks stamp absolute aligned us measured against
+    this server, so the server's own wall clock is on the same epoch by
+    construction.  Best-effort: tracing must never take the front door
+    down."""
+    try:
+        chunk = {"rank": 0, "seq": -1, "events": [
+            {"name": name, "ph": "X", "ts": float(start_t) * 1e6,
+             "dur": max(0.0, float(dur_s)) * 1e6, "lane": lane,
+             "args": args or {}}]}
+        tl = store_for(server, TIMELINE_SCOPE)
+        key = f"trace.0.{next(_TRACE_SEQ):06d}"
+        with tl.kv_lock:  # type: ignore[attr-defined]
+            tl.kv.setdefault(TIMELINE_SCOPE, {})[key] = \
+                json.dumps(chunk).encode()  # type: ignore[attr-defined]
+            tl.kv_times.setdefault(TIMELINE_SCOPE, {})[key] = \
+                time.time()  # type: ignore[attr-defined]
+    except Exception:
+        pass
+
+
 class _KVHandler(BaseHTTPRequestHandler):
     server_version = "hvdtpu-rendezvous/1.0"
 
@@ -142,9 +180,19 @@ class _KVHandler(BaseHTTPRequestHandler):
         return scope, key
 
     def _count_request(self) -> None:
+        """Per-shard request accounting (hvd_kv_shard_requests_total),
+        only on a sharded KV, as on the JAX server."""
+        stores = getattr(self.server, "kv_stores", None)
+        idx = getattr(self.server, "shard_index", 0)
         with self.server.kv_lock:  # type: ignore[attr-defined]
             self.server.kv_requests = \
                 getattr(self.server, "kv_requests", 0) + 1
+        if stores and len(stores) > 1:
+            try:
+                from ..utils import metrics as M
+                M.KV_SHARD_REQUESTS.inc(shard=str(idx))
+            except Exception:
+                pass  # telemetry must never take a KV op down
 
     def _not_found(self) -> None:
         self.send_response(404)
@@ -178,13 +226,42 @@ class _KVHandler(BaseHTTPRequestHandler):
             # the JAX server's other POST routes are 404 there too
             self._not_found()
 
-    def _serve_json(self, obj) -> None:
-        body = json.dumps(obj).encode()
+    def _serve_body(self, body: bytes, content_type: str) -> None:
         self.send_response(200)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
+
+    def _serve_json(self, obj) -> None:
+        self._serve_body(json.dumps(obj).encode(), "application/json")
+
+    def _serve_metrics(self) -> None:
+        """Fleet Prometheus exposition: the local (driver) registry and
+        every worker snapshot the ``metrics`` scope holds, rank-labeled."""
+        from ..utils import metrics as M
+        store = store_for(self.server, METRICS_SCOPE)
+        with store.kv_lock:  # type: ignore[attr-defined]
+            stored = dict(store.kv.get(METRICS_SCOPE, {}))  # type: ignore
+        snaps = [({"rank": "driver"}, M.REGISTRY.snapshot())]
+        for key in sorted(stored):
+            try:
+                snap = json.loads(stored[key])
+            except (ValueError, TypeError):
+                continue  # a torn PUT must not 500 the whole scrape
+            rank = str(snap.get("rank", key.rsplit(".", 1)[-1]))
+            snaps.append(({"rank": rank}, snap))
+        self._serve_body(M.render_prometheus(snaps).encode(),
+                         "text/plain; version=0.0.4; charset=utf-8")
+
+    def _serve_timeline(self) -> None:
+        """Merged fleet trace: every chunk the ``timeline`` scope holds,
+        rank-laned on the shared aligned epoch."""
+        from ..utils.timeline import merge_timeline_chunks
+        store = store_for(self.server, TIMELINE_SCOPE)
+        with store.kv_lock:  # type: ignore[attr-defined]
+            stored = dict(store.kv.get(TIMELINE_SCOPE, {}))  # type: ignore
+        self._serve_json(merge_timeline_chunks(stored))
 
     def do_GET(self) -> None:  # noqa: N802
         scope, key = self._split()
@@ -193,6 +270,15 @@ class _KVHandler(BaseHTTPRequestHandler):
             render = (serve_router.render_stats if key == "stats"
                       else serve_router.render_trace)
             self._serve_json(render(self.server))
+            return
+        if scope == METRICS_SCOPE and not key:
+            self._serve_metrics()
+            return
+        if scope == CLOCK_SCOPE and not key:
+            self._serve_body(repr(time.time()).encode(), "text/plain")
+            return
+        if scope == TIMELINE_SCOPE and not key:
+            self._serve_timeline()
             return
         if ("GET", scope, key) in PLANE_ROUTES:
             self._not_found()

@@ -32,9 +32,24 @@ the router (``POST /generate``, ``GET /serve/stats``, ``POST
 ephemeral port the banner prints).  ``--replicas N --replica-id K`` stamp
 ``HOROVOD_SERVE_REPLICAS``/``_REPLICA_ID``; a launch with K > 0 joins the
 router that replica 0's launch hosts (:func:`serve_router_join`), as the
-JAX launcher's help describes the replicated tier.  The JAX launcher also turns
-on the metrics and heartbeat planes under ``--serve``; the port has
-neither yet (ROADMAP queue 1 items 4.1 and 4.3) and stamps neither.
+JAX launcher's help describes the replicated tier.  ``--serve`` turns on
+the metrics plane, as the JAX launcher does; its heartbeat plane waits for
+ROADMAP queue 1 item 4.3.
+
+The measurement plane (``utils/``): ``--metrics-port P`` pins the
+rendezvous server to P, whose ``GET /metrics`` serves the fleet's
+Prometheus view, and turns on per-worker publishing and the end-of-run
+straggler report (the live straggler check runs every
+``HOROVOD_STRAGGLER_CHECK_SECS``); ``--timeline-filename``,
+``--timeline-mark-cycles`` and ``--timeline-merge OUT`` (one merged,
+rank-laned trace of the fleet written at job end, the one ``GET
+/timeline`` serves live); ``--autotune`` and its ``--autotune-*`` knobs;
+the stall inspector's ``--no-stall-check`` and
+``--stall-shutdown-time-seconds``; ``--log-level`` and
+``--log-hide-timestamp``.  Each stamps the JAX launcher's env knob.
+(The JAX launcher also counts each worker's exit into
+``hvd_worker_exits_total`` by cause, which needs the postmortem plane's
+exit classifier: ROADMAP queue 1 item 4.3.)
 
 The JAX launcher also drives planes the port does not have yet.  Their
 flags are refused with exit code 2 and the ROADMAP item that brings them
@@ -66,28 +81,6 @@ PROG = "python -m horovod_tpu_torch.runner.launch"
 
 # dest -> (flag, what it needs, the ROADMAP queue 1 item that brings it)
 REFUSED: Dict[str, tuple] = {
-    "metrics_port": ("--metrics-port", "the metrics registry", "4.1"),
-    "timeline_filename": ("--timeline-filename", "the timeline", "4.1"),
-    "timeline_merge": ("--timeline-merge", "the timeline", "4.1"),
-    "timeline_mark_cycles": ("--timeline-mark-cycles", "the timeline",
-                             "4.1"),
-    "autotune": ("--autotune", "autotuning", "4.1"),
-    "autotune_log_file": ("--autotune-log-file", "autotuning", "4.1"),
-    "autotune_warmup_samples": ("--autotune-warmup-samples", "autotuning",
-                                "4.1"),
-    "autotune_steps_per_sample": ("--autotune-steps-per-sample",
-                                  "autotuning", "4.1"),
-    "autotune_bayes_opt_max_samples": ("--autotune-bayes-opt-max-samples",
-                                       "autotuning", "4.1"),
-    "autotune_gaussian_process_noise": (
-        "--autotune-gaussian-process-noise", "autotuning", "4.1"),
-    "no_stall_check": ("--no-stall-check / --stall-check",
-                       "the stall inspector", "4.1"),
-    "stall_shutdown_time_seconds": ("--stall-shutdown-time-seconds",
-                                    "the stall inspector", "4.1"),
-    "log_level": ("--log-level", "the port's logging", "4.1"),
-    "log_hide_timestamp": ("--log-hide-timestamp", "the port's logging",
-                           "4.1"),
     "postmortem": ("--postmortem", "the postmortem plane", "4.3"),
     "alerts": ("--alerts", "the watch plane", "4.3"),
     "min_np": ("--min-np", "elastic training", "4.4"),
@@ -181,25 +174,36 @@ def make_parser() -> argparse.ArgumentParser:
                         "servers (HOROVOD_KV_SHARDS; docs/control-plane"
                         ".md); the shard address list is stamped into "
                         "worker env and published at KV scope 'kvshard'")
-    # the planes still to come (REFUSED): parsed so that they are refused
-    # by name, never taken for part of the training command
+    # --- the measurement plane (utils/) ---
     p.add_argument("--metrics-port", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="serve the fleet Prometheus view at "
+                        "http://<driver>:PORT/metrics (pins the rendezvous "
+                        "server to PORT) and enable per-worker metric "
+                        "publishing + the end-of-run straggler report "
+                        "(HOROVOD_METRICS)")
     p.add_argument("--timeline-filename", default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--timeline-merge", default=None, help=argparse.SUPPRESS)
+                   help="each worker writes its Chrome-trace timeline "
+                        "here (HOROVOD_TIMELINE)")
+    p.add_argument("--timeline-merge", default=None, metavar="OUT_JSON",
+                   help="write ONE merged, rank-laned Chrome/Perfetto "
+                        "trace of the whole fleet at job end: every "
+                        "worker records a timeline (per-rank files "
+                        "OUT_JSON.rank.N.json unless --timeline-filename "
+                        "is given) and publishes chunks to the "
+                        "rendezvous, which also serves GET /timeline")
     tl_mc = p.add_mutually_exclusive_group()
     tl_mc.add_argument("--timeline-mark-cycles", action="store_true",
-                       default=None, help=argparse.SUPPRESS)
+                       default=None,
+                       help="mark negotiation cycles on the timeline "
+                            "(HOROVOD_TIMELINE_MARK_CYCLES)")
     tl_mc.add_argument("--no-timeline-mark-cycles",
-                       dest="timeline_mark_cycles", action="store_false",
-                       help=argparse.SUPPRESS)
+                       dest="timeline_mark_cycles", action="store_false")
     stall = p.add_mutually_exclusive_group()
     stall.add_argument("--stall-check", dest="no_stall_check",
-                       action="store_false", default=None,
-                       help=argparse.SUPPRESS)
+                       action="store_false", default=None)
     stall.add_argument("--no-stall-check", action="store_true",
-                       help=argparse.SUPPRESS)
+                       help="disable the stall inspector "
+                            "(HOROVOD_STALL_CHECK_DISABLE)")
     p.add_argument("--stall-check-time-seconds",
                    "--stall-check-warning-time-seconds",
                    dest="stall_check_time_seconds", type=int, default=None,
@@ -208,17 +212,18 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--stall-shutdown-time-seconds",
                    "--stall-check-shutdown-time-seconds",
                    dest="stall_shutdown_time_seconds", type=int,
-                   default=None, help=argparse.SUPPRESS)
+                   default=None,
+                   help="end a worker whose collective stalls this long "
+                        "(HOROVOD_STALL_SHUTDOWN_TIME_SECONDS; 0 = never)")
     p.add_argument("--log-level", default=None,
                    choices=["trace", "debug", "info", "warning", "error",
-                            "fatal"], help=argparse.SUPPRESS)
+                            "fatal"], help="HOROVOD_LOG_LEVEL")
     log_ts = p.add_mutually_exclusive_group()
     log_ts.add_argument("--log-hide-timestamp", "--log-without-timestamp",
                         dest="log_hide_timestamp", action="store_true",
-                        default=None, help=argparse.SUPPRESS)
+                        default=None, help="HOROVOD_LOG_HIDE_TIME")
     log_ts.add_argument("--no-log-hide-timestamp", "--log-with-timestamp",
-                        dest="log_hide_timestamp", action="store_false",
-                        help=argparse.SUPPRESS)
+                        dest="log_hide_timestamp", action="store_false")
     p.add_argument("--gloo-timeout-seconds", type=int, default=None,
                    help="rendezvous KV client patience "
                         "(HOROVOD_GLOO_TIMEOUT_SECONDS)")
@@ -232,20 +237,19 @@ def make_parser() -> argparse.ArgumentParser:
                          dest="mpi_threads_disable", action="store_false",
                          help=argparse.SUPPRESS)
     p.add_argument("--autotune", action="store_true",
-                   help=argparse.SUPPRESS)
+                   help="Bayesian autotuning of the fusion threshold and "
+                        "cycle time (HOROVOD_AUTOTUNE)")
     p.add_argument("--autotune-log-file", default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--autotune-warmup-samples", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--autotune-steps-per-sample", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="CSV log of the tuned points (HOROVOD_AUTOTUNE_LOG)")
+    p.add_argument("--autotune-warmup-samples", type=int, default=None)
+    p.add_argument("--autotune-steps-per-sample", type=int, default=None)
     p.add_argument("--autotune-bayes-opt-max-samples", type=int,
-                   default=None, help=argparse.SUPPRESS)
+                   default=None)
     p.add_argument("--autotune-gaussian-process-noise", type=float,
-                   default=None, help=argparse.SUPPRESS)
+                   default=None)
     p.add_argument("--config-file", default=None,
-                   help="YAML config (reference schema: params and "
-                        "stall_check sections)")
+                   help="YAML config (reference schema: params/autotune/"
+                        "timeline/stall-check sections)")
     p.add_argument("--postmortem", default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve", default=None, metavar="CKPT_DIR",
                    help="serving mode (docs/serving.md): instead of a "
@@ -253,11 +257,11 @@ def make_parser() -> argparse.ArgumentParser:
                         "continuous-batching inference worker over the "
                         "servable directory (serve.json + checkpoint); "
                         "the rendezvous server grows a POST /generate "
-                        "router, GET /serve/stats and POST /admin/drain. "
+                        "router, GET /serve/stats and POST /admin/drain, "
+                        "and the metrics plane is on (HOROVOD_METRICS). "
                         "Unlike the JAX launcher it does not turn on the "
-                        "metrics and heartbeat planes, which the port "
-                        "does not have yet (ROADMAP queue 1 items 4.1 "
-                        "and 4.3)")
+                        "heartbeat plane, which the port does not have "
+                        "yet (ROADMAP queue 1 item 4.3)")
     p.add_argument("--serve-port", type=int, default=None,
                    help="pin the rendezvous/router port for --serve "
                         "(HOROVOD_SERVE_PORT; default: the knob, else "
@@ -327,10 +331,9 @@ def refused_flag(args: argparse.Namespace) -> Optional[str]:
 
 
 def config_file_to_env(path: str, env: Dict[str, str]) -> None:
-    """YAML config -> env knobs (reference: config_parser.py:202 schema).
-    The ``params`` and ``stall_check`` keys the port reads map as in the
-    JAX launcher; a key of a plane still to come raises ValueError naming
-    its ROADMAP item."""
+    """YAML config -> env knobs (reference: config_parser.py:202 schema),
+    as in the JAX launcher; ``params.mesh`` (the JAX package's device
+    mesh) raises ValueError."""
     import yaml
     with open(path) as f:
         cfg = yaml.safe_load(f) or {}
@@ -350,21 +353,24 @@ def config_file_to_env(path: str, env: Dict[str, str]) -> None:
             name, val = mapping[k](v)
             env[name] = val
     tl = cfg.get("timeline", {})
-    if tl.get("filename") or tl.get("mark_cycles"):
-        raise ValueError(f"{path}: " + _refusal("timeline", "the timeline",
-                                                "4.1"))
+    if tl.get("filename"):
+        env["HOROVOD_TIMELINE"] = tl["filename"]
+    if tl.get("mark_cycles"):
+        env["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
     sc = cfg.get("stall_check", {})
-    if sc.get("disable") or sc.get("shutdown_time_seconds") is not None:
-        raise ValueError(f"{path}: " + _refusal(
-            "stall_check.disable / shutdown_time_seconds",
-            "the stall inspector", "4.1"))
+    if sc.get("disable"):
+        env["HOROVOD_STALL_CHECK_DISABLE"] = "1"
     if sc.get("warning_time_seconds") is not None:
         env["HOROVOD_STALL_CHECK_TIME_SECONDS"] = \
             str(sc["warning_time_seconds"])
+    if sc.get("shutdown_time_seconds") is not None:
+        env["HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"] = \
+            str(sc["shutdown_time_seconds"])
     at = cfg.get("autotune", {})
-    if at.get("enabled") or at.get("log_file"):
-        raise ValueError(f"{path}: " + _refusal("autotune", "autotuning",
-                                                "4.1"))
+    if at.get("enabled"):
+        env["HOROVOD_AUTOTUNE"] = "1"
+    if at.get("log_file"):
+        env["HOROVOD_AUTOTUNE_LOG"] = at["log_file"]
 
 
 def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
@@ -392,16 +398,52 @@ def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
             "1" if args.hierarchical_allgather else "0"
     if args.start_timeout is not None:
         env["HOROVOD_START_TIMEOUT"] = str(args.start_timeout)
+    if args.metrics_port is not None:
+        env["HOROVOD_METRICS"] = "1"
+    if args.timeline_filename:
+        env["HOROVOD_TIMELINE"] = args.timeline_filename
+    if args.timeline_mark_cycles is not None:
+        env["HOROVOD_TIMELINE_MARK_CYCLES"] = \
+            "1" if args.timeline_mark_cycles else "0"
+    if args.no_stall_check is not None:
+        env["HOROVOD_STALL_CHECK_DISABLE"] = \
+            "1" if args.no_stall_check else "0"
+    if args.log_hide_timestamp is not None:
+        env["HOROVOD_LOG_HIDE_TIME"] = \
+            "1" if args.log_hide_timestamp else "0"
     if args.gloo_timeout_seconds is not None:
         env["HOROVOD_GLOO_TIMEOUT_SECONDS"] = \
             str(args.gloo_timeout_seconds)
     if args.stall_check_time_seconds is not None:
         env["HOROVOD_STALL_CHECK_TIME_SECONDS"] = \
             str(args.stall_check_time_seconds)
+    if args.stall_shutdown_time_seconds is not None:
+        env["HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"] = \
+            str(args.stall_shutdown_time_seconds)
+    if args.log_level:
+        env["HOROVOD_LOG_LEVEL"] = args.log_level
+    if args.autotune:
+        env["HOROVOD_AUTOTUNE"] = "1"
+    if args.autotune_log_file:
+        env["HOROVOD_AUTOTUNE_LOG"] = args.autotune_log_file
+    if args.autotune_warmup_samples is not None:
+        env["HOROVOD_AUTOTUNE_WARMUP_SAMPLES"] = \
+            str(args.autotune_warmup_samples)
+    if args.autotune_steps_per_sample is not None:
+        env["HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE"] = \
+            str(args.autotune_steps_per_sample)
+    if args.autotune_bayes_opt_max_samples is not None:
+        env["HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"] = \
+            str(args.autotune_bayes_opt_max_samples)
+    if args.autotune_gaussian_process_noise is not None:
+        env["HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"] = \
+            str(args.autotune_gaussian_process_noise)
     if getattr(args, "serve", None):
-        # this launch's fleet is replica K of N behind a shared router
-        # (the JAX launcher also stamps HOROVOD_METRICS and
-        # HOROVOD_HEARTBEAT here: ROADMAP queue 1 items 4.1 and 4.3)
+        # serving workers publish hvd_serve_* metrics like any trainer
+        # (the JAX launcher also stamps HOROVOD_HEARTBEAT here: ROADMAP
+        # queue 1 item 4.3); this launch's fleet is replica K of N behind
+        # a shared router
+        env.setdefault("HOROVOD_METRICS", "1")
         if getattr(args, "replicas", None) is not None:
             env["HOROVOD_SERVE_REPLICAS"] = str(args.replicas)
         if getattr(args, "replica_id", None) is not None:
@@ -722,6 +764,51 @@ def serve_worker_command(args: argparse.Namespace) -> List[str]:
     return cmd
 
 
+def harvest_metric_snapshots(rendezvous: RendezvousServer) -> Dict:
+    """rank -> snapshot dict from the rendezvous ``metrics`` scope (the
+    shared source of the end-of-run report and the live straggler
+    monitor)."""
+    import json as _json
+    snaps = {}
+    for key, value in rendezvous.scope_items("metrics").items():
+        if not key.startswith("rank."):
+            continue
+        try:
+            snaps[int(key.split(".", 1)[1])] = _json.loads(value)
+        except (ValueError, TypeError):
+            continue
+    return snaps
+
+
+def report_stragglers(rendezvous: RendezvousServer, sink=None) -> None:
+    """Harvest the workers' metric snapshots from the rendezvous KV and
+    print the rank-0 straggler report (per-rank negotiation-age p50/p99,
+    naming the slowest rank)."""
+    from ..utils import metrics as M
+    report = M.straggler_report(harvest_metric_snapshots(rendezvous))
+    if report:
+        print(report, file=sink or sys.stderr, flush=True)
+
+
+def write_merged_timeline(rendezvous: RendezvousServer, path: str,
+                          sink=None) -> bool:
+    """Render the ``timeline`` KV scope as one merged Chrome/Perfetto JSON
+    (``--timeline-merge``; the same merge GET /timeline serves live).
+    Returns False when no worker published any chunk."""
+    import json as _json
+    from ..utils.timeline import merge_timeline_chunks
+    merged = merge_timeline_chunks(rendezvous.scope_items("timeline"))
+    have_events = any(e.get("ph") != "M" for e in merged["traceEvents"])
+    with open(path, "w") as f:
+        _json.dump(merged, f)
+    print(f"{PROG}: merged timeline: {path} "
+          f"({len(merged['traceEvents'])} events, "
+          f"{len(merged['metadata']['clock_sync'])} rank clocks)"
+          + ("" if have_events else " - no worker published trace chunks"),
+          file=sink or sys.stderr, flush=True)
+    return have_events
+
+
 class _Terminated(Exception):
     """SIGTERM to the launcher: end the workers as Ctrl-C does."""
 
@@ -746,9 +833,20 @@ def launch_static(args: argparse.Namespace, command: List[str],
     if join is not None and kv_shards > 1:
         raise ValueError("--kv-shards: a replica fleet that joins replica "
                          "0's router uses that router's KV")
+    # --metrics-port pins the rendezvous server so /metrics is scrapeable
+    # at a known address; metrics also engage via the ambient env knob,
+    # and --serve implies them (the hvd_serve_* SLO families)
+    metrics_enabled = (args.metrics_port is not None
+                       or getattr(args, "serve", None) is not None
+                       or os.environ.get("HOROVOD_METRICS", "") not in
+                       ("", "0", "false"))
     if rendezvous is None:
+        # port priority: --metrics-port > --serve-port > HOROVOD_SERVE_PORT
+        # > ephemeral
         rendezvous = RendezvousServer(
-            port=0 if join else resolve_serve_port(args), shards=kv_shards)
+            port=0 if join else (args.metrics_port
+                                 or resolve_serve_port(args)),
+            shards=kv_shards)
         rendezvous.start()
     rdv_port = rendezvous.port
     if join is not None:
@@ -758,8 +856,8 @@ def launch_static(args: argparse.Namespace, command: List[str],
     elif getattr(args, "serve", None):
         print(f"{PROG}: serving {args.serve}: POST http://"
               f"{socket.gethostname()}:{rdv_port}/generate  (stats: GET "
-              "/serve/stats, drain: POST /admin/drain)",
-              file=sys.stderr, flush=True)
+              "/serve/stats, drain: POST /admin/drain, metrics: GET "
+              "/metrics)", file=sys.stderr, flush=True)
     for slot in slots:
         rendezvous.put("rank", str(slot.rank),
                        repr(slot.to_env()).encode())
@@ -786,6 +884,13 @@ def launch_static(args: argparse.Namespace, command: List[str],
                                                  else rdv_port)
         updates["HOROVOD_CONTROLLER_PORT"] = str(args.controller_port)
         stamp_kv_shard_env(updates, coord_host, rendezvous, kv_shards)
+        if args.timeline_merge and not updates.get("HOROVOD_TIMELINE") \
+                and not os.environ.get("HOROVOD_TIMELINE"):
+            # --timeline-merge without --timeline-filename: per-rank local
+            # files beside the merged output (two local slots writing one
+            # shared path would race)
+            updates["HOROVOD_TIMELINE"] = \
+                f"{args.timeline_merge}.rank.{slot.rank}.json"
         if np_ > 1:
             updates["HOROVOD_COORDINATOR_ADDR"] = \
                 f"{coord_host}:{args.coordinator_port}"
@@ -808,7 +913,8 @@ def launch_static(args: argparse.Namespace, command: List[str],
              by_launcher: bool = False) -> None:
         """Record one worker exit; the first nonzero one a worker made
         itself sets the job's code.  (The JAX launcher also counts the
-        exit into its metrics by cause: ROADMAP queue 1 items 4.1, 4.3.)"""
+        exit into hvd_worker_exits_total by cause, which needs the
+        postmortem plane's classifier: ROADMAP queue 1 item 4.3.)"""
         nonlocal exit_code
         rc = proc.wait()
         join_output_pumps(proc)
@@ -816,6 +922,19 @@ def launch_static(args: argparse.Namespace, command: List[str],
                        "by_launcher": by_launcher}
         if rc != 0 and not by_launcher and exit_code == 0:
             exit_code = rc
+
+    # live straggler check: needs the metrics plane's per-rank snapshots
+    # and an explicit period (HOROVOD_STRAGGLER_CHECK_SECS > 0)
+    monitor = None
+    check_secs = float(os.environ.get("HOROVOD_STRAGGLER_CHECK_SECS",
+                                      "0") or 0)
+    if metrics_enabled and check_secs > 0:
+        from ..utils.metrics import StragglerMonitor
+        monitor = StragglerMonitor(
+            lambda: harvest_metric_snapshots(rendezvous),
+            interval=check_secs,
+            log_fn=lambda msg: print(msg, file=sys.stderr, flush=True))
+        monitor.start()
 
     main_thread = threading.current_thread() is threading.main_thread()
     old_term = signal.signal(signal.SIGTERM, _raise_terminated) \
@@ -867,6 +986,12 @@ def launch_static(args: argparse.Namespace, command: List[str],
     finally:
         if main_thread:
             signal.signal(signal.SIGTERM, old_term)
+        if monitor is not None:
+            monitor.stop()
+        if metrics_enabled:
+            report_stragglers(rendezvous)
+        if args.timeline_merge:
+            write_merged_timeline(rendezvous, args.timeline_merge)
         rendezvous.stop()
 
 

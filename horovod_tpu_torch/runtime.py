@@ -22,6 +22,18 @@ With ``HOROVOD_LAYOUT`` set, ``init`` resolves the (dp, tp, pp) layout of
 the world (``parallel/layout.py``; ``auto`` through the cost model's
 solver) after checking the layout knobs, and builds this rank's dp, tp and
 pp subgroups (``Runtime.layout``).  With it unset there is no layout.
+
+The measurement plane (``utils/``) is built at ``init`` as the JAX
+runtime builds it: the clock sync against the rendezvous (when one is
+named and a timeline is on), the ``Timeline`` (``HOROVOD_TIMELINE``) and
+its chunk publisher, the ``Autotuner`` (``HOROVOD_AUTOTUNE``; with the
+wire-policy arms under ``HOROVOD_WIRE_POLICY=auto`` and the depth arms
+when overlap is on), the ``StallInspector`` (unless
+``HOROVOD_STALL_CHECK_DISABLE``) and the ``MetricsPublisher``
+(``HOROVOD_METRICS``).  The native core, when it comes up, gets the
+autotune switch and the trace drainer.  ``fusion_threshold``,
+``wire_policy``, ``overlap_depth`` and ``zero_ag_prefetch`` follow the
+autotuner while it tunes.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ from __future__ import annotations
 import atexit
 import datetime
 import threading
-from typing import Any, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -92,13 +104,11 @@ class Runtime:
         validate_serve_knobs(knobs)
         from .parallel.layout import (build_layout, resolve_layout,
                                       validate_layout_knobs)
-        for name in ("HOROVOD_AUTOTUNE", "HOROVOD_TIMELINE",
-                     "HOROVOD_FLIGHT_RECORD"):
-            if knobs[name]:
-                raise NotImplementedError(
-                    f"{name}: the controller's autotuning, timeline and "
-                    "flight recorder come with the measurement-planes slice "
-                    "(ROADMAP queue 1 item 8)")
+        if knobs["HOROVOD_FLIGHT_RECORD"]:
+            raise NotImplementedError(
+                "HOROVOD_FLIGHT_RECORD: the native core's crash-time flight "
+                "recorder comes with the postmortem plane (ROADMAP queue 1 "
+                "item 4.3)")
         validate_kv_knobs(knobs)
         self._controller = knobs["HOROVOD_CONTROLLER"].strip().lower()
         if self._controller not in ("auto", "tcp", "none"):
@@ -107,6 +117,13 @@ class Runtime:
                 "'auto', 'tcp' or 'none'")
         self.core = None
         self.eager: Any = None  # the eager API's state (torch/mpi_ops.py)
+        self.clock_sync = None
+        self.timeline = None
+        self.timeline_publisher = None
+        self._trace_drainer = None
+        self.autotuner = None
+        self.stall_inspector = None
+        self.metrics_publisher = None
         self._size = max(knobs["HOROVOD_SIZE"], 1)
         self._rank = max(knobs["HOROVOD_RANK"], 0)
         self._local_rank = max(knobs["HOROVOD_LOCAL_RANK"], 0)
@@ -155,8 +172,54 @@ class Runtime:
         self.hierarchy = self._build_hierarchy()
         # this rank's coordinate and dp, tp and pp subgroups, or None
         self.layout = build_layout(*dims) if dims is not None else None
+        self._start_measurement()
         if self._controller == "tcp":
             self.ensure_core()
+
+    def _start_measurement(self) -> None:
+        """The measurement plane of this rank (``horovod_tpu/runtime.py``
+        :129-290): clock sync, timeline and publisher, autotuner, stall
+        inspector, metrics publisher."""
+        knobs = self.knobs
+        rdv_addr = knobs["HOROVOD_RENDEZVOUS_ADDR"]
+        rdv_port = knobs["HOROVOD_RENDEZVOUS_PORT"]
+        path = knobs["HOROVOD_TIMELINE"]
+        if rdv_addr and rdv_port and path:
+            from .utils.clocksync import ClockSync
+            self.clock_sync = ClockSync(rdv_addr, rdv_port)
+        if path and path != "DYNAMIC":
+            from .utils.timeline import Timeline
+            self.timeline = Timeline(
+                path, mark_cycles=knobs["HOROVOD_TIMELINE_MARK_CYCLES"],
+                clock=self.clock_sync, rank=self._rank)
+            self._start_timeline_publisher()
+        if knobs["HOROVOD_AUTOTUNE"]:
+            from .utils.autotune import Autotuner
+            policy_arms = None
+            if knobs["HOROVOD_WIRE_POLICY"] == "auto":
+                policy_arms = ["auto", "none", "bf16", "int8_ring"]
+                if self.hierarchy is not None:
+                    policy_arms.append("dcn_int8")
+            depth_arms = None
+            if knobs["HOROVOD_OVERLAP"]:
+                depth_arms = sorted({1, 2, 4,
+                                     int(knobs["HOROVOD_OVERLAP_DEPTH"])})
+            self.autotuner = Autotuner(knobs, process_rank=self._rank,
+                                       process_size=self._size,
+                                       policy_arms=policy_arms,
+                                       depth_arms=depth_arms,
+                                       device=self.device)
+        if not knobs["HOROVOD_STALL_CHECK_DISABLE"]:
+            from .utils.stall import StallInspector
+            self.stall_inspector = StallInspector(
+                warn_seconds=knobs["HOROVOD_STALL_CHECK_TIME_SECONDS"],
+                shutdown_seconds=knobs["HOROVOD_STALL_SHUTDOWN_TIME_SECONDS"])
+        if knobs["HOROVOD_METRICS"]:
+            from .utils.metrics import MetricsPublisher
+            self.metrics_publisher = MetricsPublisher(
+                addr=rdv_addr, port=rdv_port, rank=self._rank,
+                snapshot_fn=self.metrics_snapshot,
+                interval=knobs["HOROVOD_METRICS_INTERVAL"])
 
     def _build_hierarchy(self):
         """``(cross_group, local_group)`` of this rank on a two-level layout
@@ -190,6 +253,16 @@ class Runtime:
             fusion_bytes=self.fusion_threshold(),
             cache_capacity=self.knobs["HOROVOD_CACHE_CAPACITY"],
             stall_warn_seconds=self.knobs["HOROVOD_STALL_CHECK_TIME_SECONDS"])
+        if self.knobs["HOROVOD_AUTOTUNE"]:
+            self.core.enable_autotune(
+                warmup_samples=self.knobs["HOROVOD_AUTOTUNE_WARMUP_SAMPLES"],
+                steps_per_sample=self.knobs[
+                    "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE"],
+                max_samples=self.knobs[
+                    "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"],
+                gp_noise=self.knobs[
+                    "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"])
+        self._attach_native_trace()
         return self.core
 
     def rank(self) -> int:
@@ -212,22 +285,129 @@ class Runtime:
         return -(-self._size // self._local_size)
 
     def fusion_threshold(self) -> int:
+        """Live fusion threshold: autotuned when enabled, knob otherwise."""
+        if self.autotuner is not None:
+            return self.autotuner.fusion_threshold
         return self.knobs["HOROVOD_FUSION_THRESHOLD"]
 
     def wire_policy(self) -> str:
         """Live wire-policy name of the fused gradient sync (ops/wire.py):
-        the knob, read through ``current`` (env wins)."""
-        return validate_policy_name(current("HOROVOD_WIRE_POLICY"))
+        the knob, read through ``current`` (env wins), and under tuning
+        'auto' refined to the bandit's current policy arm, which every
+        rank holds alike (``utils/autotune.py``)."""
+        name = validate_policy_name(current("HOROVOD_WIRE_POLICY"))
+        if name == "auto" and self.autotuner is not None:
+            arm = self.autotuner.wire_policy
+            if arm is not None:
+                return arm
+        return name
 
     def overlap_depth(self) -> int:
         """Live microbatch-pipeline depth (ops/overlap.py): the knob, read
-        through ``current``."""
+        through ``current``, refined to the bandit's depth arm when tuning
+        is on."""
         validate_overlap_knobs({
             name: current(name) for name in ("HOROVOD_OVERLAP_DEPTH",
                                              "HOROVOD_PREFETCH_DEPTH")})
-        return int(current("HOROVOD_OVERLAP_DEPTH"))
+        depth = int(current("HOROVOD_OVERLAP_DEPTH"))
+        if self.autotuner is not None:
+            arm = self.autotuner.overlap_depth
+            if arm is not None:
+                return arm
+        return depth
+
+    def zero_ag_prefetch(self) -> int:
+        """Live ZeRO-3 parameter all-gather prefetch depth: the knob, read
+        through ``current``, refined to the bandit's depth arm when tuning
+        is on (the same arm dimension the microbatch pipeline tunes)."""
+        depth = int(current("HOROVOD_ZERO_AG_PREFETCH"))
+        if self.autotuner is not None:
+            arm = self.autotuner.overlap_depth
+            if arm is not None:
+                return arm
+        return depth
+
+    # -------------------------------------------------------------- metrics
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        """Point-in-time view of every metric family this process holds
+        (the public ``hvd.metrics_snapshot()``): registry values refreshed
+        from their live sources (native controller counters, histograms
+        and windowed rates, the bucket-plan cache, the stall inspector) in
+        one JSON-able dict."""
+        from .utils import metrics as M
+        M.RUNTIME_SIZE.set(self.size())
+        M.RUNTIME_LOCAL_SIZE.set(self.local_size())
+        M.PLAN_CACHE_HITS.set_total(self.plan_cache.hits)
+        M.PLAN_CACHE_MISSES.set_total(self.plan_cache.misses)
+        if self.stall_inspector is not None:
+            M.STALL_PENDING.set(self.stall_inspector.pending_count())
+        core = self.core
+        if core is not None and getattr(core, "_h", None):
+            M.import_core_metrics(core.metrics())
+            M.import_window_rates(core.metrics_window())
+        return M.REGISTRY.snapshot()
+
+    # ------------------------------------------------------------- timeline
+    def _start_timeline_publisher(self) -> None:
+        """Chunk publishing to the rendezvous 'timeline' scope, when a
+        server is known: what GET /timeline and --timeline-merge read."""
+        addr = self.knobs["HOROVOD_RENDEZVOUS_ADDR"]
+        port = self.knobs["HOROVOD_RENDEZVOUS_PORT"]
+        if not (addr and port) or self.timeline is None:
+            return
+        from .utils.timeline import TimelinePublisher
+        self.timeline_publisher = TimelinePublisher(
+            addr=addr, port=port, rank=self._rank, timeline=self.timeline,
+            interval=self.knobs["HOROVOD_TIMELINE_MERGE_INTERVAL"],
+            clock=self.clock_sync,
+            replica=int(self.knobs["HOROVOD_SERVE_REPLICA_ID"]))
+
+    def _attach_native_trace(self) -> None:
+        """Pump the native core's span ring into the timeline (idempotent;
+        called whenever either side comes up after the other)."""
+        if self.core is None or self.timeline is None \
+                or self._trace_drainer is not None:
+            return
+        from .utils.timeline import NativeTraceDrainer
+        self._trace_drainer = NativeTraceDrainer(self.core, self.timeline)
+
+    def start_timeline(self, path: str, mark_cycles: bool = False) -> None:
+        """Runtime-activated timeline (reference: operations.cc:740-769)."""
+        from .utils.timeline import Timeline
+        self.stop_timeline()
+        if self.clock_sync is None:
+            addr = self.knobs["HOROVOD_RENDEZVOUS_ADDR"]
+            port = self.knobs["HOROVOD_RENDEZVOUS_PORT"]
+            if addr and port:
+                from .utils.clocksync import ClockSync
+                self.clock_sync = ClockSync(addr, port)
+        self.timeline = Timeline(path, mark_cycles=mark_cycles,
+                                 clock=self.clock_sync, rank=self._rank)
+        self._start_timeline_publisher()
+        self._attach_native_trace()
+
+    def stop_timeline(self) -> None:
+        if self._trace_drainer is not None:
+            self._trace_drainer.close()
+            self._trace_drainer = None
+        if self.timeline_publisher is not None:
+            self.timeline_publisher.close()
+            self.timeline_publisher = None
+        if self.timeline is not None:
+            self.timeline.close()
+            self.timeline = None
 
     def shutdown(self) -> None:
+        # the final metrics publish while the native core is alive, so the
+        # straggler report sees complete histograms; then the final native
+        # drain, the final chunk publish and the local file
+        if self.metrics_publisher is not None:
+            self.metrics_publisher.close()
+        self.stop_timeline()
+        if self.autotuner is not None:
+            self.autotuner.close()
+        if self.stall_inspector is not None:
+            self.stall_inspector.close()
         if self.core is not None:
             self.core.shutdown()
             self.core.close()

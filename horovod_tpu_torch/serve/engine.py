@@ -36,10 +36,15 @@ imports it straight into decode state (:meth:`ServeEngine.import_prefill`).
 ``python -m horovod_tpu_torch.runner.launch --serve DIR`` serves
 (``serve/worker.py``).
 
+SLO telemetry as in the JAX engine: the ``hvd_serve_*`` metrics (TTFT,
+TPOT, tokens by phase, prefill chunks, drafts, prefix hits, spills,
+imports, handoffs, requests by outcome, queue depth and batch fill), and
+per-request NEGOTIATE (queue wait), PREFILL, DECODE, HANDOFF and
+SPILL_RELOAD spans on the timeline's ``serve`` lane when one is active.
+
 Departures: each rank holds the whole pool, where the JAX engine shards
 its blocks over the mesh's data axis (``cache_shardings``, ROADMAP queue 1
-item 3.3); the ``hvd_serve_*`` metrics, the per-request timeline spans and
-the memory plane's KV-pool provider wait for items 4.1 and 4.2.
+item 3.3); the memory plane's KV-pool provider waits for item 4.2.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ import torch
 
 from .. import runtime as _rt
 from ..models import llama as _llama
+from ..utils import metrics as M
 from ..models import moe_llama as _moe
 from .config import ServeConfig
 
@@ -284,6 +290,7 @@ class PrefixCache:
                 return False
         self.spill.reload(node, blocks[0])
         node.block = blocks[0]
+        M.SERVE_SPILL_RELOADS.inc()
         return True
 
     def match(self, prompt: List[int]
@@ -381,6 +388,7 @@ class PrefixCache:
             if self.spill is not None and self.spill.spill(victim):
                 self.allocator.free([victim.block])
                 victim.block = None
+                M.SERVE_SPILLS.inc()
             else:
                 del victim.parent.children[victim.tokens]
                 self.allocator.free([victim.block])
@@ -643,6 +651,9 @@ class Scheduler:
             self.prefix.hits += 1
             self.prefix.hit_tokens += hit
             self.prefix.blocks_shared += len(shared)
+            M.SERVE_PREFIX_HITS.inc()
+            if shared:
+                M.SERVE_PREFIX_BLOCKS_SHARED.inc(len(shared))
         req.pos = req.ctx_len = hit
         return shared + blocks
 
@@ -905,8 +916,8 @@ class ServeEngine:
         """Decode-side intake of a prefill engine's handoff record: queue
         it for installation (``Scheduler._drain_imports``); the request
         enters the slot table in decode state with its prompt KV written
-        from the payload, skipping prefill.  (The JAX engine also counts
-        it and records a HANDOFF span: ROADMAP queue 1 item 4.1.)"""
+        from the payload, skipping prefill; counted, with a HANDOFF span
+        of the record's transit."""
         req = Request(handoff["tokens"], int(handoff["max_new_tokens"]),
                       req_id=handoff.get("req_id"),
                       eos_id=(handoff.get("eos_id")
@@ -922,6 +933,10 @@ class ServeEngine:
         payloads = [decode_block_payload(p) for p in handoff["blocks"]]
         self.scheduler.queue_import(req, payloads,
                                     int(handoff["first_token"]))
+        M.SERVE_IMPORTS.inc()
+        self._span("HANDOFF", req, req.handoff_s,
+                   end_t=time.perf_counter(),
+                   extra={"blocks": len(handoff["blocks"])})
         return req
 
     def prefix_fps(self) -> Tuple[List[str], str]:
@@ -949,6 +964,8 @@ class ServeEngine:
             report["emitted"].setdefault(req.req_id, []).extend(toks)
             if req.state == "done":
                 report["finished"].append(req)
+        M.SERVE_QUEUE_DEPTH.set(self.scheduler.queue_depth)
+        M.SERVE_BATCH_FILL.set(self._last_fill)
         return report
 
     def flush(self) -> List[Dict[str, Any]]:
@@ -959,11 +976,28 @@ class ServeEngine:
         return out
 
     def _dispatch(self) -> None:
+        spill = self._spill
+        reloads0 = spill.reloaded_total if spill is not None else 0
         work = self.scheduler.plan()
         # handoff imports staged by the plan land in the pool before this
         # tick's step reads it (stream-ordered copies)
         for b, payload in self.scheduler.take_pending_writes():
             self._write_block(b, payload)
+        for slot, req, n in work:
+            if req.admitted_t is not None and not req.pos and \
+                    req.state == "prefill" and req.ctx_len == 0:
+                # queue-wait span, emitted once at admission
+                self._span("NEGOTIATE", req,
+                           req.admitted_t - req.submitted_t,
+                           end_t=req.admitted_t)
+        if spill is not None and spill.reloaded_total > reloads0:
+            for slot, req, n in work:
+                if req.state == "prefill":
+                    self._span("SPILL_RELOAD", req, 0.0,
+                               end_t=time.perf_counter(),
+                               extra={"reloads": spill.reloaded_total
+                                      - reloads0})
+                    break
         if not work:
             return
         cfg = self.cfg
@@ -1055,6 +1089,8 @@ class ServeEngine:
                 req.ctx_len += n
                 self._tokens_prefill += n
                 self._prefill_chunks += 1
+                M.SERVE_TOKENS.inc(n, phase="prefill")
+                M.SERVE_PREFILL_CHUNKS.inc()
                 if req.pos < req.prompt_len:
                     continue  # still prefilling next tick
                 if self.scheduler.role == "prefill":
@@ -1068,6 +1104,7 @@ class ServeEngine:
                     self.scheduler.finish(req, "prefill_done")
                     finished.append(req)
                     self._handoffs += 1
+                    M.SERVE_HANDOFFS.inc()
                     continue
                 req.state = "decode"
                 self.scheduler.register_prefix(req)
@@ -1088,6 +1125,9 @@ class ServeEngine:
                 if req.draft:
                     self._spec_drafted += len(req.draft)
                     self._spec_accepted += accepted
+                    M.SERVE_SPEC_DRAFTED.inc(len(req.draft))
+                    if accepted:
+                        M.SERVE_SPEC_ACCEPTED.inc(accepted)
             emitted_n = 0
             for tok in new_toks:
                 req.out_tokens.append(tok)
@@ -1095,17 +1135,50 @@ class ServeEngine:
                 emitted_n += 1
                 if req.first_token_t is None:
                     req.first_token_t = now
+                    M.SERVE_TTFT.observe(req.ttft())
+                    self._span("PREFILL", req, now - req.admitted_t,
+                               end_t=now, extra={"prompt": req.prompt_len})
                 if (req.eos_id is not None and tok == req.eos_id) or \
                         len(req.out_tokens) >= req.max_new_tokens:
                     reason = ("eos" if req.eos_id is not None
                               and tok == req.eos_id else "completed")
                     self.scheduler.finish(req, reason)
                     finished.append(req)
+                    tpot = req.tpot()
+                    if tpot is not None:
+                        M.SERVE_TPOT.observe(tpot)
+                    M.SERVE_REQUESTS.inc(outcome=reason)
+                    self._span("DECODE", req,
+                               req.done_t - req.first_token_t,
+                               end_t=req.done_t,
+                               extra={"generated": len(req.out_tokens)})
                     break  # verified-but-post-EOS drafts are discarded
             if decode_row:
                 self._tokens_decode += emitted_n
+                M.SERVE_TOKENS.inc(emitted_n, phase="decode")
         return {"tick": tick, "processed": used, "emitted": emitted,
                 "finished": finished, "handoff": handoffs}
+
+    # ------------------------------------------------------------- spans
+    def _span(self, phase: str, req: Request, duration_s: float,
+              end_t: float, extra: Optional[dict] = None) -> None:
+        """Per-request phase span on the timeline's 'serve' lane
+        (``utils/timeline.record_span``), ending at ``end_t``
+        (``time.perf_counter``); no-op without an active timeline."""
+        if not _rt.is_initialized():
+            return
+        tl = _rt.get().timeline
+        if tl is None:
+            return
+        from . import trace as _trace
+        args = _trace.span_args(getattr(req, "trace", None), phase,
+                                rid=req.req_id, req=req.req_id)
+        if extra:
+            args.update(extra)
+        dur_us = max(duration_s, 0.0) * 1e6
+        lag_us = (time.perf_counter() - end_t) * 1e6
+        tl.record_span("serve", phase, dur_us, args=args,
+                       ts_us=tl.now_us() - lag_us - dur_us)
 
     # -------------------------------------------------------------- view
     def kv_pool(self) -> Dict[str, Any]:

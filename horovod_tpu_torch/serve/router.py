@@ -2,11 +2,13 @@
 HTTP server (docs/serving.md), the port of ``horovod_tpu/serve/router.py``
 with the same routes, scopes, keys, records, status codes and headers.
 
-The JAX router also counts into the ``hvd_serve_*``/``hvd_router_*``
-metrics, emits the merged timeline's ROUTE and STREAM spans, and shows the
-watch plane's firing alerts in ``/serve/stats``.  The port has none of
-those planes yet (ROADMAP queue 1 items 4.1 and 4.3), so those calls are
-left out here, each where it stood.
+As the JAX router does, it counts into the ``hvd_serve_*`` and
+``hvd_router_*`` metrics (sheds, journal depth, drains, trace records and
+pruning, lifecycle components, routed, affinity hits and misses, replicas
+up, re-dispatches) and emits the merged timeline's ROUTE and STREAM spans
+(``runner/http_server.trace_span``); telemetry never takes the front door
+down.  The JAX view's firing alerts in ``/serve/stats`` wait for the watch
+plane (ROADMAP queue 1 item 4.3).
 
 ``POST /generate`` accepts ``{"tokens": [...], "max_new_tokens": N}``,
 enqueues the request onto the rendezvous KV (scope ``serve_req`` —
@@ -184,6 +186,7 @@ class RouterState:
     def try_claim(self) -> Optional[int]:
         """Next sequence number, or None under shedding/drain (the
         reason lands in ``reject_reason`` for the status code)."""
+        from ..utils import metrics as M
         with self._lock:
             if self.draining:
                 self.rejected += 1
@@ -197,15 +200,22 @@ class RouterState:
                 self.rejected += 1
                 self.shed += 1
                 self.reject_reason = "shed"
-                return None  # hvd_serve_sheds_total: item 4.1
+                M.SERVE_SHEDS.inc()
+                return None
             seq = self.next_seq
             self.next_seq += 1
             self.reject_reason = None
-            return seq  # hvd_serve_journal_depth: item 4.1
+            if self.journal:
+                M.SERVE_JOURNAL_DEPTH.set(self.next_seq - self.completed)
+            return seq
 
     def finish_stream(self) -> None:
+        from ..utils import metrics as M
         with self._lock:
             self.completed += 1
+            if self.journal:
+                M.SERVE_JOURNAL_DEPTH.set(
+                    max(0, self.next_seq - self.completed))
 
     def observe_done(self, tpot_s: Any, n_tokens: int) -> None:
         """Feed one finished request's measured decode time into the
@@ -380,17 +390,25 @@ def _trace_key(replica_id: int, rid: str) -> str:
 def _trace_put(server, tkey: str, rec: Dict[str, Any]) -> None:
     """Write one request's serve_trace record (in-process store) and
     enforce the bounded retention (serve/trace.py TRACE_RETAIN)."""
+    from ..utils import metrics as M
     store = _store(server, trace_mod.TRACE_SCOPE)
     with store.kv_lock:
         scope = store.kv.setdefault(trace_mod.TRACE_SCOPE, {})
         times = store.kv_times.setdefault(trace_mod.TRACE_SCOPE, {})
+        fresh = tkey not in scope
         scope[tkey] = json.dumps(rec).encode()
         times[tkey] = time.time()
         pruned = trace_mod.prune_keys(list(scope))
         for k in pruned:
             scope.pop(k, None)
             times.pop(k, None)
-    # hvd_serve_trace_records_total / _pruned_total: item 4.1
+    try:
+        if fresh:
+            M.SERVE_TRACE_RECORDS.inc()
+        if pruned:
+            M.SERVE_TRACE_PRUNED.inc(len(pruned))
+    except Exception:
+        pass  # telemetry must never take the front door down
 
 
 def _finalize_trace(server, trace_rec: Dict[str, Any], tkey: str,
@@ -400,10 +418,10 @@ def _finalize_trace(server, trace_rec: Dict[str, Any], tkey: str,
     measured wall time into lifecycle components that sum EXACTLY to it
     (serve/trace.py ``attribute`` — over-attribution rescaled with the
     ratio kept observable), persist, export the component histograms,
-    and emit the router-side STREAM span (the histograms and the span
-    wait for item 4.1).  A timed-out request keeps
+    and emit the router-side STREAM span.  A timed-out request keeps
     its record (status ``timeout``, no components) — forensics must
     cover requests that died mid-flight."""
+    from ..utils import metrics as M
     now = time.time()
     wall = max(0.0, now - float(trace_rec.get("submitted_t") or now))
     trace_rec["status"] = status
@@ -418,6 +436,17 @@ def _finalize_trace(server, trace_rec: Dict[str, Any], tkey: str,
         trace_rec["n_tokens"] = len(done_rec.get("tokens") or ())
         trace_rec["ttft_s"] = done_rec.get("ttft_s")
         trace_rec["tpot_s"] = done_rec.get("tpot_s")
+        try:
+            for c, v in comps.items():
+                M.SERVE_COMPONENT_SECONDS.observe(v, component=c)
+            M.SERVE_TRACE_OVERATTRIBUTION.set(ratio)
+        except Exception:
+            pass  # telemetry must never take the front door down
+        from ..runner.http_server import trace_span
+        ctx = trace_rec.get("trace") or {}
+        trace_span(server, "stream", "STREAM",
+                   start_t=now - comps["stream"], dur_s=comps["stream"],
+                   args=trace_mod.span_args(ctx, "STREAM"))
     _trace_put(server, tkey, trace_rec)
 
 
@@ -450,6 +479,7 @@ def handle_generate(handler) -> None:
     ({"tokens": [...]} parts, then {"done": ...}) as the engine
     publishes them.  Connection close delimits the body (HTTP/1.0
     semantics of the rendezvous server)."""
+    from ..utils import metrics as M
     server = handler.server
     length = int(handler.headers.get("Content-Length", 0))
     raw = handler.rfile.read(length)
@@ -472,7 +502,14 @@ def handle_generate(handler) -> None:
                          "stale); retry",
                 "replicas": rr.counters(time.time())})
             return
-        rid_replica, hit_blocks = placed  # hvd_router_*: item 4.1
+        rid_replica, hit_blocks = placed
+        try:
+            M.ROUTER_ROUTED.inc(replica=str(rid_replica))
+            (M.ROUTER_AFFINITY_HITS if hit_blocks
+             else M.ROUTER_AFFINITY_MISSES).inc()
+            M.ROUTER_REPLICAS_UP.set(len(rr.live(time.time())))
+        except Exception:
+            pass  # telemetry must never take the front door down
     placement_s = time.perf_counter() - place_t0
     state = get_router_state(server, rid_replica)
     seq = state.try_claim()
@@ -523,7 +560,13 @@ def handle_generate(handler) -> None:
     }
     try:
         _enqueue_request(server, state, rid_replica, req, key)
-        _trace_put(server, tkey, trec)  # the ROUTE span: item 4.1
+        _trace_put(server, tkey, trec)
+        from ..runner.http_server import trace_span
+        trace_span(server, "router", "ROUTE",
+                   start_t=req["submitted_t"] - placement_s,
+                   dur_s=placement_s,
+                   args=trace_mod.span_args(ctx, "ROUTE",
+                                            replica=rid_replica))
         handler.send_response(200)
         handler.send_header("Content-Type", "application/x-ndjson")
         handler.send_header("X-Serve-Request-Id", key)
@@ -551,6 +594,7 @@ def _redispatch(server, rr: ReplicaRouter, req: Dict[str, Any],
     Returns ``(new_rid, new_key, new_state)`` or None (no survivor, or
     the survivor is shedding — the caller keeps waiting until the
     original replica returns or the stream times out)."""
+    from ..utils import metrics as M
     now = time.time()
     placed = rr.route(req["tokens"], now, exclude=[dead_rid])
     if placed is None:
@@ -568,7 +612,12 @@ def _redispatch(server, rr: ReplicaRouter, req: Dict[str, Any],
     rec["resume_part"] = int(part)
     rec["redispatched_from"] = dead_rid
     _enqueue_request(server, new_state, new_rid, rec, new_key)
-    rr.note_redispatch()  # hvd_router_redispatches_total: item 4.1
+    rr.note_redispatch()
+    try:
+        M.ROUTER_REDISPATCHES.inc()
+        M.ROUTER_ROUTED.inc(replica=str(new_rid))
+    except Exception:
+        pass  # telemetry must never take the front door down
     return new_rid, new_key, new_state
 
 
@@ -743,12 +792,18 @@ def handle_drain(handler) -> None:
     and report the outcome.  200 = drained clean (the workers exit 0);
     504 = the fleet did not acknowledge within the budget."""
     from ..common.knobs import Knobs
+    from ..utils import metrics as M
     server = handler.server
     rr = get_replica_router(server)
     rids = (sorted(rr.replicas)
             if refresh_replicas(server, rr) else [0])
-    for rid in rids:  # hvd_serve_drains_total: item 4.1
-        get_router_state(server, rid).draining = True
+    first = False
+    for rid in rids:
+        state = get_router_state(server, rid)
+        first = first or not state.draining
+        state.draining = True
+    if first:
+        M.SERVE_DRAINS.inc()
     stores = {}
     for rid in rids:
         st_scope = scoped(STATS_SCOPE, rid)

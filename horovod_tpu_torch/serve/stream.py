@@ -1,9 +1,9 @@
 """Direct token streaming: the serving plane's hottest path off the KV
 (docs/control-plane.md#direct-streaming), the port of
 ``horovod_tpu/serve/stream.py`` with the same route, records and fallback.
-The JAX module also counts direct tokens into ``hvd_serve_*`` and marks
-each handoff's transit on the merged timeline; both wait for ROADMAP
-queue 1 item 4.1.
+Direct tokens count into ``hvd_serve_stream_direct_tokens_total`` at the
+router's ingest, and each handoff's transit is a KV_HANDOFF span on the
+merged timeline, as in the JAX module.
 
 Before this module, every generated token rode the rendezvous KV twice:
 rank 0 PUT a ``serve_out`` part, then the router busy-polled the scope
@@ -123,7 +123,18 @@ def ingest_record(server, rec: Dict[str, Any]) -> bool:
             store.kv.setdefault(kv_scope, {})[key] = \
                 json.dumps(payload).encode()
             store.kv_times.setdefault(kv_scope, {})[key] = now
-        wake_stream(server, kv_scope, key)  # KV_HANDOFF span: item 4.1
+        wake_stream(server, kv_scope, key)
+        if isinstance(payload, dict) and payload.get("trace"):
+            # the handoff's router transit on the merged timeline: one
+            # instant-like span linking the prefill fleet's export to the
+            # decode fleet's import
+            from ..runner.http_server import trace_span
+            from . import trace as trace_mod
+            trace_span(server, "handoff", "KV_HANDOFF",
+                       start_t=now, dur_s=0.0,
+                       args=trace_mod.span_args(
+                           payload["trace"], "KV_HANDOFF",
+                           rid=str(payload.get("req_id") or "")))
         return True
     rid = rec.get("rid")
     if not rid or not isinstance(rid, str):
@@ -138,9 +149,11 @@ def ingest_record(server, rec: Dict[str, Any]) -> bool:
     if "tokens" in rec and rec.get("part") is not None:
         key = f"{rid}.part.{int(rec['part']):06d}"
         value = json.dumps({"tokens": rec["tokens"]}).encode()
+        ntokens = len(rec["tokens"] or ())
     elif isinstance(rec.get("done"), dict):
         key = f"{rid}.done"
         value = json.dumps(rec["done"]).encode()
+        ntokens = 0
     else:
         return False
     store = store_for(server, out_scope)
@@ -148,8 +161,13 @@ def ingest_record(server, rec: Dict[str, Any]) -> bool:
     with store.kv_lock:
         store.kv.setdefault(out_scope, {})[key] = value
         store.kv_times.setdefault(out_scope, {})[key] = now
-    # hvd_serve_stream_direct_tokens_total: item 4.1
     wake_stream(server, out_scope, key)
+    if ntokens:
+        try:
+            from ..utils import metrics as M
+            M.SERVE_STREAM_DIRECT_TOKENS.inc(ntokens)
+        except Exception:
+            pass  # telemetry must never break token delivery
     return True
 
 

@@ -48,10 +48,13 @@ Fault tolerance (docs/serving.md#fault-tolerance):
     signal (scope ``serve`` key ``drain``); rank 0 stops admitting new
     work, finishes everything accepted, publishes the ``drained`` ack
     and stops the fleet with exit 0 (preemption-safe rolling restart);
-Left out until the port has their planes: the JAX loop's serve-aware
-chaos (``chaos.step``/``maybe_stall``, ROADMAP queue 1 item 4.5), its
-``postmortem.record_step`` liveness tick (item 4.3) and the
-``hvd_serve_*`` metrics (item 4.1).
+SLO observability is inherited, not added: the engine records the
+``hvd_serve_*`` metrics (published by the runtime's ``MetricsPublisher``
+to ``/metrics``, which ``--serve`` turns on) and per-request spans into
+the merged timeline, and rank 0 counts redriven requests.  Left out until
+the port has their planes: the JAX loop's serve-aware chaos
+(``chaos.step``/``maybe_stall``, ROADMAP queue 1 item 4.5) and its
+``postmortem.record_step`` liveness tick (item 4.3).
 """
 
 from __future__ import annotations
@@ -269,8 +272,10 @@ class FleetFrontend:
         if entries and self.epoch > 0:
             # Epoch 0 is first bring-up: journal entries there are just
             # requests accepted before the fleet was ready, not replays.
-            # (hvd_serve_redrives_total: item 4.1.)  Redrive forensics:
-            # every log line that acts on a request names its rid.
+            from ..utils import metrics as M
+            M.SERVE_REDRIVES.inc(len(entries))
+            # Redrive forensics: every log line that acts on a request
+            # names its rid.
             rids = ", ".join(str(e.get("id")) for e in entries)
             print(f"[hvd.serve] rank 0 epoch {self.epoch}: redriving "
                   f"{len(entries)} journaled request(s) [{rids}] "

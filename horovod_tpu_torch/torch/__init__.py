@@ -117,15 +117,14 @@ def mpi_threads_supported() -> bool:
 
 
 def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
-    raise NotImplementedError(
-        "the timeline comes with the measurement-planes slice (ROADMAP "
-        "queue 1 item 8)")
+    """Start writing this rank's Chrome-trace timeline to ``file_path``:
+    every negotiated op's NEGOTIATE, QUEUE and EXEC phases (reference:
+    horovod_start_timeline, operations.cc:740-769)."""
+    _rt.get().start_timeline(file_path, mark_cycles=mark_cycles)
 
 
 def stop_timeline() -> None:
-    raise NotImplementedError(
-        "the timeline comes with the measurement-planes slice (ROADMAP "
-        "queue 1 item 8)")
+    _rt.get().stop_timeline()
 
 
 __all__ = [

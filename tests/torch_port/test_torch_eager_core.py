@@ -4,6 +4,7 @@ in the same order, with the same fused names; plus the port's builder,
 binding, knobs and the signature dialect."""
 
 import os
+import socket
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from horovod_tpu.common import basics as JB
 from horovod_tpu.ops import negotiated as JN
 
 import horovod_tpu_torch as hvd
+import horovod_tpu_torch.torch as ht
 from horovod_tpu_torch.common import basics as TB
 from horovod_tpu_torch.common.exceptions import DuplicateTensorNameError
 from horovod_tpu_torch.ops import _native, negotiated as TN
@@ -24,6 +26,12 @@ RANKS = 4
 CYCLE_MS = 250.0
 FUSION_BYTES = 256
 ATTEMPTS = 10
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _round(rng, names_sigs):
@@ -229,13 +237,42 @@ def test_signature_rows_free_for_ragged_kinds():
         group.sig, torch.device("cpu"))] == [(5, 2), (3,)]
 
 
-@pytest.mark.parametrize("knob", ["HOROVOD_AUTOTUNE", "HOROVOD_TIMELINE",
-                                  "HOROVOD_FLIGHT_RECORD"])
+@pytest.mark.parametrize("knob", ["HOROVOD_FLIGHT_RECORD"])
 def test_unported_controller_knobs_raise(monkeypatch, knob):
     monkeypatch.setenv(knob, "1")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4.3"):
         hvd.init(device="cpu")
     assert not hvd.is_initialized()
+
+
+@pytest.mark.parametrize("knob", ["HOROVOD_AUTOTUNE", "HOROVOD_TIMELINE"])
+def test_measure_knobs_start_their_plane(monkeypatch, tmp_path, knob):
+    """HOROVOD_AUTOTUNE and HOROVOD_TIMELINE start their planes at init:
+    the autotuner at the knob's threshold, the timeline writing the
+    negotiated ops' lifecycle."""
+    monkeypatch.setenv("HOROVOD_CONTROLLER", "tcp")
+    monkeypatch.setenv("HOROVOD_CONTROLLER_PORT", str(_free_port()))
+    path = tmp_path / "tl.json"
+    monkeypatch.setenv(knob, "1" if knob == "HOROVOD_AUTOTUNE" else str(path))
+    rt = hvd.init(device="cpu")
+    try:
+        if knob == "HOROVOD_AUTOTUNE":
+            assert hvd.autotuner() is rt.autotuner is not None
+            assert rt.fusion_threshold() == \
+                rt.knobs["HOROVOD_FUSION_THRESHOLD"]
+            assert rt.core.autotune_state() is not None
+            assert rt.timeline is None
+        else:
+            assert rt.timeline is not None and hvd.autotuner() is None
+        ht.allreduce(torch.ones(4), name="plane.x")
+    finally:
+        hvd.shutdown()
+    if knob == "HOROVOD_TIMELINE":
+        from horovod_tpu_torch.utils.timeline import load_trace_events
+        names = [e["name"] for e in load_trace_events(str(path))
+                 if e.get("ph") != "M"]
+        for phase in ("NEGOTIATE", "QUEUE", "EXEC"):
+            assert phase in names
 
 
 def test_controller_modes(monkeypatch):

@@ -3,8 +3,9 @@ package's (``horovod_tpu/runner/``), function by function on the same
 inputs: host specs and slot assignment, the env blocks, the CLI's knobs
 and config file, the worker command, the coordinator address, LSF hosts,
 the scope->shard map, GPU discovery with an injected device count, the
-rendezvous KV's wire protocol in both directions (sharded too), and every
-refused flag.  Nothing here spawns a worker
+rendezvous KV's wire protocol in both directions (sharded too), the
+measurement plane's flags and routes (``/metrics``, ``/clock``,
+``/timeline``), and every refused flag.  Nothing here spawns a worker
 (``test_torch_runner_gloo.py`` does)."""
 
 import os
@@ -99,12 +100,15 @@ _SHARED_ARGVS = [
     ["--no-timeline-mark-cycles", "--log-with-timestamp"],
     ["-H", "a:2,b:2", "--ssh-port", "22", "--verbose", "--tcp"],
     [],
+    ["--metrics-port", "9100", "--timeline-filename", "/tmp/tl.json",
+     "--timeline-mark-cycles", "--timeline-merge", "/tmp/merged.json"],
+    ["--autotune", "--autotune-log-file", "/tmp/at.csv",
+     "--autotune-warmup-samples", "1", "--autotune-steps-per-sample", "2",
+     "--autotune-bayes-opt-max-samples", "7",
+     "--autotune-gaussian-process-noise", "0.3"],
+    ["--no-stall-check", "--stall-check-shutdown-time-seconds", "90",
+     "--log-level", "debug", "--log-without-timestamp"],
 ]
-# what the JAX launcher stamps for the flags above that ask for what the
-# port does anyway (the stall check on, no timeline, timestamps shown);
-# the port stamps nothing for them
-_JAX_ONLY_KEYS = {"HOROVOD_STALL_CHECK_DISABLE", "HOROVOD_TIMELINE_MARK_CYCLES",
-                  "HOROVOD_LOG_HIDE_TIME"}
 
 
 @pytest.mark.parametrize("flags", _SHARED_ARGVS,
@@ -113,7 +117,7 @@ def test_args_to_env_matches_jax(flags):
     argv = ["-np", "2"] + flags + ["python", "t.py"]
     got = TL.args_to_env(TL.make_parser().parse_args(argv))
     want = JL.args_to_env(JL.make_parser().parse_args(argv))
-    assert got == {k: v for k, v in want.items() if k not in _JAX_ONLY_KEYS}
+    assert got == want
     assert TL.refused_flag(TL.make_parser().parse_args(argv)) is None
 
 
@@ -164,13 +168,23 @@ def test_cli_flag_beats_config_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("text,item", [
-    ("timeline:\n  filename: /tmp/tl.json\n", "4.1"),
-    ("autotune:\n  enabled: true\n", "4.1"),
-    ("stall_check:\n  disable: true\n", "4.1"),
     ("params:\n  mesh: data=8\n", "HOROVOD_LAYOUT")])
 def test_config_file_refuses_keys_of_missing_planes(tmp_path, text, item):
     with pytest.raises(ValueError, match=item):
         TL.config_file_to_env(_cfg(tmp_path, text), {})
+
+
+@pytest.mark.parametrize("text", [
+    "timeline:\n  filename: /tmp/tl.json\n  mark_cycles: true\n",
+    "autotune:\n  enabled: true\n  log_file: /tmp/at.csv\n",
+    "stall_check:\n  disable: true\n  shutdown_time_seconds: 30\n"])
+def test_config_file_measure_keys_match_jax(tmp_path, text):
+    """The timeline, autotune and stall_check sections map to the JAX
+    launcher's knobs."""
+    got, want = {}, {}
+    TL.config_file_to_env(_cfg(tmp_path, text), got)
+    JL.config_file_to_env(_cfg(tmp_path, text), want)
+    assert got == want and got
 
 
 def test_no_effect_flags_warn(capsys):
@@ -430,6 +444,67 @@ def test_port_server_shards_and_harvest_after_stop():
     assert set(server.scope_receipt_times("rank")) == {"0"}
 
 
+def _split_http(raw: bytes):
+    head, _, body = raw.partition(b"\r\n\r\n")
+    lines = head.split(b"\r\n")
+    headers = {k: v for k, _, v in (ln.partition(b": ")
+                                    for ln in lines[1:])}
+    return lines[0], headers, body
+
+
+@pytest.mark.parametrize("scope", ["metrics", "clock", "timeline"])
+def test_measure_routes_answer(servers, scope):
+    """The measurement plane's routes answer as the JAX server's do:
+    ``/clock`` its wall time, ``/timeline`` the same merge of the same
+    chunks byte for byte, ``/metrics`` a lint-clean exposition with the
+    driver's row and, for the same worker snapshot, the same rank-labeled
+    lines."""
+    from horovod_tpu.utils import metrics as JM
+    from horovod_tpu_torch.utils import metrics as TM
+    assert ("GET", scope, "") not in PLANE_ROUTES
+    jp, tp = servers
+    if scope == "timeline":
+        chunk = json.dumps({"rank": 1, "seq": 0, "clock": {
+            "offset": 0.25, "uncertainty": 1e-4, "synced": True},
+            "events": [{"name": "EXEC", "ph": "X", "ts": 5.0e6, "dur": 7.0,
+                        "lane": "grad.w", "args": {"size": 64}},
+                       {"name": "CYCLE", "ph": "i", "s": "p", "ts": 4.0e6,
+                        "lane": "controller"}]}).encode()
+        for port in (jp, tp):
+            TC.put_kv("127.0.0.1", port, "timeline", "rank.1.000000", chunk)
+    if scope == "metrics":
+        snap = TM.MetricsRegistry()
+        snap.counter("hvd_collective_ops_total", "x").inc(3, op="allreduce")
+        body = dict(snap.snapshot(), rank=0)
+        for port in (jp, tp):
+            TC.put_kv("127.0.0.1", port, "metrics", "rank.0",
+                      json.dumps(body).encode())
+    req = (f"GET /{scope} HTTP/1.1\r\nHost: x\r\nConnection: close"
+           "\r\n\r\n").encode()
+    t_status, t_head, t_body = _split_http(_raw(tp, req))
+    j_status, j_head, j_body = _split_http(_raw(jp, req))
+    assert t_status == j_status == b"HTTP/1.0 200 OK"
+    assert t_head[b"Content-Type"] == j_head[b"Content-Type"]
+    assert t_head[b"Server"] == j_head[b"Server"]
+    if scope == "clock":
+        for b in (t_body, j_body):
+            assert abs(float(b) - time.time()) < 5.0
+    elif scope == "timeline":
+        assert t_body == j_body
+        merged = json.loads(t_body)
+        assert merged["metadata"]["clock_sync"]["1"]["offset"] == 0.25
+    else:
+        text = t_body.decode()
+        assert TM.lint_exposition(text) == []
+        assert JM.lint_exposition(text) == []
+        assert 'rank="driver"' in text
+        assert 'hvd_collective_ops_total{op="allreduce",rank="0"} 3' in text
+
+        def rank0(b):
+            return [ln for ln in b.decode().splitlines() if 'rank="0"' in ln]
+        assert rank0(t_body) == rank0(j_body)
+
+
 @pytest.mark.parametrize("route", sorted(PLANE_ROUTES))
 def test_plane_routes_wait_for_their_plane(servers, route):
     """Each route the JAX server renders for a plane the port does not have
@@ -470,6 +545,39 @@ def test_put_kv_retries_then_raises_on_a_dead_server():
 
 
 # ------------------------------------------------------------- refusals
+_MEASURE_FLAGS = {
+    "metrics_port": ["--metrics-port", "9100"],
+    "timeline_filename": ["--timeline-filename", "/tmp/tl.json"],
+    "timeline_merge": ["--timeline-merge", "/tmp/merged.json"],
+    "timeline_mark_cycles": ["--timeline-mark-cycles"],
+    "autotune": ["--autotune"],
+    "autotune_log_file": ["--autotune-log-file", "/tmp/at.csv"],
+    "autotune_warmup_samples": ["--autotune-warmup-samples", "2"],
+    "autotune_steps_per_sample": ["--autotune-steps-per-sample", "5"],
+    "autotune_bayes_opt_max_samples": ["--autotune-bayes-opt-max-samples",
+                                       "9"],
+    "autotune_gaussian_process_noise": [
+        "--autotune-gaussian-process-noise", "0.5"],
+    "no_stall_check": ["--no-stall-check"],
+    "stall_shutdown_time_seconds": ["--stall-shutdown-time-seconds", "60"],
+    "log_level": ["--log-level", "info"],
+    "log_hide_timestamp": ["--log-hide-timestamp"],
+}
+
+
+@pytest.mark.parametrize("dest", sorted(_MEASURE_FLAGS))
+def test_measure_flags_are_no_longer_refused(dest):
+    """The measurement plane's 14 flags parse, pass ``refused_flag`` and
+    stamp the JAX launcher's env."""
+    assert dest not in TL.REFUSED
+    argv = ["-np", "1"] + _MEASURE_FLAGS[dest] + ["python", "t.py"]
+    args = TL.make_parser().parse_args(argv)
+    assert getattr(args, dest) not in (None, False)
+    assert TL.refused_flag(args) is None
+    assert TL.args_to_env(args) == JL.args_to_env(
+        JL.make_parser().parse_args(argv))
+
+
 @pytest.mark.parametrize("dest", sorted(TL.REFUSED))
 def test_every_refused_flag_exits_2_and_names_its_item(dest, capsys):
     flag, _, item = TL.REFUSED[dest]

@@ -851,8 +851,9 @@ class _Slot:
 def test_request_trace_end_to_end(rendezvous):
     """One /generate through the router: the stream completes, the
     serve_trace record's components sum exactly to its wall time, and
-    GET /serve/trace rolls it up with the raw record.  (The ROUTE and
-    STREAM timeline spans wait for ROADMAP queue 1 item 4.1.)"""
+    GET /serve/trace rolls it up with the raw record, and the router's
+    ROUTE and STREAM spans land on the merged timeline as the JAX
+    router's do."""
     server, httpd, port = rendezvous
     httpd.serve_router = RouterState(journal=True)
     fe = FleetFrontend(ScriptedEngine(), "127.0.0.1", port, 0, 1,
@@ -874,7 +875,12 @@ def test_request_trace_end_to_end(rendezvous):
     assert math.fsum(rec["components"].values()) == rec["wall_s"]
     assert rec["overattribution"] >= 1.0
     assert rec["n_tokens"] == 4 and rec["attempts"][0]["replica"] == 0
-    assert server.scope_items("timeline") == {}  # no spans: item 4.1
+    spans = [json.loads(v)["events"][0]
+             for v in server.scope_items("timeline").values()]
+    assert sorted(e["name"] for e in spans) == ["ROUTE", "STREAM"]
+    for e in spans:
+        assert e["ph"] == "X" and e["dur"] >= 0.0
+        assert e["args"]["rid"] == req_key(0)
     view = _get_json(port, "/serve/trace")
     assert view["requests"] == 1 and view["completed"] == 1
     assert view["slowest"][0]["rid"] == req_key(0)
