@@ -117,7 +117,11 @@ Phases, in order; any failure exits non-zero before the result line:
    comes off its last prefill chunk and, as in the JAX engine, counts
    under neither phase); the fp32 fleet traces (``--timeline-filename``)
    and its ``GET /timeline`` must hold the ROUTE, PREFILL and DECODE
-   spans of every request.  Printed: TTFT
+   spans of every request; the memory plane's ``kv_pool`` plane
+   (``hvd_mem_plane_bytes``) must equal the engine's ``kv_pool()``
+   ``pool_bytes`` in ``/serve/stats``, and ``launch doctor --serve URL``
+   and ``doctor --request RID URL`` must render the live fleet and exit
+   0.  Printed: TTFT
    p50/p99, TPOT p50 and decode tokens/s as the client measured them
    over HTTP beside phase 6's in-process figures, and the fleet's first
    ready seconds on the launch's clock;
@@ -126,7 +130,8 @@ Phases, in order; any failure exits non-zero before the result line:
    --timeline-mark-cycles --autotune --autotune-log-file L
    --autotune-warmup-samples 1 --autotune-steps-per-sample 2
    --metrics-port P python3 chip_smoke.py --measured DIR`` with
-   ``HOROVOD_CONTROLLER=tcp`` (free ports): (a) phase 7's hook-driven
+   ``HOROVOD_CONTROLLER=tcp`` and ``HOROVOD_PERF=1`` (free ports): (a)
+   phase 7's hook-driven
    ``1b`` step for phase 5's 8 steps on its weights and batches, each
    loss within 1e-4 of phase 5's; the trace file loads, every gradient
    bucket's name has NEGOTIATE, QUEUE and an EXEC span of positive width
@@ -139,18 +144,40 @@ Phases, in order; any failure exits non-zero before the result line:
    for each, and every loss is within 1e-4 of phase 5's (bitwise
    equality printed: at one rank the sync is a copy).  While the worker
    waits the parent reads ``GET /metrics``: lint-clean, a ``rank="0"``
-   and a ``rank="driver"`` series, controller cycles above 0.  Printed:
+   and a ``rank="driver"`` series, controller cycles above 0, the
+   ``hvd_perf_*`` and ``hvd_mem_*`` families; and ``GET /perf`` (rank 0's
+   report of the steps, each in ``hvd.perf.timed_step()``) and ``launch
+   doctor --perf URL``, which must exit 0 with the verdict.  Printed:
    each path's step ms with the plane beside phase 7's and phase 5's
    without it, the ratio (the plane's cost), and the kernels' launches
    (16 a step each, both paths);
-9. printed last, after phase 15: a ``{"kernels": [...]}`` JSON line (the
+16. perf: the perf plane on phase 5's step, in process: phase 5's model,
+   optimizer and 8 batches, the batches as host arrays through
+   ``hvd.prefetch``, each step in ``hvd.perf.timed_step()`` with the
+   ledger priced on 6N FLOPs a token and the chip it resolves (``h100``
+   required): losses bitwise phase 5's, each row's four components
+   summing to its step (within 1e-12 s), host input on some step, the
+   ledger's mean step over steps 3-8 (the ledger is reset after the 2
+   warm-up steps, as phase 5's timing leaves them out) within 10% of
+   phase 5's; a memory sample of source
+   ``device`` whose bytes in use and peak equal
+   ``torch.cuda.memory_allocated``/``max_memory_allocated`` read at the
+   same point and whose cap is the card's total, its planes against
+   ``zero_memory_bytes`` at level 0; one more step under
+   ``hvd.profiler.trace`` whose Chrome trace holds ``fwd_mma_kernel``,
+   ``dq_mma_kernel`` and ``dkv_mma_kernel`` 16 times each; and
+   ``compiled_flops`` of one forward and backward against 6N x tokens and
+   against 6N plus attention.  Printed: the rows, the ledger's mean step
+   beside phase 5's, the four means, the verdict, the drift ratio;
+9. printed last, after phase 16: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128`` and MoE
    ``mini``-shape ``d32`` numbers, D=128 resources, its ring-shape
    ``ring`` numbers and the launches of each phase, ``launches_fleet``
-   the fleets', ``launches_measure`` phase 15's), then the ``{"ok":
+   the fleets', ``launches_measure`` phase 15's, ``launches_perf`` phase
+   16's), then the ``{"ok":
    true, "device": {...}}`` JSON line.
 
-    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure]
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, started by the port's launcher as
@@ -241,8 +268,16 @@ trace must have N rank lanes with their clock offsets, the tuned
 threshold must be equal on every rank at every step (and move), the
 parameters bitwise equal across ranks (checksum allgather), ``GET
 /metrics`` lint-clean with N rank labels and the driver's, and the
-launcher must print its straggler report.  ``--parts`` runs a subset
-(default: all).
+launcher must print its straggler report.  The ``perf`` part (the parent
+again) starts ``launch -np N --gpu --metrics-port P`` with
+``HOROVOD_PERF=1`` over ``chip_smoke.py --perfed DIR``: ``1b`` at ZeRO
+level 3 (fp32 master shards, bf16 compute, 8 steps of 4 x 2048 a card,
+each in ``hvd.perf.timed_step()``), every rank's
+``hvd_zero_sharded_bytes`` equal to the plan's exact bytes and, but for
+the plan's padding and AdamW's step counts, to ``zero_memory_bytes``'s
+split, ``GET /perf`` merging N ranks, ``launch doctor --perf`` rendering
+it, and the parameters bitwise equal across ranks.  ``--parts`` runs a
+subset (default: all).
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -1295,7 +1330,7 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
              ag_prefetch=None, master_fp32: bool = True, warmup: int = 1,
              profile: bool = False, dp: bool = False, keep: bool = False,
              layout=None, n_micro: int = 4, eps: float = 1e-8,
-             gather: bool = True) -> dict:
+             gather: bool = True, timed: bool = False) -> dict:
     """One ZeRO configuration (or, with ``dp``, the data-parallel
     ``DistributedOptimizer(AdamW)`` step on the same inputs): the model
     from seed 0 on the card (fp32 master weights and bf16 compute, or with
@@ -1312,7 +1347,8 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
     ``make_llama_layout_train_step`` with ``n_micro`` microbatches under
     pp, the loader dealing rows to the dp index; ``sums`` are then the
     checksums of the whole model's gathered parameters (none with
-    ``gather=False``) and ``local_sums`` those of this rank's slice."""
+    ``gather=False``) and ``local_sums`` those of this rank's slice.
+    With ``timed`` each step runs in ``hvd.perf.timed_step()``."""
     import dataclasses
     import gc as _gc
     from horovod_tpu_torch.data import NumpyDataLoader, prefetch
@@ -1342,6 +1378,7 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
     loss_fn = lambda m, ids: llama.loss_fn(  # noqa: E731
         m, ids, attn_fn=hvd.flash_attention, ce_chunks=8)
     ef = wire != "none"
+    padded = None  # (padded elements, buckets) of the ZeRO chain's plan
     if lay is not None:
         state = Lay.init_layout_state(
             torch.optim.AdamW, model, zero_level=level, wire_policy=wire,
@@ -1373,6 +1410,8 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
             Z._padded_len(sum(b.sizes), n), n, level, k=k,
             wire_format=f)["total_bytes"]
             for b, f in zip(plan.buckets, formats))
+        padded = (sum(Z._padded_len(sum(b.sizes), n) for b in plan.buckets),
+                  len(plan.buckets))
         step = Z.make_zero_train_step(
             model, loss_fn, state, zero_level=level, wire_policy=wire,
             error_feedback=ef, backward_passes_per_step=k,
@@ -1384,6 +1423,8 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
     steps = len(host) - (1 if profile else 0)
     F.reset_launches()
     losses, seen, prof, t0 = [], [], None, None
+    import contextlib
+    timer = hvd.perf.timed_step if timed else contextlib.nullcontext
     for i, (ids,) in enumerate(prefetch(loader, depth=2, device=dev)):
         seen.append(ids)
         mb = (ids if k == 1 and not dp
@@ -1401,7 +1442,8 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
                     losses.append(step(mb))
                     sync()
                 continue
-        losses.append(step(mb))
+        with timer():
+            losses.append(step(mb))
     sync()
     if not profile:
         dt = time.perf_counter() - t0
@@ -1435,7 +1477,8 @@ def zero_run(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
            "resident": resident, "modeled": modeled, "n_params": n_params,
            "memory_model": costmodel.zero_memory_bytes(
                0 if dp else level, n_params, n, ef=ef)["total_bytes"],
-           "launches": dict(F.LAUNCHES), "steps": len(losses)}
+           "launches": dict(F.LAUNCHES), "steps": len(losses),
+           "padded": padded}
     if keep:
         out["params"] = [p.detach().clone() for p in params]
     del step, state, model, params, seen
@@ -3005,7 +3048,8 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 
 # --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
 # path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
-RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve", "measure")
+RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve", "measure",
+              "perf")
 
 
 def rank_worker(spec: dict) -> None:
@@ -3197,7 +3241,8 @@ def phase_ranks(torch, n: int, parts) -> None:
     from horovod_tpu_torch.runner import launch
     require(torch.cuda.device_count() >= n,
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
-    worker_parts = [p for p in parts if p not in ("serve", "measure")]
+    worker_parts = [p for p in parts
+                    if p not in ("serve", "measure", "perf")]
     if worker_parts:
         rc = launch.run_commandline(ranks_argv(n, worker_parts))
         require(rc == 0, f"--ranks {n}: the launcher returned {rc}")
@@ -3218,6 +3263,14 @@ def phase_ranks(torch, n: int, parts) -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
         rank_measure(torch, n, card)
+    if "perf" in parts:
+        # the perf plane at ZeRO level 3: the parent starts the launcher
+        # with HOROVOD_PERF and reads GET /perf
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        rank_perf(torch, n, card)
 
 
 LAUNCH_STEPS = 3         # phase 13: 1 warm-up and 2 timed steps
@@ -3550,6 +3603,20 @@ def fleet_spans(merged: dict) -> dict:
     return spans
 
 
+def run_doctor(args: list, timeout: float = 60.0) -> tuple:
+    """``python -m horovod_tpu_torch.runner.launch doctor ARGS``:
+    (exit code, stdout, stderr)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    p = subprocess.run([sys.executable, "-m",
+                        "horovod_tpu_torch.runner.launch", "doctor"] + args,
+                       cwd=here, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    return p.returncode, p.stdout, p.stderr
+
+
 def run_fleet(label: str, servable: str, n: int, prompts: list,
               env_extra: dict, ready_keys=("stats",),
               device_type: str = "cuda", scrape: bool = False,
@@ -3625,6 +3692,12 @@ def run_fleet(label: str, servable: str, n: int, prompts: list,
                 r["metrics"] = text
                 break
             time.sleep(0.5)
+        if scrape:
+            url = f"http://127.0.0.1:{port}"
+            rid = r["results"][0]["rid"]
+            r["doctor"] = {"serve": run_doctor(["--serve", url]),
+                           "request": run_doctor(["--request", rid, url]),
+                           "rid": rid}
         while timeline:
             merged = json.loads(http_text(port, "/timeline"))
             spans = fleet_spans(merged)
@@ -3836,6 +3909,23 @@ def fleet_measure_checks(label: str, r: dict, outs: list,
     require(decode == streamed - len(prompts),
             f"{label}: decode tokens {decode}, streamed {streamed}")
     require(hits >= 1, f"{label}: no prefix hit counted")
+    # the memory plane's kv_pool plane is the engine's pool, as it reports
+    plane = metric_value(text, "hvd_mem_plane_bytes", plane="kv_pool",
+                         rank="0")
+    pool = r["stats"]["engine"]["kv_pool"]["pool_bytes"]
+    print(f"{label}: hvd_mem_plane_bytes{{plane=kv_pool}} {plane:.0f}, the "
+          f"engine's kv_pool() pool_bytes {pool}", flush=True)
+    require(plane == pool, f"{label}: kv_pool plane {plane}, pool {pool}")
+    for view in ("serve", "request"):
+        rc, out, err = r["doctor"][view]
+        head = out.strip().splitlines()[:1]
+        print(f"{label}: launch doctor --{view} exit {rc}, "
+              f"{len(out.splitlines())} lines, first {head}", flush=True)
+        require(rc == 0 and out.strip(),
+                f"{label}: doctor --{view} exit {rc}: {err[-1000:]}")
+    require(f"--request {r['doctor']['rid']}" in r["doctor"]["request"][1]
+            and "STATUS: done" in r["doctor"]["request"][1],
+            f"{label}: doctor --request: {r['doctor']['request'][1][:500]}")
     if "timeline" in r:
         spans = fleet_spans(r["timeline"])
         missing = [rec.get("rid") for rec in r["results"]
@@ -4089,10 +4179,14 @@ def measured_worker(out_dir: str) -> int:
     rt = ht.init(device=None if cuda else spec["device"])
     dev, rank, n = rt.device, ht.rank(), ht.size()
     require(rt.timeline is not None and rt.autotuner is not None
-            and rt.core is not None and rt.metrics_publisher is not None,
+            and rt.core is not None and rt.metrics_publisher is not None
+            and rt.perf_publisher is not None,
             "the measurement plane is not on")
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     cfg = llama.CONFIGS[spec["cfg"]]
+    from horovod_tpu_torch.perf import costmodel
+    hvd.perf.configure(flops_per_step=costmodel.train_flops_per_token(
+        llama.param_count(cfg)) * spec["batch"] * n * spec["seq"])
     rng = np.random.RandomState(0)  # phase 5's batches
     batches = [torch.from_numpy(rng.randint(
         0, cfg.vocab, (spec["batch"] * n, spec["seq"] + 1),
@@ -4134,8 +4228,9 @@ def measured_worker(out_dir: str) -> int:
             thresholds.append(rt.fusion_threshold())
             cycles.append(tuner.cycle_ms)
         else:
-            losses.append(float(step(b)))
-            sync()
+            with hvd.perf.timed_step():
+                losses.append(float(step(b)))
+                sync()
         ms.append((time.perf_counter() - t0) * 1e3)
     out.update(losses_a=losses, ms_a=ms, launches_a=dict(F.LAUNCHES),
                autotune_end=rt.core.autotune_state(),
@@ -4157,7 +4252,7 @@ def measured_worker(out_dir: str) -> int:
         for b in batches:
             thresholds.append(rt.fusion_threshold())
             t0 = time.perf_counter()
-            with tuner.measure(nbytes=nbytes):
+            with hvd.perf.timed_step(), tuner.measure(nbytes=nbytes):
                 losses.append(float(step(b)))
                 sync()
             ms.append((time.perf_counter() - t0) * 1e3)
@@ -4166,6 +4261,7 @@ def measured_worker(out_dir: str) -> int:
                    replans=rt.plan_cache.misses - misses0)
         del step, opt, model
     require(rt.metrics_publisher.publish_now(), "the metrics publish failed")
+    require(rt.perf_publisher.publish_now(), "the perf publish failed")
     with open(os.path.join(out_dir, f"measured.{rank}.json"), "w") as f:
         json.dump(out, f)
     deadline = time.time() + 300
@@ -4176,12 +4272,14 @@ def measured_worker(out_dir: str) -> int:
     return 0
 
 
-def start_measured(out_dir: str, n: int, device_type: str, flags: list):
+def start_measured(out_dir: str, n: int, device_type: str, flags: list,
+                   worker: str = "--measured"):
     """``python -m horovod_tpu_torch.runner.launch -np n [--gpu] <flags>
-    ... python3 chip_smoke.py --measured DIR`` in a session of its own,
-    with free coordinator and controller ports and the workers' output
-    under ``DIR/logs``; the native controller negotiates over TCP and the
-    workers publish their metrics and trace every second."""
+    ... python3 chip_smoke.py --measured DIR`` (or ``worker``'s flag) in a
+    session of its own, with free coordinator and controller ports and the
+    workers' output under ``DIR/logs``; the native controller negotiates
+    over TCP and the workers publish their metrics, trace and perf report
+    every second (``HOROVOD_PERF=1``)."""
     here = os.path.dirname(os.path.abspath(__file__))
     ports = [free_port(), free_port()]
     require(not {29500, 29499} & set(ports), f"ports {ports}")
@@ -4190,11 +4288,11 @@ def start_measured(out_dir: str, n: int, device_type: str, flags: list):
            + ["--coordinator-port", str(ports[0]), "--controller-port",
               str(ports[1]), "--output-filename",
               os.path.join(out_dir, "logs")] + flags
-           + [sys.executable, os.path.abspath(__file__), "--measured",
-              out_dir])
+           + [sys.executable, os.path.abspath(__file__), worker, out_dir])
     env = dict(os.environ, HOROVOD_CONTROLLER="tcp",
                HOROVOD_METRICS_INTERVAL="1",
                HOROVOD_TIMELINE_MERGE_INTERVAL="1",
+               HOROVOD_PERF="1", HOROVOD_PERF_INTERVAL="1",
                PYTHONPATH=os.pathsep.join(
                    [here] + [p for p in os.environ.get(
                        "PYTHONPATH", "").split(os.pathsep) if p]))
@@ -4205,10 +4303,12 @@ def start_measured(out_dir: str, n: int, device_type: str, flags: list):
 def finish_measured(label: str, proc, out_dir: str, n: int,
                     metrics_port: int) -> tuple:
     """Wait for every rank's ``measured.<rank>.json``, read ``GET
-    /metrics`` while the ranks wait, release them and wait for the
-    launcher.  Returns (each rank's report, the exposition, the
-    launcher's stderr).  A launch that fails or outlives
-    MEASURE_DEADLINE fails the run, with the workers' output tails."""
+    /metrics`` and ``GET /perf`` and run ``launch doctor --perf`` on it
+    while the ranks wait, release them and wait for the launcher.
+    Returns (each rank's report, the exposition, the launcher's stderr,
+    the /perf view, the doctor's (exit code, stdout, stderr)).  A launch
+    that fails or outlives MEASURE_DEADLINE fails the run, with the
+    workers' output tails."""
     t0 = time.time()
     files = [os.path.join(out_dir, f"measured.{r}.json") for r in range(n)]
     err = b""
@@ -4220,6 +4320,9 @@ def finish_measured(label: str, proc, out_dir: str, n: int,
                     f"{label}: no report after {MEASURE_DEADLINE} s")
             time.sleep(0.2)
         text = http_text(metrics_port, "/metrics")
+        perf_view = json.loads(http_text(metrics_port, "/perf"))
+        doctor = run_doctor(["--perf",
+                             f"http://127.0.0.1:{metrics_port}/perf"])
         with open(os.path.join(out_dir, "scraped"), "w"):
             pass
         _, err = proc.communicate(timeout=max(
@@ -4239,7 +4342,7 @@ def finish_measured(label: str, proc, out_dir: str, n: int,
     for f in files:
         with open(f) as fh:
             reports.append(json.load(fh))
-    return reports, text, err.decode(errors="replace")
+    return reports, text, err.decode(errors="replace"), perf_view, doctor
 
 
 def lifecycle_checks(label: str, events: list, names: list,
@@ -4306,7 +4409,8 @@ def phase_measure(torch, card: str, ref_losses, ref_step_ms: float,
         "--autotune", "--autotune-log-file", log,
         "--autotune-warmup-samples", "1", "--autotune-steps-per-sample", "2",
         "--metrics-port", str(mport)])
-    (r,), text, _ = finish_measured(label, proc, out_dir, 1, mport)
+    (r,), text, _, perf_view, doctor = finish_measured(label, proc, out_dir,
+                                                      1, mport)
     events = load_trace_events(trace)
     with open(log) as f:
         rows = [ln.strip().split(",") for ln in f if ln.strip()]
@@ -4368,6 +4472,27 @@ def phase_measure(torch, card: str, ref_losses, ref_step_ms: float,
     require(not lint, f"{label}: /metrics lint: {lint[:5]}")
     require('rank="0"' in text and 'rank="driver"' in text and cyc > 0,
             f"{label}: the scrape lacks rank 0, the driver or cycles")
+    # the perf plane: the ledger's families, the memory sampler's, GET
+    # /perf with rank 0's report and the doctor's rendering of it
+    perf_steps = metric_value(text, "hvd_perf_steps_total", rank="0")
+    mem_bytes = metric_value(text, "hvd_mem_bytes_in_use", rank="0")
+    rep = perf_view.get("ranks", {}).get("0", {})
+    rc, out, err = doctor
+    verdict = [ln for ln in out.splitlines() if ln.startswith("BOTTLENECK")]
+    print(f"{label}: hvd_perf_steps_total {perf_steps:.0f}, "
+          f"hvd_mem_bytes_in_use {mem_bytes:.0f} (rank 0); GET /perf "
+          f"{perf_view['fleet']['ranks']} rank(s), rank 0 {rep.get('steps')}"
+          f" steps, mean step {rep.get('step_time_s', {}).get('mean')} s, "
+          f"verdict {rep.get('verdict')}; launch doctor --perf exit {rc}: "
+          f"{verdict}", flush=True)
+    require(perf_steps >= steps and mem_bytes > 0,
+            f"{label}: perf steps {perf_steps}, mem bytes {mem_bytes}")
+    require(perf_view["fleet"]["ranks"] == 1 and rep.get("steps", 0) >= steps
+            and rep.get("verdict") in (
+                "compute-bound", "comm-bound", "input-bound", "stall-bound"),
+            f"{label}: GET /perf {str(perf_view)[:500]}")
+    require(rc == 0 and verdict, f"{label}: doctor --perf exit {rc}: "
+            f"{out[-1000:]} {err[-1000:]}")
     # the kernels and the cost
     per_step = llama.CONFIGS[cfg_name].n_layers if device_type == "cuda" \
         else 0
@@ -4420,7 +4545,8 @@ def rank_measure(torch, n: int, card: str, device_type: str = "cuda",
         "--timeline-merge", merged_path, "--autotune",
         "--autotune-warmup-samples", "1", "--autotune-steps-per-sample", "2",
         "--metrics-port", str(mport)])
-    reports, text, err = finish_measured(label, proc, out_dir, n, mport)
+    reports, text, err, _, _ = finish_measured(label, proc, out_dir, n,
+                                               mport)
     with open(merged_path) as f:
         merged = json.load(f)
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -4472,16 +4598,360 @@ def rank_measure(torch, n: int, card: str, device_type: str = "cuda",
           f"{MEASURE_STEPS}, each synchronized)", flush=True)
 
 
+PERF_RANK_STEPS = 8      # --parts perf: 1 warm-up and 7 timed steps
+
+
+def perfed_worker(out_dir: str) -> int:
+    """``--perfed DIR``: a rank of ``--ranks N --parts perf``, started by
+    the port's launcher with ``--metrics-port`` and ``HOROVOD_PERF=1``.
+    ``DIR/spec.json`` gives the model, device, batch, sequence and steps.
+    The model at ZeRO level 3 (``zero_run``: fp32 master shards, bf16
+    compute, phase 10's loader and prefetch), each step in
+    ``hvd.perf.timed_step()``, the ledger given the ZeRO model; then the
+    ``hvd_zero_sharded_bytes`` gauges against the plan's exact bytes and
+    ``zero_memory_bytes``, the parameters' checksums gathered from every
+    rank, a perf and a metrics publish.  Writes
+    ``DIR/measured.<rank>.json`` and waits (at most 300 s) for
+    ``DIR/scraped``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as F
+    from horovod_tpu_torch.perf import costmodel
+    from horovod_tpu_torch.utils import metrics as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    cuda = spec["device"] == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    rt = hvd.init(device=None if cuda else spec["device"])
+    require(rt.perf_publisher is not None
+            and rt.metrics_publisher is not None, "the perf plane is not on")
+    dev, rank, n = rt.device, hvd.rank(), hvd.size()
+    cfg = llama.CONFIGS[spec["cfg"]]
+    n_params = llama.param_count(cfg)
+    rows = spec["batch"] * n
+    hvd.perf.configure(
+        flops_per_step=costmodel.train_flops_per_token(n_params)
+        * spec["batch"] * spec["seq"],
+        zero_model={"n_params": n_params, "world": n, "level": 3})
+    tokens = zero_tokens(np, cfg.vocab, rows, spec["seq"], spec["steps"], n)
+    r = zero_run(torch, np, hvd, llama, F, dev, rank, n, cfg, tokens,
+                 spec["batch"], 3, timed=True)
+    padded, buckets = r["padded"]
+    gauges = {kind: M.ZERO_SHARDED_BYTES.value(kind=kind)
+              for kind in ("params", "grads", "opt_state", "ef_residual")}
+    # the chain's exact bytes: fp32 master parameters, the plan's padded
+    # buckets, AdamW's two moments and its float32 step count a shard
+    exact = {"params": n_params * 4 // n, "grads": padded * 4 // n,
+             "opt_state": 2 * padded * 4 // n + 4 * buckets,
+             "ef_residual": 0}
+    model = costmodel.zero_memory_bytes(3, n_params, n)
+    rows_sums = [torch.empty_like(r["sums"]) for _ in range(n)]
+    dist.all_gather(rows_sums, r["sums"])
+    require(rt.perf_publisher.publish_now(), "the perf publish failed")
+    require(rt.metrics_publisher.publish_now(), "the metrics publish failed")
+    out = {"rank": rank, "size": n, "losses": r["losses"],
+           "step_ms": r["step_ms"], "launches": r["launches"],
+           "sums_equal": all(torch.equal(rows_sums[0], x)
+                             for x in rows_sums),
+           "gauges": gauges, "exact": exact,
+           "model": {k: model[f"{k}_bytes"] for k in exact},
+           "level": M.ZERO_LEVEL.value(), "padded": padded,
+           "buckets": buckets, "n_params": n_params,
+           "report": hvd.perf_report()}
+    with open(os.path.join(out_dir, f"measured.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    deadline = time.time() + 300
+    while not os.path.exists(os.path.join(out_dir, "scraped")):
+        require(time.time() < deadline, "the parent never scraped")
+        time.sleep(0.1)
+    hvd.shutdown()
+    return 0
+
+
+def rank_perf(torch, n: int, card: str, device_type: str = "cuda",
+              cfg_name: str = "1b", batch: int = TRAIN_BATCH,
+              seq: int = TRAIN_SEQ) -> None:
+    """``--ranks N --parts perf``: the perf plane across ranks, started as
+    a user starts it, ``launch -np N --gpu --metrics-port P`` with
+    ``HOROVOD_PERF=1`` over ``chip_smoke.py --perfed DIR``
+    (``perfed_worker``): the model at ZeRO level 3, every rank's
+    ``hvd_zero_sharded_bytes`` equal to the plan's exact bytes and, but for
+    the plan's padding and AdamW's step counts, to ``zero_memory_bytes``'s
+    split; ``GET /perf`` merging N ranks and ``launch doctor --perf``
+    rendering it; the parameters bitwise equal across ranks."""
+    import shutil
+    import tempfile
+    label = f"perf [{cfg_name} -np {n}, ZeRO level 3]"
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_perf_")
+    with open(os.path.join(out_dir, "spec.json"), "w") as f:
+        json.dump({"cfg": cfg_name, "device": device_type, "batch": batch,
+                   "seq": seq, "steps": PERF_RANK_STEPS}, f)
+    mport = free_port()
+    proc = start_measured(out_dir, n, device_type,
+                          ["--metrics-port", str(mport)], worker="--perfed")
+    reports, text, _, view, doctor = finish_measured(label, proc, out_dir, n,
+                                                     mport)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    by_rank = sorted(reports, key=lambda x: x["rank"])
+    for r in by_rank:
+        g, e, m = r["gauges"], r["exact"], r["model"]
+        print(f"{label} rank {r['rank']}: hvd_zero_level {r['level']:.0f}; "
+              "hvd_zero_sharded_bytes " + ", ".join(
+                  f"{k} {g[k]:.0f} (exact {e[k]}, zero_memory_bytes {m[k]},"
+                  f" diff {g[k] - m[k]:+.0f})" for k in e)
+              + f"; {r['buckets']} buckets, {r['padded'] - r['n_params']} "
+              "padding elements", flush=True)
+        require(r["level"] == 3 and all(g[k] == e[k] for k in e)
+                and g["params"] == m["params"],
+                f"{label}: rank {r['rank']} gauges {g}, exact {e}")
+        pad = (r["padded"] - r["n_params"]) * 4
+        require(0 <= g["grads"] - m["grads"] <= pad
+                and 0 <= g["opt_state"] - m["opt_state"]
+                <= 2 * pad + 4 * r["buckets"],
+                f"{label}: rank {r['rank']}: {g} against {m}")
+        require(r["sums_equal"], f"{label}: parameters differ across ranks")
+        require(r["losses"] == by_rank[0]["losses"]
+                and len(r["losses"]) == PERF_RANK_STEPS,
+                f"{label}: rank {r['rank']} losses {r['losses']}")
+    ranks = view.get("ranks", {})
+    fleet = view.get("fleet", {})
+    print(f"{label}: GET /perf {fleet.get('ranks')} ranks, fleet verdict "
+          f"{fleet.get('verdict')}, step by rank " + json.dumps(
+              fleet.get("step_time_by_rank")), flush=True)
+    require(fleet.get("ranks") == n and sorted(ranks) == [
+        str(i) for i in range(n)] and all(
+        rep.get("steps") == PERF_RANK_STEPS for rep in ranks.values()),
+        f"{label}: GET /perf {str(view)[:500]}")
+    for k in sorted(ranks):
+        rep = ranks[k]
+        d = rep["decomposition"]
+        print(f"{label} rank {k}: mean step "
+              f"{rep['step_time_s']['mean'] * 1e3:.2f} ms = compute "
+              f"{d['compute_s'] * 1e3:.2f} + comm "
+              f"{d['exposed_comm_s'] * 1e3:.2f} + input "
+              f"{d['host_input_s'] * 1e3:.3f} + stall "
+              f"{d['stall_s'] * 1e3:.2f}; verdict {rep['verdict']}, "
+              f"drift {rep['model_drift_ratio']:.4f}, chip "
+              f"{rep['model']['chip']}, link {rep['model']['link']}; "
+              f"memory {rep.get('memory', {}).get('source')} in use "
+              f"{rep.get('memory', {}).get('measured', {}).get('bytes_in_use')}",
+              flush=True)
+    rc, out, err = doctor
+    verdict = [ln for ln in out.splitlines() if ln.startswith("BOTTLENECK")]
+    print(f"{label}: launch doctor --perf exit {rc}: {verdict}", flush=True)
+    require(rc == 0 and verdict, f"{label}: doctor --perf exit {rc}: "
+            f"{err[-1000:]}")
+    ms = [r["step_ms"] for r in by_rank]
+    print(card, flush=True)
+    print(f"{label} [{card}]: step {max(ms):.1f} ms (slowest rank; steps "
+          f"2-{PERF_RANK_STEPS}, each in timed_step)", flush=True)
+
+
+PERF_ROW_TOL = 1e-12     # phase 16: |sum of a row's components - its step| (s)
+PERF_STEP_RATIO = 1.10   # phase 16's ledger step against phase 5's, at most
+
+
+def phase_perf(torch, np, hvd, llama, F, card: str, ref_losses,
+               ref_step_ms: float, device_type: str = "cuda",
+               cfg_name: str = "1b", batch: int = TRAIN_BATCH,
+               seq: int = TRAIN_SEQ) -> dict:
+    """Phase 16: the perf plane on phase 5's step, in process.  Phase 5's
+    model, optimizer and batches, the batches as host arrays through
+    ``hvd.prefetch``, each of the 8 steps in ``hvd.perf.timed_step()``
+    with the ledger priced on 6N FLOPs a token and the chip it resolves;
+    then a memory sample, one more step under ``hvd.profiler.trace`` and
+    ``compiled_flops`` of one forward and backward.  Returns the kernels'
+    launches of the 8 steps."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.perf import costmodel, memstats
+    from horovod_tpu_torch.utils import profiler
+    cuda = device_type == "cuda"
+    label = f"perf [{cfg_name}]"
+    if cuda:
+        torch.cuda.empty_cache()
+        hvd.init()
+    else:
+        hvd.init(device="cpu")
+    cfg = llama.CONFIGS[cfg_name]
+    dev = hvd.runtime.get().device
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+
+    def loss_fn(m, ids):
+        return llama.loss_fn(m, ids, attn_fn=hvd.flash_attention,
+                             ce_chunks=8)
+    step = hvd.make_train_step(model, loss_fn, opt)
+    rng = np.random.RandomState(0)  # phase 5's batches, on the host
+    host = [rng.randint(0, cfg.vocab, (batch * hvd.size(), seq + 1),
+                        dtype=np.int32) for _ in range(len(ref_losses))]
+    tokens = batch * hvd.size() * seq
+    flops = costmodel.train_flops_per_token(n_params) * tokens
+    memstats.reset()
+
+    def configure():
+        hvd.perf.reset()
+        hvd.perf.configure(flops_per_step=flops, zero_model={
+            "n_params": n_params, "world": hvd.size(), "level": 0})
+    configure()
+    chip = hvd.perf.GLOBAL.chip()
+    require(chip == ("h100" if cuda else "cpu"),
+            f"{label}: the ledger resolved the chip {chip!r}")
+    if cuda:
+        torch.cuda.synchronize()
+    F.reset_launches()
+    losses, rows = [], []
+    for i, ids in enumerate(hvd.prefetch(iter(host), device=dev)):
+        if i == WARMUP_STEPS:
+            # the report covers the steps phase 5 times: its warm-up
+            # steps leave the ledger (their rows are checked below)
+            configure()
+        with hvd.perf.timed_step() as t:
+            losses.append(step(ids))
+        rows.append(t.row)
+    launches = dict(F.LAUNCHES)
+    losses = [float(x) for x in losses]
+    print(f"{label} losses " + " ".join(f"{x:.5f}" for x in losses)
+          + f"; bitwise phase 5's: {losses == list(ref_losses)}", flush=True)
+    require(losses == list(ref_losses),
+            f"{label}: losses {losses} vs phase 5's {ref_losses}")
+    per_step = cfg.n_layers if cuda else 0
+    for name in REPLACES:
+        require(launches[name] == per_step * len(host),
+                f"{label}: {name} launched {launches[name]} times in "
+                f"{len(host)} steps")
+    # the ledger's rows: four components summing to the measured step
+    worst = max(abs(r["compute_s"] + r["exposed_comm_s"] + r["host_input_s"]
+                    + r["stall_s"] - r["step_time_s"]) for r in rows)
+    inputs = [r["host_input_s"] for r in rows]
+    print(f"{label} rows (ms): " + "; ".join(
+        f"step {r['step_time_s'] * 1e3:.2f} = compute "
+        f"{r['compute_s'] * 1e3:.2f} + comm {r['exposed_comm_s'] * 1e3:.2f}"
+        f" + input {r['host_input_s'] * 1e3:.3f} + stall "
+        f"{r['stall_s'] * 1e3:.2f}" for r in rows)
+        + f"; largest |sum - step| {worst:.3g} s", flush=True)
+    require(len(rows) == len(host) and worst <= PERF_ROW_TOL,
+            f"{label}: a row's components miss its step by {worst} s")
+    require(max(inputs) > 0, f"{label}: no host input time on any step")
+    rep = hvd.perf_report()
+    mean_ms = rep["step_time_s"]["mean"] * 1e3
+    steady_ms = sum(r["step_time_s"] for r in rows[WARMUP_STEPS:]) / (
+        len(rows) - WARMUP_STEPS) * 1e3
+    d = rep["decomposition"]
+    print(card, flush=True)
+    all_ms = sum(r["step_time_s"] for r in rows) / len(rows) * 1e3
+    require(rep["steps"] == len(rows) - WARMUP_STEPS
+            and abs(mean_ms - steady_ms) <= 1e-9,
+            f"{label}: the report covers {rep['steps']} steps")
+    print(f"{label} [{card}]: ledger mean step {mean_ms:.2f} ms over "
+          f"steps {WARMUP_STEPS + 1}-{len(rows)} (all {len(rows)} steps: "
+          f"{all_ms:.2f} ms) against phase 5's {ref_step_ms:.2f} ms, "
+          f"ratio {mean_ms / ref_step_ms:.4f}; means compute "
+          f"{d['compute_s'] * 1e3:.2f} ms, exposed comm "
+          f"{d['exposed_comm_s'] * 1e3:.2f} ms, host input "
+          f"{d['host_input_s'] * 1e3:.3f} ms, stall {d['stall_s'] * 1e3:.2f}"
+          f" ms; verdict {rep['verdict']}, model_drift_ratio "
+          f"{rep['model_drift_ratio']:.4f}; chip {rep['model']['chip']}, "
+          f"link {rep['model']['link']}", flush=True)
+    if cuda:
+        require(mean_ms <= PERF_STEP_RATIO * ref_step_ms,
+                f"{label}: ledger step {mean_ms:.1f} ms against phase 5's "
+                f"{ref_step_ms:.1f} ms")
+    # the memory sample, read against the allocator at the same point
+    before = torch.cuda.memory_allocated(dev) if cuda else None
+    sample = memstats.sample(force=True)
+    if cuda:
+        alloc = torch.cuda.memory_allocated(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        total = torch.cuda.mem_get_info(dev)[1]
+        require(sample["source"] == "device"
+                and sample["bytes_in_use"] == alloc == before
+                and sample["peak_bytes_in_use"] == peak
+                and sample["cap_bytes"] == total,
+                f"{label}: memory sample {str(sample)[:400]} against "
+                f"allocated {alloc}, peak {peak}, total {total}")
+    else:
+        require(sample["source"] == "live_buffers"
+                and sample["bytes_in_use"] > 0,
+                f"{label}: memory sample {str(sample)[:400]}")
+    model0 = costmodel.zero_memory_bytes(0, n_params, hvd.size())
+    planes = sample["planes"]
+    print(f"{label} memory: source {sample['source']}, in use "
+          f"{sample['bytes_in_use']} bytes, peak "
+          f"{sample['peak_bytes_in_use']}, cap {sample['cap_bytes']}, "
+          f"watermark {sample['watermark']:.4f}; planes " + ", ".join(
+              f"{k} {v}" for k, v in planes.items())
+          + f"; zero_memory_bytes(level 0, world {hvd.size()}) "
+          + ", ".join(f"{k} {v}" for k, v in model0.items())
+          + f"; drift (in use / predicted) "
+          f"{sample['model_drift_ratio']:.4f}", flush=True)
+    require(all(planes[k] == model0[f"{k}_bytes"] for k in (
+        "params", "grads", "opt_state", "ef_residual")),
+            f"{label}: planes {planes} against {model0}")
+    # one more step under the profiler: a Chrome trace with the kernels
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    try:
+        F.reset_launches()
+        ids = torch.from_numpy(host[0]).to(dev)
+        with profiler.trace(logdir):
+            step(ids)
+        kernels = profiler.trace_kernels(profiler.last_trace_path)
+        counts = {fn: sum(fn in e.get("name", "") for e in kernels)
+                  for fn in ("fwd_mma_kernel", "dq_mma_kernel",
+                             "dkv_mma_kernel")}
+        print(f"{label} profiler trace {profiler.last_trace_path}: "
+              f"{len(kernels)} kernel events, {counts}", flush=True)
+        if cuda:
+            require(all(v == cfg.n_layers for v in counts.values()),
+                    f"{label}: the trace holds {counts}, expected "
+                    f"{cfg.n_layers} each")
+        else:
+            require(not kernels, f"{label}: CUDA kernels on the CPU")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    # the counted FLOPs of one forward and backward
+    ids = torch.from_numpy(host[0]).to(dev)
+    counted = costmodel.compiled_flops(lambda: loss_fn(model, ids).backward())
+    require(counted is not None, f"{label}: compiled_flops counted nothing")
+    attn = costmodel.train_flops_per_token(n_params, attention={
+        "n_layers": cfg.n_layers, "dim": cfg.dim, "seq": seq}) * tokens
+    print(f"{label} compiled_flops {counted:.6g} against 6N x tokens "
+          f"{flops:.6g} (ratio {counted / flops:.4f}) and 6N + attention "
+          f"{attn:.6g} (ratio {counted / attn:.4f})", flush=True)
+    require(counted is not None and counted > 0,
+            f"{label}: compiled_flops {counted}")
+    opt.zero_grad(set_to_none=True)
+    del step, opt, model
+    hvd.shutdown()
+    if cuda:
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     args = sys.argv[1:]
     if len(args) == 2 and args[0] in ("--rank-worker", "--launched",
-                                      "--measured"):
+                                      "--measured", "--perfed"):
         # a worker the port's launcher started (--ranks N, phases 13, 15)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         if args[0] == "--launched":
             return launched_worker(args[1])
         if args[0] == "--measured":
             return measured_worker(args[1])
+        if args[0] == "--perfed":
+            return perfed_worker(args[1])
         rank_worker(json.loads(args[1]))
         return 0
     import torch
@@ -4564,6 +5034,7 @@ def main() -> int:
     launched = phase_launch(torch, card, losses, step_ms)
     fleet = phase_fleet(torch, np, serve, card, serve_ref)
     measure = phase_measure(torch, card, losses, step_ms, eager_ms)
+    perf = phase_perf(torch, np, hvd, llama, F, card, losses, step_ms)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -4575,6 +5046,7 @@ def main() -> int:
         row["launches_launch"] = launched[row["name"]]
         row["launches_fleet"] = fleet[row["name"]]
         row["launches_measure"] = measure[row["name"]]
+        row["launches_perf"] = perf[row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -29,7 +29,10 @@ from a program with ``hvd.run(fn, np=N)``.  The measurement plane
 autotuning, the stall inspector) is reached through ``hvd.autotuner()``,
 ``hvd.metrics_snapshot()`` and ``hvd.start_timeline``/``stop_timeline``,
 and through the launcher's ``--metrics-port``, ``--timeline-filename``,
-``--timeline-merge`` and ``--autotune`` flags.
+``--timeline-merge`` and ``--autotune`` flags.  The perf plane
+(``perf/``: the step ledger, the memory sampler, the cost model, the
+regression gate) is ``hvd.perf`` with ``hvd.perf_report()``, the
+profiler ``hvd.profiler``; ``GET /perf`` and ``launch doctor`` read them.
 
 The package imports neither JAX nor ``horovod_tpu``; the pieces it shares
 with the JAX package (reduce ops, knobs, exceptions, the native core's
@@ -39,7 +42,8 @@ sources) are its own copies.
 from __future__ import annotations
 
 from . import runtime as _rt
-from . import serve
+from . import perf, serve
+from .utils import profiler
 from .data.loader import prefetch
 from .common.reduce_op import (ReduceOp, Average, Sum, Adasum, Min, Max,
                                Product)
@@ -110,6 +114,16 @@ def metrics_snapshot() -> dict:
     return _rt.get().metrics_snapshot()
 
 
+def perf_report() -> dict:
+    """This rank's step-time attribution report: the measured compute /
+    exposed-comm / host-input / stall decomposition (summing exactly to
+    the measured step), the roofline model's predicted step and its
+    drift, the native per-op aggregates, the memory section and the local
+    verdict; the payload workers publish for ``GET /perf``.  Record steps
+    with ``hvd.perf.timed_step()`` or ``hvd.perf.record_step``."""
+    return perf.report()
+
+
 def start_timeline(file_path: str, mark_cycles: bool = False) -> None:
     """Start writing the Chrome-trace timeline of this rank to
     ``file_path`` (reference: horovod_start_timeline)."""
@@ -136,5 +150,5 @@ __all__ = [
     "make_scanned_train_step", "cast_params", "serve", "prefetch",
     "adasum_allreduce", "adasum_hierarchical", "ring_attention",
     "ulysses_attention", "make_ring_attn_fn", "make_ulysses_attn_fn",
-    "make_moe_fn", "run",
+    "make_moe_fn", "run", "perf", "perf_report", "profiler",
 ]

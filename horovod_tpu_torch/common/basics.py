@@ -15,8 +15,9 @@ The measurement plane's surfaces are bound too: the core's metrics
 ``autotune_state``), and the standalone optimizers the Python autotuner
 drives (``GaussianProcess``, ``BayesianOptimizer``,
 ``NativeParameterManager``, ``NativeArmBandit``, ``NativeProductBandit``,
-over ``csrc/core/optim.cc``).  The flight recorder is not bound (ROADMAP
-queue 1 item 4.3).
+over ``csrc/core/optim.cc``).  The perf plane reads the per-op
+aggregates (``op_stats``) and the core's memory footprint (``mem``).  The
+flight recorder is not bound (ROADMAP queue 1 item 4.3).
 """
 
 from __future__ import annotations
@@ -73,6 +74,8 @@ def load_library() -> ctypes.CDLL:
         # the measurement plane: metrics, autotune and the optimizers
         dptr = ctypes.POINTER(f64)
         lib.hvd_core_metrics.argtypes = [vp, ctypes.c_char_p, i32]
+        lib.hvd_core_op_stats.argtypes = [vp, ctypes.c_char_p, i32]
+        lib.hvd_core_mem.argtypes = [vp, ctypes.c_char_p, i32]
         lib.hvd_core_metrics_window.argtypes = [vp, f64, ctypes.c_char_p,
                                                 i32]
         lib.hvd_core_enable_autotune.argtypes = [vp, i32, i32, i32, f64]
@@ -496,6 +499,50 @@ class CoordinationCore:
                 try:
                     out[parts[0]] = (int(parts[1]) if parts[0] == "span_us"
                                      else float(parts[1]))
+                except ValueError:
+                    continue
+        return out
+
+    def op_stats(self) -> dict:
+        """Per-op-name enqueue->done aggregates (``hvd_core_op_stats``):
+        ``{name: {"count", "bytes", "sum_us", "max_us"}}``, names collapsed
+        as the timeline collapses them and bounded in cardinality (the
+        overflow under ``__other__``); the native leg of the perf plane
+        (``perf/ledger.py``).  Extra fields on a line are ignored."""
+        lines = self._text(lambda b: self._lib.hvd_core_op_stats(
+            self._h, b, len(b))).splitlines()
+        if not lines or not lines[0].startswith("hvd_op_stats_v"):
+            raise RuntimeError(f"unrecognized native op-stats header: "
+                               f"{lines[:1]!r}")
+        out = {}
+        for line in lines[1:]:
+            parts = line.split()
+            if len(parts) < 5:
+                continue
+            out[parts[0]] = {"count": int(parts[1]),
+                             "bytes": int(parts[2]),
+                             "sum_us": int(parts[3]),
+                             "max_us": int(parts[4])}
+        return out
+
+    def mem(self) -> dict:
+        """The native core's memory footprint (``hvd_core_mem``):
+        ``rss_bytes``, ``peak_rss_bytes``, ``trace_ring_bytes``,
+        ``window_ring_bytes``, ``response_cache_bytes`` and ``stamps``
+        (the cycle loop's refreshes), stamped by the cycle loop and read
+        without its lock; the memory plane's native leg
+        (``perf/memstats.py``).  Unknown lines are ignored."""
+        lines = self._text(lambda b: self._lib.hvd_core_mem(
+            self._h, b, len(b))).splitlines()
+        if not lines or not lines[0].startswith("hvd_mem_v"):
+            raise RuntimeError(f"unrecognized native mem header: "
+                               f"{lines[:1]!r}")
+        out = {"version": int(lines[0].split("hvd_mem_v", 1)[1])}
+        for line in lines[1:]:
+            parts = line.split()
+            if len(parts) == 2:
+                try:
+                    out[parts[0]] = int(parts[1])
                 except ValueError:
                     continue
         return out

@@ -5,7 +5,8 @@ wire and overlap planes, the input prefetch and ZeRO
 (``parallel/layout.py``), the eager API's controller
 (``runtime.ensure_core``), the serving engine (``serve/config.py``
 ``from_knobs``), the launcher's rendezvous (``runner/``) and the
-measurement plane (``utils/``, ``common/hvdlogging.py``) need, with the
+measurement plane (``utils/``, ``common/hvdlogging.py``) and the
+perf-attribution plane (``perf/``) need, with the
 same names, defaults and parsing (env > override > default); ``current``
 reads one live (env > the runtime's snapshot > default)."""
 
@@ -194,6 +195,36 @@ _knob("HOROVOD_METRICS", False, _parse_bool,
       "report.")
 _knob("HOROVOD_METRICS_INTERVAL", 5.0, float,
       "Seconds between metric-snapshot publishes to the rendezvous KV.")
+_knob("HOROVOD_PERF", False, _parse_bool,
+      "Enable the performance-attribution plane's publisher: the step-time "
+      "decomposition ledger (hvd.perf_report(), hvd_perf_* metric "
+      "families) publishes per-rank perf reports to the rendezvous KV "
+      "scope 'perf', merged at GET /perf and rendered by `launch doctor "
+      "--perf` (horovod_tpu_torch/perf/).")
+_knob("HOROVOD_PERF_INTERVAL", 5.0, float,
+      "Seconds between perf-report publishes to the rendezvous KV.  "
+      "Must be positive; rejected at init() otherwise.")
+_knob("HOROVOD_PERF_LINK", "auto", str,
+      "Link class the roofline cost model prices gradient sync with: "
+      "'ici', 'dcn', 'loopback', 'nvlink', or 'auto' (by topology: ranks "
+      "on more than one host -> dcn, CUDA ranks on one host -> nvlink, "
+      "the CPU -> loopback).  Unknown names fail at init().")
+_knob("HOROVOD_MEM", True, _parse_bool,
+      "Memory-plane kill switch (perf/memstats.py): with it on, each "
+      "metrics snapshot samples torch.cuda.memory_stats() (on the CPU: "
+      "the live tensors' storages + /proc RSS), attributes bytes to "
+      "planes, updates the hvd_mem_* families, reconciles against the "
+      "zero_memory_bytes prediction, and arms the OOM-proximity "
+      "sentinel.  0 = no sampling, no mem section in perf reports.")
+_knob("HOROVOD_MEM_INTERVAL", 0.0, float,
+      "Minimum seconds between memory samples (memstats.MemSampler): 0 "
+      "samples on every metrics snapshot; a positive value rate-limits "
+      "the sampler.  Must be >= 0; rejected at init() otherwise.")
+_knob("HOROVOD_MEM_HIGH_WATERMARK", 0.9, float,
+      "OOM-proximity threshold as a fraction of the device memory cap: "
+      "crossing it fires the mem sentinel once per transition (counter, "
+      "timeline instant, warning).  Must be in (0, 1]; rejected at "
+      "init() otherwise.")
 _knob("HOROVOD_LOG_LEVEL", "warning", str,
       "trace|debug|info|warning|error|fatal")
 _knob("HOROVOD_LOG_HIDE_TIME", False, _parse_bool, "Hide timestamps in logs.")

@@ -217,7 +217,9 @@ def prefetch(iterator, depth: Optional[int] = None, transfer=None,
     consumer's stream waiting on the copy's event), elsewhere with
     ``torch.as_tensor(...).to(device)``.  A pinned source is kept until
     its copy's event has completed.  A :class:`CudaTransfer` given as
-    ``transfer`` (on a stream of the caller's) is handed off the same way."""
+    ``transfer`` (on a stream of the caller's) is handed off the same way.
+    The time spent pulling and staging batches goes to the perf ledger's
+    host-input leg (``perf.add_input_wait``)."""
     depth = _resolve_depth(depth)
     if transfer is None:
         import torch
@@ -232,17 +234,30 @@ def prefetch(iterator, depth: Optional[int] = None, transfer=None,
     cuda = transfer if isinstance(transfer, CudaTransfer) else None
 
     import collections
+    import time
     queue: "collections.deque" = collections.deque()
     retired: "collections.deque" = collections.deque()
     it = iter(iterator)
 
+    def account(dt: float) -> None:
+        # the time spent pulling and staging the next batch is host input
+        # on the step's critical path: the perf ledger's host_input leg
+        # (best-effort: accounting never breaks a loader)
+        try:
+            from ..perf.ledger import add_input_wait
+            add_input_wait(dt)
+        except Exception:
+            pass
+
     def enqueue(k: int) -> None:
+        t0 = time.perf_counter()
         for _ in range(k):
             try:
                 batch = next(it)
             except StopIteration:
                 break
             queue.append(transfer(batch))
+        account(time.perf_counter() - t0)
 
     enqueue(depth)
     try:

@@ -20,7 +20,8 @@ waits for the caller's stream, and the caller's stream waits for the
 collective.
 
 The measurement plane's hooks are here, as in the JAX module: each
-collective counts into ``hvd_collective_ops_total``,
+collective runs inside a ``HOROVOD_<KIND>`` profiler range (NVTX on a
+card; ``utils/profiler.py``) and counts into ``hvd_collective_ops_total``,
 ``hvd_collective_bytes_total`` and ``hvd_collective_latency_seconds`` (the
 host-side latency of the call: on a CUDA device the enqueue, since the
 collective itself runs on the side stream), and ``launch`` with ``names``
@@ -36,6 +37,7 @@ Either span is anchored at the host time of the enqueue.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -44,6 +46,7 @@ import torch.distributed as dist
 
 from ..common.reduce_op import Average, ReduceOp
 from ..utils import metrics as _metrics
+from ..utils import profiler as _profiler
 from . import fusion, spmd
 
 Tensor = torch.Tensor
@@ -55,6 +58,21 @@ def _rec(op: str, nbytes: int, t0: float) -> None:
     _metrics.COLLECTIVE_OPS.inc(op=op)
     _metrics.COLLECTIVE_BYTES.inc(nbytes, op=op)
     _metrics.COLLECTIVE_LATENCY.observe(time.perf_counter() - t0, op=op)
+
+
+def _ranged(kind: str):
+    """Run the collective inside a ``HOROVOD_<KIND>`` range
+    (``utils/profiler.py`` ``annotate``), as the JAX collectives open
+    theirs: a profiler capture attributes the device work to the op."""
+    name = f"HOROVOD_{kind.upper()}"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def ranged(*args, **kwargs):
+            with _profiler.annotate(name):
+                return fn(*args, **kwargs)
+        return ranged
+    return wrap
 
 
 def _nbytes(tensors: Sequence[Tensor]) -> int:
@@ -89,6 +107,7 @@ def _packed(fn: Callable[[Tensor], Tensor], tensors: Sequence[Tensor],
 
 
 # ----------------------------------------------------------------- data plane
+@_ranged("allreduce")
 def allreduce_(tensors: Sequence[Tensor], op: ReduceOp = Average,
                prescale_factor: float = 1.0, postscale_factor: float = 1.0,
                outputs: Optional[Sequence[Tensor]] = None) -> List[Tensor]:
@@ -109,6 +128,7 @@ def allreduce_(tensors: Sequence[Tensor], op: ReduceOp = Average,
     return outputs
 
 
+@_ranged("broadcast")
 def broadcast_(tensors: Sequence[Tensor], root_rank: int = 0,
                outputs: Optional[Sequence[Tensor]] = None) -> List[Tensor]:
     """Overwrite ``outputs`` (default: ``tensors``) on every rank with
@@ -128,6 +148,7 @@ def broadcast_(tensors: Sequence[Tensor], root_rank: int = 0,
     return outputs
 
 
+@_ranged("allgather")
 def allgather(tensor: Tensor) -> Tensor:
     """Every rank's ``tensor`` (the same shape on every rank) concatenated
     along dim 0, in rank order; a 0-dim tensor counts as one row.  Two-level
@@ -138,6 +159,7 @@ def allgather(tensor: Tensor) -> Tensor:
     return out
 
 
+@_ranged("allgather")
 def allgather_ragged(tensor: Tensor) -> Tensor:
     """``allgather`` whose dim 0 may differ across ranks: the row counts
     are gathered first (read back to the host), then the rows, padded to
@@ -153,6 +175,7 @@ def allgather_ragged(tensor: Tensor) -> Tensor:
     return torch.cat([full[i, :n] for i, n in enumerate(rows)])
 
 
+@_ranged("alltoall")
 def alltoall(tensor: Tensor, splits: Optional[Sequence[int]] = None
              ) -> Tuple[Tensor, Tensor]:
     """Send ``splits[i]`` rows (default: an equal share) of ``tensor`` to
@@ -184,6 +207,7 @@ def alltoall(tensor: Tensor, splits: Optional[Sequence[int]] = None
     return out, torch.tensor(recv, dtype=torch.int64)
 
 
+@_ranged("reducescatter")
 def reducescatter(tensor: Tensor, op: ReduceOp = Average,
                   prescale_factor: float = 1.0,
                   postscale_factor: float = 1.0) -> Tensor:
@@ -208,6 +232,7 @@ def reducescatter(tensor: Tensor, op: ReduceOp = Average,
     return out
 
 
+@_ranged("barrier")
 def barrier_(device: torch.device) -> None:
     """Every rank reaches this point before any passes it (on the card: in
     stream order)."""

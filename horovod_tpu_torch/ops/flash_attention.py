@@ -295,10 +295,21 @@ def attention_dkv(q, k, v, do, lse, delta, causal=True):
     return flash_dkv_cuda(q, k, v, do, lse, delta, causal)
 
 
+# The attention leg of ``perf/costmodel.py`` ``compiled_flops``: while an
+# ``AttentionTally`` is installed here, each call of the Function below
+# adds its matrix-product FLOPs to it (a FLOP counter cannot see the
+# kernels behind ctypes) and what the counter saw inside the call.
+FLOP_TALLY = None
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
+        tally = FLOP_TALLY
+        before = tally.enter() if tally is not None else 0
         out, lse = attention_forward(q, k, v, causal)
+        if tally is not None:
+            tally.leave("flash_fwd", q.shape, causal, before)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
@@ -306,11 +317,18 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
+        tally = FLOP_TALLY
+        before = tally.enter() if tally is not None else 0
         do = g.contiguous()
         # delta_i = sum_d dO_i * O_i, the softmax-jacobian row correction
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
         dq = attention_dq(q, k, v, do, lse, delta, ctx.causal)
+        if tally is not None:
+            tally.leave("flash_bwd_dq", q.shape, ctx.causal, before)
+            before = tally.enter()
         dk, dv = attention_dkv(q, k, v, do, lse, delta, ctx.causal)
+        if tally is not None:
+            tally.leave("flash_bwd_dkv", q.shape, ctx.causal, before)
         return dq, dk, dv, None
 
 

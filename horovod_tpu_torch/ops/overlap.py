@@ -14,10 +14,14 @@ the same order 0..k-1, on the same values, so every depth, 0 (sync at
 once) included, gives the same result: the JAX plane's equivalence.
 
 The JAX package restructures the traced program instead (a ring buffer in
-the optax state, ``lax.cond`` and XLA's scheduler); its
-``hvd_overlap_*`` gauges and trace instants are not ported (the port has
-no measurement plane yet): ``record_overlap`` returns its dict.
-``priority_order`` is the bucket order the ZeRO chain will use.
+the optax state, ``lax.cond`` and XLA's scheduler).  The byte model is the
+same: ``record_overlap`` sets the ``hvd_overlap_exposed_bytes`` and
+``hvd_overlap_overlapped_fraction`` gauges of its plane, and
+``microbatch_overlap_model`` (run by the optimizer at the first call of a
+cycle) emits one ``overlap.sync.issue`` or ``overlap.sync.flush`` instant
+a microbatch, once per distinct plan, k and depth, where the JAX package
+emits them once per traced program.  ``priority_order`` is the ZeRO
+chain's bucket order.
 """
 
 from __future__ import annotations
@@ -88,14 +92,21 @@ def priority_order(plan) -> Tuple[int, ...]:
 def record_overlap(total_bytes: float, exposed_bytes: float,
                    plane: str) -> dict:
     """One schedule's modeled split of sync bytes into exposed (no compute
-    to hide behind) and overlapped.  ``plane`` names the plane, as the
-    JAX gauges' label does."""
-    del plane
+    to hide behind) and overlapped, set on the
+    ``hvd_overlap_{exposed_bytes,overlapped_fraction}`` gauges under label
+    ``plane``.  A model, not a measurement."""
+    from ..utils import metrics as _metrics
     frac = 0.0
     if total_bytes > 0:
         frac = max(0.0, min(1.0, 1.0 - exposed_bytes / total_bytes))
+    _metrics.OVERLAP_EXPOSED_BYTES.set(exposed_bytes, plane=plane)
+    _metrics.OVERLAP_FRACTION.set(frac, plane=plane)
     return {"total_bytes": total_bytes, "exposed_bytes": exposed_bytes,
             "overlapped_fraction": frac}
+
+
+# (plan, k, depth) whose schedule instants are already on the timeline
+_TRACED: set = set()
 
 
 def microbatch_overlap_model(leaves: Sequence[torch.Tensor], k: int,
@@ -117,6 +128,23 @@ def microbatch_overlap_model(leaves: Sequence[torch.Tensor], k: int,
                                             "none", sizes)["bottleneck"]
                    for b in plan.buckets)
     overlapped = max(0, k - depth) if depth >= 1 else 0
+    key = (tuple((str(b.dtype), tuple(b.sizes)) for b in plan.buckets),
+           tuple(sorted(sizes.items())), k, depth)
+    if key not in _TRACED:
+        # one instant a microbatch: where its sync issues, inside a later
+        # microbatch's compute (the drain) or in the exposed final flush
+        from ..utils.timeline import trace_instant
+        _TRACED.add(key)
+        for i in range(k):
+            drained_in_loop = depth >= 1 and i < k - depth
+            trace_instant(
+                "overlap",
+                "overlap.sync.issue" if drained_in_loop
+                else "overlap.sync.flush",
+                args={"microbatch": i,
+                      "issued_at_call": (i + depth if drained_in_loop
+                                         else k - 1),
+                      "depth": depth})
     return record_overlap(k * per_sync, (k - overlapped) * per_sync,
                           plane="microbatch")
 

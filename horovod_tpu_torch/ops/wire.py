@@ -30,11 +30,16 @@ C(x)`` and adds it into the next step's gradient before compression
 (EF-SGD); the residuals are the optimizer's (optimizer.py).  Every format
 decodes to the same values on every rank.
 
-The JAX package counts buckets and modeled bytes saved per format into its
-metrics registry and emits a trace instant per bucket decision.  The port
-has no measurement plane yet: it keeps the two counts in this module
-(``stats()``), counted at each sync (the JAX package counts once per
-trace), and emits no trace.
+The measurement plane's hooks, as in the JAX module: :func:`plan_formats`
+counts each bucket's format into ``hvd_wire_buckets_total`` and its
+modeled bottleneck bytes saved into ``hvd_wire_bytes_saved_total``, and
+emits a ``wire.encode.<fmt>`` instant per bucket on the runtime's
+timeline.  The JAX package does that once per traced program; the port
+has no trace, so a caller that plans at every sync (the optimizer) passes
+``once=True`` and the registry counts once per distinct bucket plan and
+policy, the port's counterpart of a trace: after N steps it reads what
+the JAX registry reads after N steps of one compiled step.  This module's
+``stats()`` keeps counting at every call (a departure ROADMAP keeps).
 """
 
 from __future__ import annotations
@@ -67,6 +72,8 @@ INT8_MIN_BYTES = 4 * 1024 * 1024
 
 _BUCKETS: "collections.Counter[str]" = collections.Counter()
 _BYTES_SAVED: "collections.Counter[str]" = collections.Counter()
+# plans already counted into the registry by ``plan_formats(once=True)``
+_RECORDED: set = set()
 
 
 def stats() -> Dict[str, Dict[str, float]]:
@@ -103,15 +110,27 @@ def auto_policy(nbytes: int, dtype: torch.dtype, layout: Layout) -> str:
     return "bf16" if dtype.itemsize >= 4 else "none"
 
 
+def _fixed_policy(fmt: str) -> Policy:
+    def policy(nbytes: int, dtype: torch.dtype, layout: Layout) -> str:
+        return fmt
+    return policy
+
+
+# one function a name, so a policy keeps its identity across syncs (the
+# registry counts once per plan and policy: ``plan_formats``)
+_FIXED: Dict[str, Policy] = {name: _fixed_policy(name)
+                             for name in FORMAT_NAMES}
+
+
 def get_policy(policy: Union[str, Policy]) -> Policy:
     """A policy name (or a callable, passed through) as the per-bucket
-    decision function."""
+    decision function; a name gives the same function every time."""
     if callable(policy):
         return policy
     validate_policy_name(policy)
     if policy == "auto":
         return auto_policy
-    return lambda nbytes, dtype, layout: policy
+    return _FIXED[policy]
 
 
 def is_lossy(fmt: str) -> bool:
@@ -242,14 +261,21 @@ def modeled_wire_bytes(nelems: int, itemsize: int, fmt: str,
 
 
 def plan_formats(plan: BucketPlan, policy: Policy, op: ReduceOp,
-                 axis_sizes: Optional[Layout] = None) -> List[str]:
+                 axis_sizes: Optional[Layout] = None,
+                 once: bool = False) -> List[str]:
     """The wire format of every bucket of a fusion plan, counted into
-    ``stats()``.  ``axis_sizes`` defaults to the runtime's layout; at one
+    ``stats()`` and into the registry with one ``wire.encode.<fmt>``
+    instant a bucket (with ``once``, the registry and the instants only
+    the first time this plan and this policy are seen; module
+    docstring).  ``axis_sizes`` defaults to the runtime's layout; at one
     rank every bucket is ``none`` (no bytes move, and error feedback would
     compensate an error the wire never made)."""
+    from ..utils import metrics as _metrics
+    from ..utils.timeline import trace_instant
     sizes = _axis_sizes() if axis_sizes is None else axis_sizes
     total_ranks = math.prod(sizes.values())
     fmts: List[str] = []
+    saved_by_bucket: List[float] = []
     for bucket in plan.buckets:
         fmt = resolve_format(policy(bucket.nbytes, bucket.dtype, sizes),
                              bucket.dtype, sizes, op)
@@ -257,6 +283,7 @@ def plan_formats(plan: BucketPlan, policy: Policy, op: ReduceOp,
             fmt = "none"
         fmts.append(fmt)
         _BUCKETS[fmt] += 1
+        saved = 0.0
         if fmt != "none":
             nelems = sum(bucket.sizes)
             itemsize = bucket.dtype.itemsize
@@ -266,6 +293,21 @@ def plan_formats(plan: BucketPlan, policy: Policy, op: ReduceOp,
                                           sizes)["bottleneck"])
             if saved > 0:
                 _BYTES_SAVED[fmt] += saved
+        saved_by_bucket.append(saved)
+    if once:
+        key = (tuple((str(b.dtype), tuple(b.indices), tuple(b.sizes))
+                     for b in plan.buckets), policy,
+               tuple(sorted(sizes.items())), str(op))
+        if key in _RECORDED:
+            return fmts
+        _RECORDED.add(key)
+    for i, (bucket, fmt, saved) in enumerate(zip(plan.buckets, fmts,
+                                                 saved_by_bucket)):
+        _metrics.WIRE_BUCKETS.inc(format=fmt)
+        trace_instant("wire", f"wire.encode.{fmt}",
+                      args={"bucket": i, "nbytes": int(bucket.nbytes)})
+        if saved > 0:
+            _metrics.WIRE_BYTES_SAVED.inc(saved, format=fmt)
     return fmts
 
 

@@ -116,7 +116,7 @@ def _sync_impl(grads: List[torch.Tensor],
             return legacy.decompress(buf, ctx)
         synced, new_res = fused_apply(grads, plan, reduce), residuals
     else:
-        formats = _wire.plan_formats(plan, policy, op)
+        formats = _wire.plan_formats(plan, policy, op, once=True)
         synced, new_res = _wire.wire_sync(
             grads, plan, formats, op, prescale_factor=prescale_factor,
             postscale_factor=postscale_factor, residuals=residuals)
@@ -190,14 +190,20 @@ def _ef_enabled(error_feedback: Optional[bool],
 def wire_residual_report(residuals: Sequence[torch.Tensor],
                          plan: Optional[BucketPlan] = None) -> Dict[str, float]:
     """L2 norms of error-feedback residuals, per bucket of ``plan`` or per
-    leaf, computed in float64 on the host (the JAX package also publishes
-    them to a gauge; the port has no metrics registry yet)."""
+    leaf, computed in float64 on the host and set on the
+    ``hvd_wire_residual_norm`` gauge (label ``bucket``), as the JAX
+    function does."""
+    from .utils import metrics as _metrics
     sq = [float(np.sum(np.square(r.detach().double().cpu().numpy())))
           for r in residuals]
     if plan is not None:
-        return {f"bucket{i}": float(np.sqrt(sum(sq[j] for j in b.indices)))
-                for i, b in enumerate(plan.buckets)}
-    return {f"leaf{i}": float(np.sqrt(s)) for i, s in enumerate(sq)}
+        report = {f"bucket{i}": float(np.sqrt(sum(sq[j] for j in b.indices)))
+                  for i, b in enumerate(plan.buckets)}
+    else:
+        report = {f"leaf{i}": float(np.sqrt(s)) for i, s in enumerate(sq)}
+    for label, norm in report.items():
+        _metrics.WIRE_RESIDUAL_NORM.set(norm, bucket=label)
+    return report
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -245,7 +251,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             self._hvd_pipeline = _overlap.make_pipelined_transform(
                 lambda grads: ref()._hvd_sync(grads),
                 lambda mean: ref()._hvd_apply(mean), self._hvd_passes,
-                _overlap.resolve_depth(overlap_depth))
+                _overlap.resolve_depth(overlap_depth),
+                on_cycle=_overlap.microbatch_overlap_model)
 
     def _hvd_params(self) -> List[torch.Tensor]:
         return [p for group in self.param_groups for p in group["params"]

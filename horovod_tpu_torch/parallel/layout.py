@@ -40,8 +40,10 @@ row-parallel wo/w_down dim 1.  The JAX package's specs
 in its order.  Attention is ``layers.causal_attention`` unless an
 ``attn_fn`` is given (on the card, ``ops.flash_attention``).
 
-Not ported: the ``hvd_layout_*`` gauges (the port has no metrics
-registry).  ``layout_of_mesh`` becomes :func:`layout_of_runtime`.
+``resolve_layout``'s ``auto`` sets the ``hvd_layout_candidates``,
+``hvd_layout_chosen_rank`` and ``hvd_layout_predicted_step_seconds``
+gauges, as the JAX function does.  ``layout_of_mesh`` becomes
+:func:`layout_of_runtime`.
 """
 
 from __future__ import annotations
@@ -176,16 +178,25 @@ def resolve_layout(world: int, knobs=None, *,
     sol = _cm.solve_layout(model, world, mem_cap_bytes=mem_cap_bytes,
                            levels=(level,) if level in (1, 2, 3) else (1,),
                            chip=chip, link=link)
+    chosen = None
     for row in sol["candidates"]:
         lay = row["layout"]
         if tp_knob > 1 and lay["tp"] != tp_knob:
             continue
         if pp_knob > 1 and lay["pp"] != pp_knob:
             continue
-        return (lay["dp"], lay["tp"], lay["pp"])
-    raise ValueError(
-        f"HOROVOD_LAYOUT=auto found no valid layout at world={world} under "
-        f"HOROVOD_TP={tp_knob} / HOROVOD_PP={pp_knob}")
+        chosen = row
+        break
+    if chosen is None:
+        raise ValueError(
+            f"HOROVOD_LAYOUT=auto found no valid layout at world={world} "
+            f"under HOROVOD_TP={tp_knob} / HOROVOD_PP={pp_knob}")
+    from ..utils import metrics as M
+    M.LAYOUT_CANDIDATES.set(sol["n_candidates"])
+    M.LAYOUT_CHOSEN_RANK.set(chosen["rank"])
+    M.LAYOUT_PREDICTED_STEP.set(chosen["step_s"])
+    lay = chosen["layout"]
+    return (lay["dp"], lay["tp"], lay["pp"])
 
 
 def layout_mesh_spec(dp: int, tp: int, pp: int) -> str:

@@ -52,10 +52,18 @@ the pipeline stages).
 
 Where the port differs: the inner optimizer updates its shard in place,
 so levels 1 and 2 all-gather the updated parameter shard, not the update
-(the same bytes); the JAX package's ``hvd_zero_*`` gauges and
-``zero.bucket.*`` trace instants are not ported (the port has no metrics
-registry or timeline yet), and the level-3 prefetch depth resolves from
-the argument, then the knob (there is no autotuner).
+(the same bytes); and the level-3 prefetch depth resolves from the
+argument, then the runtime (the knob, or the autotuner's depth arm).
+
+The measurement plane's hooks: building a step (the port's counterpart of
+the JAX chain's trace) sets the ``hvd_zero_level``,
+``hvd_zero_ag_prefetch`` and ``hvd_zero_sharded_bytes{kind}`` gauges,
+the ``hvd_overlap_*{plane="zeroN"}`` split priced by
+``perf/costmodel.py`` ``zero_comm_bytes``, and emits the
+``zero.bucket.{ag,rs,free}`` instants of the schedule
+(:func:`_record_zero_trace`).  The ``opt_state`` kind is set after the
+first step: a torch optimizer makes its state at its first ``step``,
+where the JAX chain traces an initialized optax state.
 """
 
 from __future__ import annotations
@@ -306,6 +314,62 @@ class ZeroState:
                      for s, r in zip(self.shards, res))
 
 
+# ----------------------------------------------------- build-time recording
+def _record_zero_trace(plan: BucketPlan, order, formats, level: int, n: int,
+                       k: int, depth: int, ef: bool,
+                       param_bytes_full: int) -> None:
+    """The measurement plane's view of one built chain (module docstring):
+    the ZeRO gauges, the ``zeroN`` overlap split (the first- and
+    last-issued buckets' bytes exposed at the pipeline's ends, the rest
+    under an in-flight neighbour), and the schedule's instants."""
+    from ..ops.overlap import record_overlap
+    from ..perf import costmodel as _cm
+    from ..utils import metrics as M
+    from ..utils.timeline import trace_instant
+
+    padded = [_padded_len(sum(b.sizes), n) for b in plan.buckets]
+    per_bucket = [
+        _cm.zero_comm_bytes(L, n, level, k=k,
+                            wire_format=formats[bi])["total_bytes"]
+        for bi, L in enumerate(padded)]
+    total = float(sum(per_bucket))
+    exposed = (total if len(plan.buckets) <= 1 else
+               0.5 * (per_bucket[order[0]] + per_bucket[order[-1]]))
+    record_overlap(total, exposed, plane=f"zero{level}")
+
+    elems = sum(padded)
+    M.ZERO_LEVEL.set(level)
+    M.ZERO_AG_PREFETCH.set(depth if level == 3 else 0)
+    M.ZERO_SHARDED_BYTES.set(
+        param_bytes_full // n if level == 3 else param_bytes_full,
+        kind="params")
+    M.ZERO_SHARDED_BYTES.set(
+        elems * 4 // n if level >= 2 else elems * 4, kind="grads")
+    M.ZERO_SHARDED_BYTES.set(elems * 4 if ef else 0, kind="ef_residual")
+
+    if level == 3:
+        for j in range(len(plan.buckets)):  # plan order
+            trace_instant("zero", "zero.bucket.ag",
+                          args={"bucket": j, "position": j,
+                                "level": level, "prefetch": depth,
+                                "nbytes": int(padded[j]) * 4})
+            trace_instant("zero", "zero.bucket.free",
+                          args={"bucket": j, "level": level,
+                                "nbytes": int(padded[j]) * 4})
+    for j, bi in enumerate(order):
+        trace_instant("zero", "zero.bucket.rs",
+                      args={"bucket": int(bi), "position": j,
+                            "level": level, "format": formats[bi],
+                            "k": k, "nbytes": int(padded[bi]) * 4})
+
+
+def _opt_state_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """Bytes of the tensors in this rank's optimizer state."""
+    return sum(v.numel() * v.element_size()
+               for st in optimizer.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor))
+
+
 # ----------------------------------------------------------------- init API
 def init_sharded_opt_state(optimizer: type, params: Any,
                            interleaved: bool = False,
@@ -511,6 +575,9 @@ def make_zero_train_step(model: torch.nn.Module,
     fn = _compute_cast(model, loss_fn, compute_dtype)
     chain = _GradientLegs(leaves, plan, order, formats, ef, level, k, n,
                           group, fixup)
+    _record_zero_trace(plan, order, formats, level, n, k, depth, ef,
+                       sum(p.numel() * p.element_size() for p in leaves))
+    recorded_state = [False]
     if level == 3:
         _release(leaves)
 
@@ -556,6 +623,11 @@ def make_zero_train_step(model: torch.nn.Module,
                 state.shards[bi].grad = acc.div_(k) if k > 1 else acc
                 del acc
             state.optimizer.step()
+            if not recorded_state[0]:
+                from ..utils import metrics as M
+                M.ZERO_SHARDED_BYTES.set(_opt_state_bytes(state.optimizer),
+                                         kind="opt_state")
+                recorded_state[0] = True
             for s in state.shards:
                 s.grad = None
             if level != 3:  # the updated shards onto the replicated parameters

@@ -10,10 +10,20 @@ plane use.  Plain arithmetic, no framework:
     resident bytes (``zero_memory_bytes``);
   * the layout solver (``parallel/layout.py``): ``tp_comm_bytes``,
     ``pp_comm_bytes``, ``layout_memory_bytes``, ``layout_step_time``,
-    ``enumerate_layouts``, ``solve_layout`` and ``llama_layout_model``.
+    ``enumerate_layouts``, ``solve_layout`` and ``llama_layout_model``;
+  * the perf plane's pricing (``perf/ledger.py``): the MoE parameter
+    counts, the roofline ``predicted_step_time``, the ZeRO what-if table
+    ``zero_level_table``, the plan-cache comm leg ``plan_comm_bytes`` over
+    the port's fusion plan and wire model, and ``compiled_flops``.
 
-The roofline ``predicted_step_time`` and the plan-cache accounting are
-not ported yet."""
+``compiled_flops`` is where the port departs: the JAX function reads
+XLA's ``cost_analysis()`` of the jitted call; the port runs the call once
+under ``torch.utils.flop_counter.FlopCounterMode``.  The counter sees the
+aten operators, not the Hopper attention kernels, which run behind
+``ops/flash_attention.py``'s autograd Function through ``ctypes``; so the
+attention is counted beside the counter, by the Function itself, with the
+formula of :func:`attention_flops`, and whatever the counter saw inside
+the Function (the plain path's products on the CPU) is taken out."""
 
 from __future__ import annotations
 
@@ -92,12 +102,68 @@ def llama_param_count(vocab: int, dim: int, n_layers: int, n_heads: int,
     return (vocab * dim + n_layers * per_layer + dim + dim * vocab)
 
 
+def moe_llama_param_count(vocab: int, dim: int, n_layers: int,
+                          n_heads: int, n_kv_heads: int, moe_hidden: int,
+                          n_experts: int) -> int:
+    """Exact parameter count of the MoE Llama (``models/moe_llama.py``):
+    the Llama attention blocks with the dense FFN replaced by the router
+    and the stacked expert FFNs."""
+    head_dim = dim // n_heads
+    per_layer = (
+        dim * n_heads * head_dim
+        + 2 * dim * n_kv_heads * head_dim
+        + n_heads * head_dim * dim
+        + 2 * dim                                  # attn_norm, ffn_norm
+        + dim * n_experts                          # router
+        + 2 * n_experts * dim * moe_hidden         # wi, wo
+    )
+    return vocab * dim + n_layers * per_layer + dim + dim * vocab
+
+
+def moe_llama_active_param_count(vocab: int, dim: int, n_layers: int,
+                                 n_heads: int, n_kv_heads: int,
+                                 moe_hidden: int, n_experts: int,
+                                 experts_per_token: int) -> int:
+    """Parameters one token's forward touches (the N of 6N for a MoE
+    model): every non-expert weight plus ``experts_per_token`` expert FFNs
+    a layer."""
+    total = moe_llama_param_count(vocab, dim, n_layers, n_heads,
+                                  n_kv_heads, moe_hidden, n_experts)
+    inactive_experts = n_experts - experts_per_token
+    return total - n_layers * 2 * inactive_experts * dim * moe_hidden
+
+
 def ring_wire_bytes(nelems: int, itemsize: float, n: int) -> float:
     """Per-chip wire bytes of one ring allreduce: 2(n-1) chunks of
     ceil(nelems/n) elements."""
     if n <= 1:
         return 0.0
     return 2.0 * (n - 1) * math.ceil(nelems / n) * itemsize
+
+
+def predicted_step_time(flops: float, comm_bytes: float, *,
+                        chip: str = "cpu", link: str = "loopback",
+                        overlap_fraction: float = 0.0,
+                        input_seconds: float = 0.0) -> Dict[str, Any]:
+    """Roofline predicted step, in seconds: ``compute`` is flops over the
+    chip's peak, ``exposed_comm`` the non-overlapped share of the comm
+    bytes over the link class's bandwidth, and ``step`` adds the host
+    input time.  A prediction; the ledger records its drift from the
+    measured step."""
+    if not 0.0 <= overlap_fraction <= 1.0:
+        raise ValueError(
+            f"overlap_fraction {overlap_fraction} outside [0, 1]")
+    compute = float(flops) / peak_flops(chip)
+    exposed = (float(comm_bytes) * (1.0 - overlap_fraction)
+               / link_bandwidth(link))
+    return {
+        "compute_s": compute,
+        "exposed_comm_s": exposed,
+        "host_input_s": float(input_seconds),
+        "step_s": compute + exposed + float(input_seconds),
+        "chip": chip,
+        "link": link,
+    }
 
 
 # Wire itemsize per reduce-scatter-leg format (bytes per element on the
@@ -176,6 +242,35 @@ def zero_memory_bytes(level: int, n_params: float, world: int, *,
     out = {key: int(v) for key, v in out.items()}
     out["total_bytes"] = sum(out.values())
     return out
+
+
+def zero_level_table(n_params: float, world: int, *,
+                     opt_slots: int = 2, k: int = 1,
+                     wire_format: str = "none", ef: bool = False,
+                     chip: str = "cpu", link: str = "loopback",
+                     flops_per_step: Optional[float] = None
+                     ) -> List[Dict[str, Any]]:
+    """The "what would ZeRO-N cost me here" table: one row per level with
+    the per-rank memory, the step's wire bytes split RS/AG, the exposed
+    comm seconds on ``link`` and, when ``flops_per_step`` is known, the
+    roofline predicted step.  The perf report carries it beside the
+    measured decomposition."""
+    rows = []
+    for level in ZERO_LEVELS:
+        comm = zero_comm_bytes(n_params, world, level, k=k,
+                               wire_format=wire_format)
+        row: Dict[str, Any] = {
+            "level": level,
+            "memory": zero_memory_bytes(level, n_params, world,
+                                        opt_slots=opt_slots, ef=ef),
+            "comm": {key: int(v) for key, v in comm.items()},
+            "exposed_comm_s": comm["total_bytes"] / link_bandwidth(link),
+        }
+        if flops_per_step:
+            row["predicted"] = predicted_step_time(
+                flops_per_step, comm["total_bytes"], chip=chip, link=link)
+        rows.append(row)
+    return rows
 
 
 # ------------------------------------------------------- 3D layout solver
@@ -401,3 +496,92 @@ def llama_layout_model(*, vocab: int, dim: int, n_layers: int,
         "itemsize": itemsize,
         "flops_per_step": train_flops_per_token(n_params) * batch * seq,
     }
+
+
+# ----------------------------------------------- plan-cache comm accounting
+def plan_comm_bytes(plan, policy, axis_sizes: Dict[str, int],
+                    op=None) -> Dict[str, Any]:
+    """Comm bytes of one gradient sync of a fusion plan
+    (``ops/fusion.py``) under a wire policy: each bucket's format
+    (``ops/wire.py``'s policy and ``resolve_format``) priced by the wire
+    model, summed per fabric and per format.  ``axis_sizes`` is a layout,
+    ``{"flat": n}`` or ``{"dcn": hosts, "ici": ranks per host}``."""
+    from ..common.reduce_op import ReduceOp
+    from ..ops import wire
+
+    op = ReduceOp.AVERAGE if op is None else op
+    pol = wire.get_policy(policy)
+    total = 0.0
+    per_fabric: Dict[str, float] = {}
+    per_format: Dict[str, float] = {}
+    for b in plan.buckets:
+        fmt = wire.resolve_format(pol(b.nbytes, b.dtype, axis_sizes),
+                                  b.dtype, axis_sizes, op)
+        m = wire.modeled_wire_bytes(sum(b.sizes), b.dtype.itemsize, fmt,
+                                    axis_sizes)
+        total += m["bottleneck"]
+        per_format[fmt] = per_format.get(fmt, 0.0) + m["bottleneck"]
+        for fabric, v in m["per_fabric"].items():
+            per_fabric[fabric] = per_fabric.get(fabric, 0.0) + v
+    return {"bottleneck": int(total),
+            "per_fabric": {k: int(v) for k, v in sorted(per_fabric.items())},
+            "per_format": {k: int(v) for k, v in sorted(per_format.items())}}
+
+
+# ---------------------------------------------------------- counted flops
+ATTENTION_PRODUCTS = {"flash_fwd": 2, "flash_bwd_dq": 3, "flash_bwd_dkv": 4}
+
+
+def attention_flops(kind: str, B: int, S: int, H: int, D: int,
+                    causal: bool) -> int:
+    """Matrix-product FLOPs of one flash-attention call: the forward's two
+    products (q.k, p.v), dq's three and dk/dv's four, each ``2 * D`` FLOPs
+    a (q, k) pair and head; causal counts the pairs at or below the
+    diagonal (``chip_smoke.py`` ``attention_cost``, the kernels' bound)."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 2 * D * ATTENTION_PRODUCTS[kind] * pairs * B * H
+
+
+class AttentionTally:
+    """The attention leg of :func:`compiled_flops`, fed by
+    ``ops/flash_attention.py``'s autograd Function while it is installed
+    there: each call adds its :func:`attention_flops` and what the FLOP
+    counter saw between :meth:`enter` and :meth:`leave`."""
+
+    def __init__(self, counter):
+        self.counter = counter
+        self.flops = 0
+        self.seen_inside = 0
+
+    def enter(self) -> int:
+        return self.counter.get_total_flops()
+
+    def leave(self, kind: str, q_shape, causal: bool, before: int) -> None:
+        B, S, H, D = q_shape
+        self.flops += attention_flops(kind, B, S, H, D, causal)
+        self.seen_inside += self.counter.get_total_flops() - before
+
+
+def compiled_flops(fn, *args, **kwargs) -> Optional[float]:
+    """FLOPs of one call of ``fn(*args, **kwargs)``: the aten operators'
+    count under ``FlopCounterMode``, less what it saw inside the flash
+    attention Function, plus that Function's own count (module docstring).
+    ``fn`` runs once, for real (a train step updates its parameters).
+    None when nothing was counted or the call raised: callers fall back to
+    the 6N model (``train_flops_per_token``), as in the JAX package."""
+    try:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from ..ops import flash_attention as _fa
+        counter = FlopCounterMode(display=False)
+        tally = AttentionTally(counter)
+        prev, _fa.FLOP_TALLY = _fa.FLOP_TALLY, tally
+        try:
+            with counter:
+                fn(*args, **kwargs)
+        finally:
+            _fa.FLOP_TALLY = prev
+        flops = counter.get_total_flops() - tally.seen_inside + tally.flops
+        return float(flops) if flops > 0 else None
+    except Exception:
+        return None

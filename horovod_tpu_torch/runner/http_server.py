@@ -40,7 +40,9 @@ The measurement plane's routes (``utils/``), as on the JAX server:
   * ``GET /clock`` returns this server's wall time, the reference clock of
     the ranks' offset estimates (``utils/clocksync.py``);
   * ``GET /timeline`` merges the ``timeline`` scope's chunks into one
-    rank-laned Chrome/Perfetto trace (``utils/timeline.py``).
+    rank-laned Chrome/Perfetto trace (``utils/timeline.py``);
+  * ``GET /perf`` merges the ``perf`` scope's per-rank reports into the
+    fleet's step attribution (``perf/ledger.py``).
 
 The JAX server also renders the planes the port does not have yet.  Each
 of those routes answers 404 here, with no body, until its plane lands
@@ -60,6 +62,7 @@ from typing import Dict, List, Optional, Tuple
 from .kvshard import MAP_KEY, MAP_SCOPE, shard_for_scope
 
 METRICS_SCOPE = "metrics"
+PERF_SCOPE = "perf"
 TIMELINE_SCOPE = "timeline"
 CLOCK_SCOPE = "clock"
 
@@ -69,7 +72,6 @@ PLANE_ROUTES: Dict[Tuple[str, str, str], str] = {
     ("GET", "health", ""): "4.3",
     ("GET", "series", ""): "4.3",
     ("GET", "alerts", ""): "4.3",
-    ("GET", "perf", ""): "4.2",
 }
 # serve_out writes wake the router's stream drains (serve/router.py waits
 # on kv_wakeup instead of busy-polling); serve_kv writes wake the decode
@@ -263,6 +265,16 @@ class _KVHandler(BaseHTTPRequestHandler):
             stored = dict(store.kv.get(TIMELINE_SCOPE, {}))  # type: ignore
         self._serve_json(merge_timeline_chunks(stored))
 
+    def _serve_perf(self) -> None:
+        """The merged fleet perf view: the ``perf`` scope's per-rank
+        reports plus the fleet verdict (``perf/ledger.py``
+        ``merge_perf_reports``), what ``launch doctor --perf`` renders."""
+        from ..perf.ledger import merge_perf_reports
+        store = store_for(self.server, PERF_SCOPE)
+        with store.kv_lock:  # type: ignore[attr-defined]
+            stored = dict(store.kv.get(PERF_SCOPE, {}))  # type: ignore
+        self._serve_json(merge_perf_reports(stored))
+
     def do_GET(self) -> None:  # noqa: N802
         scope, key = self._split()
         if scope == "serve" and key in ("stats", "trace"):
@@ -279,6 +291,9 @@ class _KVHandler(BaseHTTPRequestHandler):
             return
         if scope == TIMELINE_SCOPE and not key:
             self._serve_timeline()
+            return
+        if scope == PERF_SCOPE and not key:
+            self._serve_perf()
             return
         if ("GET", scope, key) in PLANE_ROUTES:
             self._not_found()

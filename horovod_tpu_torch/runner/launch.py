@@ -51,6 +51,12 @@ the stall inspector's ``--no-stall-check`` and
 ``hvd_worker_exits_total`` by cause, which needs the postmortem plane's
 exit classifier: ROADMAP queue 1 item 4.3.)
 
+``doctor`` (``python -m horovod_tpu_torch.runner.launch doctor --perf
+URL``, ``--serve URL``, ``--request RID URL``) renders the perf plane's
+``GET /perf`` and the fleet's ``/serve/stats`` and ``/serve/trace``
+(``runner/doctor.py``); ``HOROVOD_PERF`` in a worker's environment starts
+its perf-report publisher.
+
 The JAX launcher also drives planes the port does not have yet.  Their
 flags are refused with exit code 2 and the ROADMAP item that brings them
 (:data:`REFUSED`), so no flag is ever silently ignored; the few flags that
@@ -999,9 +1005,10 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "doctor":
-        print(_refusal("doctor", "the perf and postmortem reports", "4.2"),
-              file=sys.stderr)
-        return 2
+        # the read side of the perf plane and the serving views: no
+        # launch, no rendezvous, just the rendering
+        from .doctor import main as doctor_main
+        return doctor_main(argv[1:])
     args = make_parser().parse_args(argv)
     if args.version:
         from .. import __version__

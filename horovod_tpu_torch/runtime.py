@@ -29,8 +29,11 @@ named and a timeline is on), the ``Timeline`` (``HOROVOD_TIMELINE``) and
 its chunk publisher, the ``Autotuner`` (``HOROVOD_AUTOTUNE``; with the
 wire-policy arms under ``HOROVOD_WIRE_POLICY=auto`` and the depth arms
 when overlap is on), the ``StallInspector`` (unless
-``HOROVOD_STALL_CHECK_DISABLE``) and the ``MetricsPublisher``
-(``HOROVOD_METRICS``).  The native core, when it comes up, gets the
+``HOROVOD_STALL_CHECK_DISABLE``), the ``MetricsPublisher``
+(``HOROVOD_METRICS``) and the perf plane's ``PerfPublisher``
+(``HOROVOD_PERF``; ``perf/ledger.py``), whose link class it resolves.
+Each metrics snapshot imports the native core's per-op aggregates and
+takes a memory sample (``perf/memstats.py``, under ``HOROVOD_MEM``).  The native core, when it comes up, gets the
 autotune switch and the trace drainer.  ``fusion_threshold``,
 ``wire_policy``, ``overlap_depth`` and ``zero_ag_prefetch`` follow the
 autotuner while it tunes.
@@ -110,6 +113,9 @@ class Runtime:
                 "recorder comes with the postmortem plane (ROADMAP queue 1 "
                 "item 4.3)")
         validate_kv_knobs(knobs)
+        from .perf import validate_mem_knobs, validate_perf_knobs
+        validate_perf_knobs(knobs)
+        validate_mem_knobs(knobs)
         self._controller = knobs["HOROVOD_CONTROLLER"].strip().lower()
         if self._controller not in ("auto", "tcp", "none"):
             raise ValueError(
@@ -124,6 +130,7 @@ class Runtime:
         self.autotuner = None
         self.stall_inspector = None
         self.metrics_publisher = None
+        self.perf_publisher = None
         self._size = max(knobs["HOROVOD_SIZE"], 1)
         self._rank = max(knobs["HOROVOD_RANK"], 0)
         self._local_rank = max(knobs["HOROVOD_LOCAL_RANK"], 0)
@@ -220,6 +227,17 @@ class Runtime:
                 addr=rdv_addr, port=rdv_port, rank=self._rank,
                 snapshot_fn=self.metrics_snapshot,
                 interval=knobs["HOROVOD_METRICS_INTERVAL"])
+        if knobs["HOROVOD_PERF"]:
+            # the ledger records whether or not this is on; the knob starts
+            # the publisher behind GET /perf
+            from .perf import resolve_link
+            from .perf.ledger import GLOBAL as ledger
+            from .perf.ledger import PerfPublisher, resolve_chip
+            ledger.configure(chip=resolve_chip(self.device),
+                             link=resolve_link(knobs, self))
+            self.perf_publisher = PerfPublisher(
+                addr=rdv_addr, port=rdv_port, rank=self._rank,
+                interval=knobs["HOROVOD_PERF_INTERVAL"])
 
     def _build_hierarchy(self):
         """``(cross_group, local_group)`` of this rank on a two-level layout
@@ -345,6 +363,13 @@ class Runtime:
         if core is not None and getattr(core, "_h", None):
             M.import_core_metrics(core.metrics())
             M.import_window_rates(core.metrics_window())
+            from .perf.ledger import import_op_stats
+            import_op_stats(core)
+        else:
+            core = None
+        # the memory plane samples on the snapshot's cadence
+        from .perf import memstats
+        memstats.sample(core=core, device=self.device)
         return M.REGISTRY.snapshot()
 
     # ------------------------------------------------------------- timeline
@@ -401,6 +426,8 @@ class Runtime:
         # the final metrics publish while the native core is alive, so the
         # straggler report sees complete histograms; then the final native
         # drain, the final chunk publish and the local file
+        if self.perf_publisher is not None:
+            self.perf_publisher.close()
         if self.metrics_publisher is not None:
             self.metrics_publisher.close()
         self.stop_timeline()

@@ -42,9 +42,12 @@ imports, handoffs, requests by outcome, queue depth and batch fill), and
 per-request NEGOTIATE (queue wait), PREFILL, DECODE, HANDOFF and
 SPILL_RELOAD spans on the timeline's ``serve`` lane when one is active.
 
+The engine registers its ``kv_pool`` as the memory plane's KV-pool
+provider (``perf/memstats.py``) and ``close`` unregisters it.
+
 Departures: each rank holds the whole pool, where the JAX engine shards
 its blocks over the mesh's data axis (``cache_shardings``, ROADMAP queue 1
-item 3.3); the memory plane's KV-pool provider waits for item 4.2.
+item 3.3).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ import json
 import os
 import sys
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -858,6 +862,17 @@ class ServeEngine:
         self._pool_bytes = sum(
             t[:, :cfg.cache_blocks].numel() * t.element_size()
             for t in self.cache.values())
+        # the memory plane's kv_pool and kv_spill planes read kv_pool(),
+        # through a weak reference: the provider must not keep a dropped
+        # engine's pool on the card
+        from ..perf.memstats import set_kv_pool_provider
+        ref = weakref.WeakMethod(self.kv_pool)
+
+        def provider():
+            kv_pool = ref()
+            return None if kv_pool is None else kv_pool()
+        self._kv_provider = provider
+        set_kv_pool_provider(provider)
 
     # ------------------------------------------------------------ intake
     def submit(self, tokens, max_new_tokens: int,
@@ -1216,8 +1231,12 @@ class ServeEngine:
         return occ
 
     def close(self) -> None:
-        """Release the device pool and the staging buffers; the engine
-        cannot step after this."""
+        """Release the device pool and the staging buffers, and unregister
+        the memory plane's KV-pool provider (a closed engine must not keep
+        reporting its pool); the engine cannot step after this."""
+        from ..perf import memstats
+        if memstats._kv_pool_fn is self._kv_provider:
+            memstats.set_kv_pool_provider(None)
         self.cache = {}
         self._inflight.clear()
         self._plan_host = self._tokens_host = None

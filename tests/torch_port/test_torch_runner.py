@@ -523,6 +523,46 @@ def test_plane_routes_wait_for_their_plane(servers, route):
     assert PLANE_ROUTES[route] in ("3.4", "4.1", "4.2", "4.3")
 
 
+def _perf_reports(case):
+    from horovod_tpu.perf.ledger import PerfLedger
+    reports = {}
+    for rank, step in enumerate({"empty": [], "one": [0.02],
+                                 "two": [0.01, 0.011],
+                                 "straggler": [0.01, 0.01, 0.05]}[case]):
+        led = PerfLedger()
+        led.configure(flops_per_step=1e6, comm_bytes_per_step=8e7)
+        for _ in range(3):
+            led.record_step(step)
+        reports[f"rank.{rank}"] = json.dumps(
+            dict(led.report(), rank=rank)).encode()
+    return reports
+
+
+@pytest.mark.parametrize("case", ["empty", "one", "two", "straggler"])
+def test_perf_route_answers(servers, case):
+    """``GET /perf`` answers as the JAX server's does for the same stored
+    reports: the same status and headers, and the same merged view (its
+    time stamp dropped)."""
+    assert ("GET", "perf", "") not in PLANE_ROUTES
+    jp, tp = servers
+    for key, value in _perf_reports(case).items():
+        for port in (jp, tp):
+            TC.put_kv("127.0.0.1", port, "perf", key, value)
+    if case != "empty":  # a torn PUT is skipped by both
+        for port in (jp, tp):
+            TC.put_kv("127.0.0.1", port, "perf", "rank.9", b"{torn")
+    req = b"GET /perf HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n"
+    answers = []
+    for port in (jp, tp):
+        head, _, body = _raw(port, req).partition(b"\r\n\r\n")
+        view = json.loads(body)
+        view.pop("time")
+        answers.append(([ln for ln in head.split(b"\r\n")
+                         if not ln.startswith(b"Content-Length")], view))
+    assert answers[0] == answers[1]
+    assert answers[1][1]["fleet"]["ranks"] == len(_perf_reports(case))
+
+
 def test_get_kv_default_patience_follows_gloo_timeout_knob(monkeypatch,
                                                             servers):
     monkeypatch.setenv("HOROVOD_GLOO_TIMEOUT_SECONDS", "1")
@@ -602,8 +642,11 @@ def test_transport_and_device_flags_exit_2(argv, needle, capsys):
 
 
 def test_doctor_and_missing_command_exit_2(capsys):
+    """``doctor`` renders the perf and serving views now; its postmortem
+    path (a directory or file argument without a view flag) waits for the
+    postmortem plane and says so."""
     assert TL.run_commandline(["doctor", "x"]) == 2
-    assert "ROADMAP queue 1 item 4.2" in capsys.readouterr().err
+    assert "ROADMAP queue 1 item 4.3" in capsys.readouterr().err
     assert TL.run_commandline(["-np", "1"]) == 2
     assert TL.run_commandline(["python", "t.py"]) == 2
 
