@@ -169,15 +169,33 @@ Phases, in order; any failure exits non-zero before the result line:
    ``compiled_flops`` of one forward and backward against 6N x tokens and
    against 6N plus attention.  Printed: the rows, the ledger's mean step
    beside phase 5's, the four means, the verdict, the drift ratio;
-9. printed last, after phase 16: a ``{"kernels": [...]}`` JSON line (the
+17. forensics (``phase_forensics``): phase 5's step with its forward and
+   backward under ``hvd.sentinel.wrap`` (this rank's gradients before the
+   sync, one packed all_reduce), launched with ``launch -np 1 --gpu
+   --postmortem DIR --alerts RULES --metrics-port P`` and
+   ``HOROVOD_MEM_HIGH_WATERMARK=0.05``: losses within 1e-4 of phase 5's
+   (bitwise printed), the step beside phase 5's, ``GET /health`` showing
+   the rank's step advance with a ``device`` memory row, the ``.mem``
+   dump of the pressure path and the ``.nan`` dump of step 5 (where the
+   sentinel is handed a gradient copy holding a NaN) parsed complete,
+   ``sentinel-nonfinite`` firing at ``GET /alerts`` with step 5 as its
+   context and ``launch doctor --watch --once`` rendering it, the
+   kernels' launches; then ``--chaos`` killing rank 0 at step 2 of ``1b``
+   cut to 2 layers: postmortem.json names rank 0, ``kill``, and ``launch
+   doctor DIR`` prints the root cause; then a SIGABRT while the host
+   waits in ``torch.cuda.synchronize``, the recorder armed over Python's
+   faulthandler: a complete record with native spans and the chained
+   handler's report.  Phase 14's fleets read ``GET /health`` while idle:
+   every rank's step must advance;
+9. printed last, after phase 17: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128`` and MoE
    ``mini``-shape ``d32`` numbers, D=128 resources, its ring-shape
    ``ring`` numbers and the launches of each phase, ``launches_fleet``
    the fleets', ``launches_measure`` phase 15's, ``launches_perf`` phase
-   16's), then the ``{"ok":
+   16's, ``launches_watch`` phase 17's), then the ``{"ok":
    true, "device": {...}}`` JSON line.
 
-    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf]
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, started by the port's launcher as
@@ -276,7 +294,20 @@ each in ``hvd.perf.timed_step()``), every rank's
 ``hvd_zero_sharded_bytes`` equal to the plan's exact bytes and, but for
 the plan's padding and AdamW's step counts, to ``zero_memory_bytes``'s
 split, ``GET /perf`` merging N ranks, ``launch doctor --perf`` rendering
-it, and the parameters bitwise equal across ranks.  ``--parts`` runs a
+it, and the parameters bitwise equal across ranks.  The ``postmortem``
+part (``rank_postmortem``, the parent again) makes one launch an
+experiment of ``launch -np N --gpu --postmortem DIR --alerts RULES
+--chaos SPEC`` over ``chip_smoke.py --watched DIR``, ``1b`` at 4 x 2048 a
+card: (a) a kill of rank 2 (the suspect rank 2, ``kill``, the others
+``terminated``), (b) a stall of rank 1 on the hook-driven step (rank 1,
+``stall``, its flight record complete with native spans), (c) a 70 ms
+stall at ``complete`` (``straggler-suspect`` on rank 1 while the job
+runs), (d) (b)'s stall on the direct step (the verdicts printed, not
+required), with the seconds from the fault to the launcher's exit and to
+each survivor's end (at most 10.5 s); then phase 17's sentinel launch
+across the N ranks on the direct (e) and the hook-driven (f) step: the
+scalars reduced over the ranks, rank 1's NaN every rank's verdict, the
+wrapped step against the same step unwrapped.  ``--parts`` runs a
 subset (default: all).
 
 TF32 is off for matrix products and convolutions
@@ -292,11 +323,13 @@ import json
 import math
 import os
 import re
+import signal
 import socket
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
@@ -3049,7 +3082,7 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 # --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
 # path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
 RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve", "measure",
-              "perf")
+              "perf", "postmortem")
 
 
 def rank_worker(spec: dict) -> None:
@@ -3242,7 +3275,7 @@ def phase_ranks(torch, n: int, parts) -> None:
     require(torch.cuda.device_count() >= n,
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
     worker_parts = [p for p in parts
-                    if p not in ("serve", "measure", "perf")]
+                    if p not in ("serve", "measure", "perf", "postmortem")]
     if worker_parts:
         rc = launch.run_commandline(ranks_argv(n, worker_parts))
         require(rc == 0, f"--ranks {n}: the launcher returned {rc}")
@@ -3271,6 +3304,14 @@ def phase_ranks(torch, n: int, parts) -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
         rank_perf(torch, n, card)
+    if "postmortem" in parts:
+        # the forensics planes: the parent starts one launch an experiment
+        # under --postmortem --alerts --chaos and reads what it leaves
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        rank_postmortem(torch, n, card)
 
 
 LAUNCH_STEPS = 3         # phase 13: 1 warm-up and 2 timed steps
@@ -3666,6 +3707,7 @@ def run_fleet(label: str, servable: str, n: int, prompts: list,
                 break
             time.sleep(0.1)
         r["ready_s"] = time.time() - t0
+        r["health"] = idle_health(label, port, n)
         t_start = time.perf_counter()
         r["results"] = fleet_clients(port, prompts, SERVE_NEW_TOKENS)
         r["wall"] = time.perf_counter() - t_start
@@ -3733,6 +3775,36 @@ def run_fleet(label: str, servable: str, n: int, prompts: list,
     r["workers"] = fleet_worker_reports(out_dir, n)
     shutil.rmtree(out_dir, ignore_errors=True)
     return r
+
+
+def idle_health(label: str, port: int, n: int) -> dict:
+    """``GET /health`` of an idle serving fleet, read until every rank's
+    heartbeat shows a step past the first reading's (each worker loop
+    stamps ``postmortem.record_step`` on every tick, idle ones too), at
+    most 30 s.  Returns rank -> (first step, later step)."""
+    def steps():
+        return {r: info["heartbeat"].get("step") for r, info in
+                http_get_json(port, "/health")["ranks"].items()}
+    deadline = time.time() + 30
+    while True:  # the first heartbeats may predate the loop's first tick
+        first = steps()
+        if sorted(first) == sorted(str(r) for r in range(n)) and all(
+                v is not None for v in first.values()):
+            break
+        require(time.time() < deadline, f"{label}: GET /health {first}")
+        time.sleep(0.25)
+    while True:
+        later = steps()
+        if all(later[r] > first[r] for r in first):
+            break
+        require(time.time() < deadline,
+                f"{label}: idle steps did not advance: {first} -> {later}")
+        time.sleep(0.25)
+    steps = {r: (first[r], later[r]) for r in sorted(first, key=int)}
+    print(f"{label}: GET /health while idle: each rank's step "
+          + ", ".join(f"rank {r} {a} -> {b}" for r, (a, b) in steps.items()),
+          flush=True)
+    return steps
 
 
 def fleet_streams(label: str, r: dict, n_req: int) -> list:
@@ -4940,10 +5012,826 @@ def phase_perf(torch, np, hvd, llama, F, card: str, ref_losses,
     return launches
 
 
+WATCH_NAN_STEP = 5       # phase 17: the step whose gradient the sentinel sees NaN in
+WATCH_DEADLINE = 600     # seconds a forensics launch may take to exit
+WATCH_KILL_LAYERS = 2    # phase 17's kill launch: 1b cut to 2 layers
+WATCH_WATERMARK = "0.05"  # phase 17: the memory sampler's high watermark
+POSTMORTEM_TIMEOUT = "20"  # --parts postmortem: HOROVOD_HEARTBEAT_TIMEOUT
+STRAGGLER_TICKS = 5      # --parts postmortem (c): negotiated ticks after each step
+STRAGGLER_TICK_S = 0.2   # --parts postmortem (c): seconds between tick starts
+# --parts postmortem (c): the stall at `complete`.  70 ms puts rank 1's
+# ages two power-of-two buckets above its peers' (131 against 32.8 ms),
+# so one slow tick of a peer still leaves the ratio at the rule's 4
+STRAGGLER_STALL_MS = 70
+SENTINEL_PLAIN_STEPS = 4  # --parts postmortem (e), (f): unwrapped steps timed
+WATCH_RULES = {"rules": [{"name": "chip-smoke-user-rule",
+                          "family": "hvd_controller_cycles_total",
+                          "kind": "threshold", "op": ">=", "value": 1e18,
+                          "severity": "info"}]}
+
+
+def http_get_json(port: int, path: str, timeout: float = 10.0):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def watched_worker(out_dir: str) -> int:
+    """``--watched DIR``: the worker of phase 17 and of ``--ranks N --parts
+    postmortem``, started by the port's launcher with ``--postmortem`` (and
+    ``--alerts``/``--chaos``) and ``HOROVOD_CONTROLLER=tcp``, so the native
+    core is up and its flight recorder armed.  ``DIR/spec.json`` gives the
+    model (``cfg``, ``layers``), device, batch, sequence, steps, ``opt``
+    (``direct``: phase 5's ``DistributedOptimizer``; ``hook``: phase 7's,
+    negotiated through the controller) and ``mode``:
+
+    * ``sentinel``: phase 5's step with the forward and backward wrapped by
+      ``hvd.sentinel.wrap`` over the runtime's group: on the direct step
+      this rank's gradients before the sync, on the hook-driven one those
+      of ``opt.synchronize()``.  At step 0 the rank also reports its own
+      packed scalars and their reduction (``check``); at step
+      ``WATCH_NAN_STEP`` rank 1 (rank 0 alone) hands the sentinel a copy
+      of one gradient with a NaN in it (the update and the later losses
+      stay phase 5's), which the reduction makes every rank's verdict.
+      Each step is timed (synchronized) and its launches counted; after
+      step ``WARMUP_STEPS - 1`` and the last the rank reads ``GET
+      /health`` until its own step shows there; ``plain_steps`` more
+      steps run unwrapped, timed alike.  Then it waits for the ``.nan``
+      and (on a card) ``.mem`` flight dumps;
+    * ``fault``: each step stamped (``postmortem.record_step``, a
+      ``step.<rank>.<i>`` file holding the wall time) and clocked into the
+      chaos injector (``chaos.step``), which ends or freezes the rank the
+      ``--chaos`` spec names.  With ``ticks`` each step is followed by a
+      barrier and that many negotiated allreduces of its loss, their
+      starts paced ``tick_s`` apart on every rank (the controller's only
+      traffic: a stall at ``complete`` then inflates the stalled rank's
+      own negotiation ages, and no peer ever waits for it), after which
+      the rank polls ``GET /alerts`` (at most 120 s) for
+      ``straggler-suspect`` firing on rank 1 and records it, with every
+      rank it fired on at that moment.
+
+    Each rank that finishes writes ``DIR/watched.<rank>.json`` and waits
+    (at most 300 s) for ``DIR/scraped``, stamping its last step while it
+    waits, so the supervision sees it alive."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.torch as ht
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as F
+    from horovod_tpu_torch.parallel.data_parallel import (_rank_mean,
+                                                          local_shard)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    cuda = spec["device"] == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    rt = ht.init(device=None if cuda else spec["device"])
+    dev, rank, n = rt.device, ht.rank(), ht.size()
+    require(rt.core is not None and rt.heartbeat is not None,
+            "the controller or the heartbeats are off")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = llama.CONFIGS[spec["cfg"]]
+    if spec.get("layers"):
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=spec["layers"])
+    rng = np.random.RandomState(0)  # phase 5's batches
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, (spec["batch"] * n, spec["seq"] + 1),
+        dtype=np.int32)).to(dev) for _ in range(spec["steps"])]
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+
+    def loss_fn(m, ids):
+        return llama.loss_fn(m, ids, attn_fn=hvd.flash_attention,
+                             ce_chunks=8)
+
+    api = ht if spec["opt"] == "hook" else hvd
+    opt = api.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01),
+        named_parameters=model.named_parameters())
+    api.broadcast_parameters(model.state_dict(), root_rank=0)
+    api.broadcast_optimizer_state(opt, root_rank=0)
+    out = {"rank": rank, "size": n, "device": str(dev)}
+    port = int(os.environ["HOROVOD_RENDEZVOUS_PORT"])
+    if spec["mode"] == "sentinel":
+        params = list(model.parameters())
+        hook = spec["opt"] == "hook"
+        poison_rank = min(1, n - 1)
+        seen = {"step": -1}
+
+        def fwd_bwd(ids):
+            local = local_shard(ids, rank, n).to(dev, non_blocking=True)
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(model, local)
+            loss.backward()
+            if hook:  # the engine reduces the gradients in place
+                opt.synchronize()
+            return loss, [p.grad for p in params]
+
+        def extract(res):
+            loss, grads = res
+            if seen["step"] == 0:  # the reduction against this rank's own
+                seen["check"] = {
+                    "local": hvd.sentinel.packed_stats(loss, grads).tolist(),
+                    "reduced": hvd.sentinel.packed_stats(
+                        loss, grads, axis_name="hvd").tolist()}
+            if seen["step"] == WATCH_NAN_STEP and rank == poison_rank:
+                bad = grads[0].clone()
+                bad.view(-1)[0] = float("nan")
+                grads = [bad] + grads[1:]
+            return loss, grads
+
+        def update():
+            if hook:
+                with opt.skip_synchronize():
+                    opt.step()
+            else:
+                opt.step()
+
+        wrapped = hvd.sentinel.wrap(fwd_bwd, axis_name="hvd",
+                                    extract=extract)
+        F.reset_launches()
+        losses, ms, health, plain_ms = [], [], [], []
+        for i, b in enumerate(batches):
+            hvd.postmortem.record_step(i)
+            seen["step"] = i
+            t0 = time.perf_counter()
+            loss, _ = wrapped(b)
+            update()
+            losses.append(float(_rank_mean(loss, n)))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i in (WARMUP_STEPS - 1, len(batches) - 1):
+                deadline = time.time() + 30
+                while True:  # the heartbeat publishes every 0.5 s
+                    hb = http_get_json(port, "/health")["ranks"].get(
+                        str(rank), {}).get("heartbeat", {})
+                    if hb.get("step") == i:
+                        break
+                    require(time.time() < deadline,
+                            f"GET /health never showed step {i}: {hb}")
+                    time.sleep(0.1)
+                health.append(hb)
+                if n > 1:  # each rank's wait ends at its own time
+                    import torch.distributed as dist
+                    dist.barrier()
+        for b in batches[:spec.get("plain_steps", 0)]:
+            # the same step unwrapped, for the sentinel's cost in this run
+            t0 = time.perf_counter()
+            loss, _ = fwd_bwd(b)
+            update()
+            float(_rank_mean(loss, n))
+            sync()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        hvd.sentinel.drain()
+        out.update(losses=losses, ms=ms, plain_ms=plain_ms,
+                   launches=dict(F.LAUNCHES), health=health,
+                   check=seen["check"])
+        flight = os.environ["HOROVOD_FLIGHT_RECORD"]
+        want = [flight + ".nan"] + ([flight + ".mem"] if cuda else [])
+        deadline = time.time() + 60
+        while not all(os.path.exists(p) for p in want):
+            require(time.time() < deadline, f"no flight dumps at {want}")
+            hvd.postmortem.record_step(len(batches) - 1)  # alive, waiting
+            time.sleep(0.1)
+        require(rt.metrics_publisher.publish_now(),
+                "the metrics publish failed")
+    else:
+        import torch.distributed as dist
+        step = hvd.make_train_step(model, loss_fn, opt)
+        losses = []
+        for i, b in enumerate(batches):
+            with open(os.path.join(out_dir, f"step.{rank}.{i}"), "w") as f:
+                f.write(repr(time.time()))
+            hvd.postmortem.record_step(i)
+            hvd.chaos.step(i)  # the spec's kill or stall fires here
+            losses.append(float(step(b)))
+            if spec.get("ticks"):
+                sync()
+                dist.barrier()  # the ticks' starts line up across ranks
+                gc.disable()  # no collector pause makes a rank late
+                start = time.time()
+                for k in range(spec["ticks"]):
+                    time.sleep(max(0.0, start + k * spec["tick_s"]
+                                   - time.time()))
+                    ht.allreduce(torch.tensor([losses[-1]], device=dev),
+                                 name=f"tick.{i}.{k}")
+                gc.enable()
+        out["losses"] = losses
+        if spec.get("ticks"):
+            require(rt.metrics_publisher.publish_now(),
+                    "the metrics publish failed")
+            verdict, hits, deadline = None, [], time.time() + 120
+            while verdict is None and time.time() < deadline:
+                hits = [f for f in http_get_json(port, "/alerts")["firing"]
+                        if f["rule"] == "straggler-suspect"]
+                verdict = next((f for f in hits if f["rank"] == 1), None)
+                if verdict is None:
+                    hvd.postmortem.record_step(len(batches) - 1)
+                    time.sleep(0.5)
+            out.update(straggler=verdict, straggler_firing=hits)
+    with open(os.path.join(out_dir, f"watched.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    deadline = time.time() + 300
+    while not os.path.exists(os.path.join(out_dir, "scraped")):
+        require(time.time() < deadline, "the parent never scraped")
+        # a rank waiting here is alive: its heartbeat says so, or the
+        # launcher's supervision would end it as stalled
+        hvd.postmortem.record_step(len(batches) - 1)
+        time.sleep(0.1)
+    ht.shutdown()
+    return 0
+
+
+def start_watched(out_dir: str, n: int, device_type: str, flags: list,
+                  env_extra: dict):
+    """``python -m horovod_tpu_torch.runner.launch -np n [--gpu] <flags>
+    python3 chip_smoke.py --watched DIR`` in a session of its own, free
+    coordinator and controller ports, the native controller over TCP;
+    the launcher's own output goes to ``DIR/launcher.{out,err}``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    ports = [free_port(), free_port()]
+    cmd = ([sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+            str(n)] + (["--gpu"] if device_type == "cuda" else [])
+           + ["--coordinator-port", str(ports[0]), "--controller-port",
+              str(ports[1])] + flags
+           + [sys.executable, os.path.abspath(__file__), "--watched",
+              out_dir])
+    env = dict(os.environ, HOROVOD_CONTROLLER="tcp",
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]),
+               **env_extra)
+    for name in ("HOROVOD_POSTMORTEM_DIR", "HOROVOD_ALERTS",
+                 "HOROVOD_CHAOS_SPEC"):
+        env.pop(name, None)
+    return subprocess.Popen(
+        cmd, cwd=here, env=env, start_new_session=True,
+        stdout=open(os.path.join(out_dir, "launcher.out"), "wb"),
+        stderr=open(os.path.join(out_dir, "launcher.err"), "wb"))
+
+
+def launcher_err(out_dir: str) -> str:
+    with open(os.path.join(out_dir, "launcher.err"), errors="replace") as f:
+        return f.read()
+
+
+def worker_tails(label: str, logs: str, n: int) -> None:
+    for r in range(n):
+        for stream in ("stdout", "stderr"):
+            fp = os.path.join(logs, f"rank.{r}", stream)
+            if os.path.exists(fp):
+                with open(fp, errors="replace") as f:
+                    tail = f.read()[-3000:]
+                if tail.strip():
+                    print(f"{label}: rank {r} {stream} tail:\n{tail}",
+                          flush=True)
+
+
+def run_watched(label: str, out_dir: str, n: int, device_type: str,
+                flags: list, env_extra: dict, reports: bool,
+                during=None) -> tuple:
+    """Start a forensics launch and wait for it: with ``reports``, for
+    every rank's ``watched.<rank>.json`` (then ``during()`` runs while the
+    ranks wait, ``scraped`` releases them); always for the launcher's
+    exit, at most WATCH_DEADLINE seconds in all, after which its session
+    is killed and the run fails.  Returns (the launcher's exit code, the
+    seconds from the start to its exit, the ranks' reports, ``during``'s
+    result)."""
+    t0 = time.time()
+    proc = start_watched(out_dir, n, device_type, flags, env_extra)
+    got, seen = [], None
+    try:
+        if reports:
+            files = [os.path.join(out_dir, f"watched.{r}.json")
+                     for r in range(n)]
+            while not all(os.path.exists(f) for f in files):
+                require(proc.poll() is None, f"{label}: the launcher exited "
+                        f"{proc.returncode} before every rank reported")
+                require(time.time() - t0 < WATCH_DEADLINE,
+                        f"{label}: no report after {WATCH_DEADLINE} s")
+                time.sleep(0.2)
+            for f in files:
+                with open(f) as fh:
+                    got.append(json.load(fh))
+            seen = during() if during is not None else None
+            with open(os.path.join(out_dir, "scraped"), "w"):
+                pass
+    except BaseException:
+        finish_watched(label, out_dir, n, proc, t0, kill=True)
+        raise
+    rc, wall = finish_watched(label, out_dir, n, proc, t0)
+    return rc, wall, got, seen
+
+
+def finish_watched(label: str, out_dir: str, n: int, proc, t0: float,
+                   kill: bool = False):
+    """Wait for a forensics launch started at ``t0`` to exit, at most
+    WATCH_DEADLINE seconds from its start, and return (its exit code, the
+    seconds from its start to its exit).  Past the deadline, on an error,
+    or at once with ``kill``, its session is killed and the tails of its
+    logs are printed."""
+    try:
+        if not kill:
+            rc = proc.wait(timeout=max(10.0, WATCH_DEADLINE - (time.time()
+                                                               - t0)))
+            return rc, time.time() - t0
+    except BaseException:
+        kill = True
+        raise
+    finally:
+        if kill:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            print(f"{label}: launcher stderr tail:\n"
+                  + launcher_err(out_dir)[-3000:], flush=True)
+            worker_tails(label, os.path.join(out_dir, "pm", "logs"), n)
+
+
+def flight_summary(fr: dict, path: str) -> str:
+    return (f"{os.path.basename(path)} {os.path.getsize(path)} bytes, "
+            f"reason {fr['reason']!r}, complete {fr['complete']}, "
+            f"{len(fr['trace'])} native spans")
+
+
+def phase_forensics(torch, card: str, ref_losses, ref_step_ms: float,
+                    device_type: str = "cuda", cfg_name: str = "1b",
+                    batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                    kill_layers=WATCH_KILL_LAYERS) -> dict:
+    """Phase 17: the forensics planes on phase 5's step, started as a user
+    starts them.  (1) ``launch -np 1 --gpu --postmortem DIR --alerts RULES
+    --metrics-port P`` over ``chip_smoke.py --watched DIR`` (mode
+    ``sentinel``) with ``HOROVOD_MEM_HIGH_WATERMARK`` at WATCH_WATERMARK:
+    losses within 1e-4 of phase 5's (bitwise equality printed), the step
+    beside phase 5's, ``GET /health`` showing the rank's step advance with
+    a ``device`` memory row, the pressure path's ``.mem`` dump and the NaN
+    step's ``.nan`` dump parsed complete, ``sentinel-nonfinite`` firing at
+    ``GET /alerts`` with the step as context, ``launch doctor --watch URL
+    --once`` rendering it, the launcher exiting 0 with no postmortem.
+    (2) ``--chaos`` killing rank 0 at step 2 (the model cut to
+    ``kill_layers`` layers): postmortem.json names rank 0, ``kill``, and
+    ``launch doctor DIR`` prints the root cause.  (3) on a card, a SIGABRT
+    delivered while the host waits in ``torch.cuda.synchronize`` with the
+    recorder armed over Python's faulthandler (``--abort-sync``): a
+    complete record with native spans, and the faulthandler's report.
+    Returns the kernels' launches of (1)."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch import postmortem as PM
+    from horovod_tpu_torch.models import llama
+    label = f"forensics [{cfg_name} -np 1]"
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_forensics_")
+    with open(os.path.join(out_dir, "spec.json"), "w") as f:
+        json.dump({"cfg": cfg_name, "device": device_type, "batch": batch,
+                   "seq": seq, "steps": len(ref_losses), "mode": "sentinel",
+                   "opt": "direct"}, f)
+    rules = os.path.join(out_dir, "rules.json")
+    with open(rules, "w") as f:
+        json.dump(WATCH_RULES, f)
+    mport = free_port()
+    # (2)'s launch: a chaos kill, started while (1)'s rank waits to be
+    # released, so its start-up overlaps (1)'s wind-down
+    kill_label = f"forensics [{cfg_name} cut to {kill_layers} layers, kill]"
+    kill_dir = tempfile.mkdtemp(prefix="chip_smoke_forensics_")
+    kill_pm = os.path.join(kill_dir, "pm")
+    with open(os.path.join(kill_dir, "spec.json"), "w") as f:
+        json.dump({"cfg": cfg_name, "layers": kill_layers,
+                   "device": device_type, "batch": batch, "seq": seq,
+                   "steps": 4, "mode": "fault", "opt": "direct"}, f)
+    kill_spec = os.path.join(kill_dir, "chaos.json")
+    with open(kill_spec, "w") as f:
+        json.dump({"seed": 23, "events": [
+            {"kill": {"rank": 0, "step": 2, "exit_code": 1}}]}, f)
+    kill = {}
+
+    def read_views():
+        kill["t0"] = time.time()
+        kill["proc"] = start_watched(kill_dir, 1, device_type,
+                                     ["--postmortem", kill_pm, "--chaos",
+                                      kill_spec], {})
+        return sentinel_views(mport, 1)
+
+    try:
+        launches = forensics_sentinel(
+            label, out_dir, 1, "direct", card, device_type, cfg_name, mport,
+            rules, {}, read_views, ref_losses, ref_step_ms)
+        if cuda:
+            abort_in_sync(card)  # while (2) runs
+    except BaseException:
+        if "proc" in kill:
+            finish_watched(kill_label, kill_dir, 1, kill["proc"], kill["t0"],
+                           kill=True)
+        raise
+
+    # (2): the chaos kill, attributed
+    rc, wall = finish_watched(kill_label, kill_dir, 1, kill["proc"],
+                              kill["t0"])
+    got = PM.load_postmortem(kill_pm)
+    sus = got["suspect"]
+    drc, dout, derr = run_doctor([kill_pm])
+    print(f"{kill_label}: launcher exit {rc} after {wall:.1f} s; suspect "
+          f"{json.dumps(sus)}; postmortem.json "
+          f"{os.path.getsize(os.path.join(kill_pm, 'postmortem.json'))} "
+          f"bytes; launch doctor exit {drc}: {dout.splitlines()[1:2]}",
+          flush=True)
+    require(rc == 1 and (sus["rank"], sus["classification"]) == (0, "kill"),
+            f"{kill_label}: exit {rc}, suspect {sus}")
+    require(drc == 0 and "ROOT CAUSE: rank 0 — kill" in dout,
+            f"{kill_label}: doctor: {dout[-1000:]} {derr[-1000:]}")
+    shutil.rmtree(kill_dir, ignore_errors=True)
+    return launches
+
+
+def sentinel_views(mport: int, n: int) -> dict:
+    """What the parent reads while a sentinel launch's ranks wait to be
+    released: ``sentinel-nonfinite`` firing at ``GET /alerts`` (polled
+    until it names all ``n`` ranks, at most 60 s), ``GET /health`` and a
+    ``launch doctor --watch --once`` frame."""
+    t0, firing = time.time(), []
+    while time.time() < t0 + 60:
+        firing = [a for a in http_get_json(mport, "/alerts")["firing"]
+                  if a["rule"] == "sentinel-nonfinite"]
+        if {a["rank"] for a in firing} == set(range(n)):
+            break
+        time.sleep(0.25)
+    views = {"firing": firing, "health": http_get_json(mport, "/health"),
+             "doctor": run_doctor(["--watch", f"127.0.0.1:{mport}",
+                                   "--once"]), "reported": t0}
+    views["released"] = time.time()
+    return views
+
+
+def forensics_sentinel(label: str, out_dir: str, n: int, opt: str,
+                       card: str, device_type: str, cfg_name: str,
+                       mport: int, rules: str, env: dict, read_views,
+                       ref_losses=None, ref_step_ms=None) -> dict:
+    """A sentinel launch (``--watched`` mode ``sentinel``, its spec in
+    ``out_dir``) of ``n`` ranks under ``--postmortem --alerts
+    --metrics-port`` and its checks: the losses (within 1e-4 of
+    ``ref_losses``, or alike on every rank), ``GET /health`` advancing
+    with a ``device`` memory row, every rank's ``.nan`` (and on a card
+    ``.mem``) dump complete, ``sentinel-nonfinite`` firing on every rank
+    with the NaN's step, the doctor's frame, each kernel launched once a
+    layer a step, and the reduction: every rank's reduced scalars alike,
+    the sums of their own square-sums and counts and the mean of their
+    losses.  Prints the wrapped step against ``ref_step_ms`` or the plain
+    steps of the same run.  Returns rank 0's kernel launches."""
+    import shutil
+    from horovod_tpu_torch import postmortem as PM
+    from horovod_tpu_torch.models import llama
+    cuda = device_type == "cuda"
+    pm = os.path.join(out_dir, "pm")
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    steps, plain = spec["steps"], spec.get("plain_steps", 0)
+    t0 = time.time()
+    rc, wall, reports, views = run_watched(
+        label, out_dir, n, device_type,
+        ["--postmortem", pm, "--alerts", rules, "--metrics-port",
+         str(mport)],
+        dict({"HOROVOD_MEM_HIGH_WATERMARK": WATCH_WATERMARK,
+              "HOROVOD_METRICS_INTERVAL": "0.5",
+              "HOROVOD_SERIES_RESOLUTION": "0.25",
+              "HOROVOD_HEARTBEAT_INTERVAL": "0.5"}, **env), True,
+        read_views)
+    print(f"{label}: launch to every rank's report "
+          f"{views['reported'] - t0:.1f} s, the views read in "
+          f"{views['released'] - views['reported']:.1f} s, release to exit "
+          f"{t0 + wall - views['released']:.1f} s", flush=True)
+    require(rc == 0, f"{label}: the launcher returned {rc}: "
+            + launcher_err(out_dir)[-2000:])
+    require(not os.path.exists(os.path.join(pm, "postmortem.json")),
+            f"{label}: a clean run wrote a postmortem")
+    r = reports[0]
+    if ref_losses is not None:
+        diffs = [abs(a - b) for a, b in zip(r["losses"], ref_losses)]
+        print(f"{label} losses " + " ".join(f"{x:.5f}" for x in r["losses"])
+              + f"; phase 5's max |diff| {max(diffs):.3g}, bitwise equal: "
+              f"{r['losses'] == list(ref_losses)}", flush=True)
+        require(len(r["losses"]) == steps and max(diffs) <= EAGER_LOSS_TOL,
+                f"{label}: losses {r['losses']} vs phase 5's {ref_losses}")
+    else:
+        print(f"{label} losses " + " ".join(f"{x:.5f}" for x in r["losses"]),
+              flush=True)
+        require(all(math.isfinite(x) for x in r["losses"])
+                and all(o["losses"] == r["losses"] for o in reports),
+                f"{label}: losses {[o['losses'] for o in reports]}")
+    for o in reports:
+        hb0, hb1 = o["health"]
+        mem = hb1.get("mem") or {}
+        print(f"{label}: GET /health rank {o['rank']} step {hb0['step']} "
+              f"then {hb1['step']}, pending "
+              f"{hb1.get('pending_collectives')}, core cycles "
+              f"{hb1.get('core', {}).get('cycles')}, mem {json.dumps(mem)}",
+              flush=True)
+        require(hb1["step"] > hb0["step"] and hb1.get("core"),
+                f"{label}: heartbeats {hb0} -> {hb1}")
+        require(mem.get("source") == ("device" if cuda else "live_buffers"),
+                f"{label}: the heartbeat's memory row is {mem}")
+        fleet = views["health"]["ranks"][str(o["rank"])]
+        require(fleet["heartbeat"]["step"] == steps - 1
+                and not fleet["stale"],
+                f"{label}: the parent's GET /health: {fleet}")
+        flight = os.path.join(pm, f"flight.rank.{o['rank']}")
+        dumps = [".nan"] + ([".mem"] if cuda else [])
+        for ext in dumps:
+            fr = PM.parse_flight_record(flight + ext)
+            print(f"{label}: {flight_summary(fr, flight + ext)}", flush=True)
+            require(fr["complete"] and fr["reason"].startswith(
+                f"explicit:nan step={WATCH_NAN_STEP}" if ext == ".nan"
+                else "explicit:mem watermark="),
+                f"{label}: {flight}{ext}: {fr['reason']} {fr['complete']}")
+    firing = views["firing"]
+    print(f"{label}: GET /alerts sentinel-nonfinite "
+          f"{json.dumps(firing)}", flush=True)
+    require(sorted(a["rank"] for a in firing) == list(range(n))
+            and all(a["severity"] == "critical" and a.get(
+                "context", {}).get("hvd_sentinel_last_nonfinite_step")
+                == WATCH_NAN_STEP for a in firing),
+            f"{label}: GET /alerts: {firing}")
+    drc, dout, derr = views["doctor"]
+    print(f"{label}: launch doctor --watch --once exit {drc}:\n"
+          + "\n".join(dout.splitlines()[:4]), flush=True)
+    require(drc == 0 and "sentinel-nonfinite rank 0" in dout,
+            f"{label}: doctor --watch: {dout[-1000:]} {derr[-1000:]}")
+    local = [o["check"]["local"] for o in reports]
+    reduced = [o["check"]["reduced"] for o in reports]
+    want = [sum(x[0] for x in local), sum(x[1] for x in local),
+            sum(x[2] for x in local) / n]
+    print(f"{label}: step 0's [sq, nonfinite, loss] over {n} ranks "
+          f"{reduced[0]}, the ranks' own {local}", flush=True)
+    require(all(x == reduced[0] for x in reduced)
+            and reduced[0][1] == want[1]
+            and all(math.isclose(reduced[0][k], want[k], rel_tol=1e-6)
+                    for k in (0, 2)),
+            f"{label}: reduced {reduced}, the ranks' own {local}")
+    per_step = llama.CONFIGS[cfg_name].n_layers if cuda else 0
+    for o in reports:
+        for name in REPLACES:
+            got = o["launches"].get(name, 0)
+            require(got == per_step * (steps + plain),
+                    f"{label}: rank {o['rank']}'s {name} launched {got} "
+                    f"times, expected {per_step} a step")
+    ms = sum(r["ms"][WARMUP_STEPS:]) / (steps - WARMUP_STEPS)
+    if ref_step_ms is None:  # the plain steps' first is left out
+        ref_step_ms = sum(r["plain_ms"][1:]) / (plain - 1)
+        against = f"the same step unwrapped (steps 2-{plain} of {plain})"
+    else:
+        against = "phase 5's"
+    print(card, flush=True)
+    print(f"{label} [{card}]: sentinel-wrapped step {ms:.1f} ms (steps "
+          f"{WARMUP_STEPS + 1}-{steps}, each synchronized) against "
+          f"{against} {ref_step_ms:.1f} ms, ratio {ms / ref_step_ms:.3f}; "
+          f"launches {json.dumps({k: r['launches'].get(k, 0) for k in REPLACES})}"
+          f"; launch to exit {wall:.1f} s", flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return {name: r["launches"].get(name, 0) for name in REPLACES}
+
+
+ABORT_SLEEP_CYCLES = 1 << 36  # torch.cuda._sleep: far longer than the wait
+
+
+def abort_sync_worker(path: str) -> int:
+    """``--abort-sync PATH``: arm the flight recorder at PATH over Python's
+    faulthandler, negotiate one op, queue a kernel that spins for a long
+    time, print ``WAITING`` and wait in ``torch.cuda.synchronize``; the
+    parent's SIGABRT ends it there."""
+    import faulthandler
+    import torch
+    faulthandler.enable(file=sys.stderr)
+    import horovod_tpu_torch.torch as ht
+    rt = ht.init()
+    require(rt.core is not None, "no native core")
+    ht.allreduce(torch.ones(4, device=rt.device), name="probe")
+    torch.cuda._sleep(ABORT_SLEEP_CYCLES)
+    print("WAITING", flush=True)
+    torch.cuda.synchronize()
+    return 3  # not reached: the SIGABRT ends the process
+
+
+def abort_in_sync(card: str) -> None:
+    """Phase 17 (3): a SIGABRT while the host waits in
+    ``cudaStreamSynchronize``, with the recorder armed after Python's
+    faulthandler: the record is complete with native spans, and the
+    process dies of SIGABRT through the faulthandler's report (the chained
+    handler)."""
+    import tempfile
+    from horovod_tpu_torch import postmortem as PM
+    label = "forensics [SIGABRT in cudaStreamSynchronize]"
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_abort_"),
+                        "flight.rank.0")
+    env = dict(os.environ, HOROVOD_CONTROLLER="tcp",
+               HOROVOD_CONTROLLER_PORT=str(free_port()),
+               HOROVOD_FLIGHT_RECORD=path, PYTHONPATH=here)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--abort-sync", path], cwd=here, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            start_new_session=True)
+    try:
+        line = proc.stdout.readline()
+        require(line.strip() == b"WAITING", f"{label}: {line!r}")
+        time.sleep(2.0)
+        t0 = time.time()
+        proc.send_signal(signal.SIGABRT)
+        _, err = proc.communicate(timeout=60)
+    except BaseException:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+        raise
+    fr = PM.parse_flight_record(path)
+    print(f"{label}: exit {proc.returncode} {time.time() - t0:.2f} s after "
+          f"the signal; {flight_summary(fr, path)}; faulthandler's report: "
+          f"{'Fatal Python error: Aborted' in err.decode()}", flush=True)
+    require(proc.returncode == -signal.SIGABRT and fr["complete"]
+            and fr["reason"] == "signal:SIGABRT" and fr["trace"]
+            and "Fatal Python error: Aborted" in err.decode(errors="replace"),
+            f"{label}: exit {proc.returncode}, {fr['reason']}, "
+            f"{fr['complete']}, {len(fr['trace'])} spans: "
+            + err.decode(errors="replace")[-2000:])
+
+
+def fault_times(out_dir: str, rank: int, step: int) -> float:
+    with open(os.path.join(out_dir, f"step.{rank}.{step}")) as f:
+        return float(f.read())
+
+
+def rank_postmortem(torch, n: int, card: str, device_type: str = "cuda",
+                    cfg_name: str = "1b", batch: int = TRAIN_BATCH,
+                    seq: int = TRAIN_SEQ, timeout_s: str = POSTMORTEM_TIMEOUT,
+                    tick_s: float = STRAGGLER_TICK_S,
+                    stall_ms: int = STRAGGLER_STALL_MS,
+                    tags: str = "abcdef") -> None:
+    """``--ranks N --parts postmortem``: ``launch -np N --gpu --postmortem
+    DIR --alerts RULES --chaos SPEC`` over ``chip_smoke.py --watched DIR``
+    (mode ``fault``), ``1b`` at 4 x 2048 a card, one launch an experiment:
+    (a) a kill of rank 2 at step 2 on the direct step: postmortem.json
+    names rank 2, ``kill``, every other rank ``terminated``; (b) a stall of
+    rank 1 at step 3 on the hook-driven step: the supervision names rank 1,
+    ``stall``, and its flight record is complete, ``signal:SIGABRT``, with
+    native spans; (c) a 70 ms stall at ``complete`` on rank 1, the direct
+    step followed each time by STRAGGLER_TICKS paced negotiated ticks:
+    ``straggler-suspect`` names rank 1 at ``GET /alerts`` while the job
+    runs; (d) (b)'s stall on the direct step,
+    whose verdicts are printed, not required.  Printed for each: the
+    seconds from the fault to the launcher's exit and each survivor's
+    seconds from the first failure's exit to its own (``tags`` picks the
+    experiments; ``stall_ms`` and ``tick_s`` set (c)'s pace).  Then phase
+    17's
+    sentinel launch across the N ranks, (e) on the direct step (the
+    scalars take one NCCL all_reduce) and (f) on the hook-driven one
+    (negotiated through the engine), with rank 1's NaN every rank's
+    verdict and the wrapped step against the same step unwrapped
+    (``forensics_sentinel``)."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch import postmortem as PM
+    cases = (
+        ("a", "direct", {"kill": {"rank": 2, "step": 2, "exit_code": 1}},
+         2, 4, {}),
+        ("b", "hook", {"stall": {"rank": 1, "step": 3,
+                                 "duration_ms": 3600000}}, 1, 5, {}),
+        ("c", "direct", {"stall": {"rank": 1, "point": "complete",
+                                   "duration_ms": stall_ms}},
+         None, 6, {"ticks": STRAGGLER_TICKS, "tick_s": tick_s}),
+        ("d", "direct", {"stall": {"rank": 1, "step": 3,
+                                   "duration_ms": 3600000}}, 1, 5, {}),
+    )
+    for tag, opt, event, fault_rank, steps, extra in cases:
+        if tag not in tags:
+            continue
+        label = f"postmortem [{cfg_name} -np {n}] ({tag}) {opt} step"
+        if device_type == "cuda":
+            torch.cuda.empty_cache()
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_postmortem_")
+        pm = os.path.join(out_dir, "pm")
+        with open(os.path.join(out_dir, "spec.json"), "w") as f:
+            json.dump(dict({"cfg": cfg_name, "device": device_type,
+                            "batch": batch, "seq": seq, "steps": steps,
+                            "mode": "fault", "opt": opt}, **extra), f)
+        rules = os.path.join(out_dir, "rules.json")
+        with open(rules, "w") as f:
+            json.dump(WATCH_RULES, f)
+        spec = os.path.join(out_dir, "chaos.json")
+        with open(spec, "w") as f:
+            json.dump({"seed": 29, "events": [event]}, f)
+        env = {"HOROVOD_HEARTBEAT_TIMEOUT": timeout_s,
+               "HOROVOD_HEARTBEAT_INTERVAL": "0.5"}
+        if tag == "c":
+            env.update(HOROVOD_METRICS="1", HOROVOD_METRICS_INTERVAL="0.5",
+                       HOROVOD_SERIES_RESOLUTION="0.25")
+            if device_type != "cuda":
+                # the CPU's memory sampler walks the collector's objects
+                # under the GIL, long enough to make a rank late for a tick
+                env["HOROVOD_MEM"] = "0"
+        rc, wall, reports, _ = run_watched(
+            label, out_dir, n, device_type,
+            ["--postmortem", pm, "--alerts", rules, "--chaos", spec], env,
+            tag == "c")
+        t_exit = time.time()
+        if tag == "c":
+            print(f"{label}: launcher exit {rc} after {wall:.1f} s",
+                  flush=True)
+            require(rc == 0, f"{label}: the launcher returned {rc}: "
+                    + launcher_err(out_dir)[-2000:])
+            for r in sorted(reports, key=lambda x: x["rank"]):
+                v = r["straggler"]
+                print(f"{label}: rank {r['rank']} read GET /alerts: "
+                      f"{json.dumps(v)}; straggler-suspect firing on ranks "
+                      f"{[f['rank'] for f in r['straggler_firing']]}",
+                      flush=True)
+                require(v is not None and v["rank"] == 1
+                        and v["value"] >= 4.0,
+                        f"{label}: rank {r['rank']} saw {v}")
+            shutil.rmtree(out_dir, ignore_errors=True)
+            continue
+        got = PM.load_postmortem(pm)
+        sus, ranks = got["suspect"], got["ranks"]
+        t_fault = fault_times(out_dir, fault_rank, event.get(
+            "kill", event.get("stall"))["step"])
+        first = got["first_failure"] or {}
+        survivors = {r: info["exit"]["time"] - first.get("time", 0.0)
+                     for r, info in ranks.items()
+                     if info["exit"]["classification"] == "terminated"}
+        print(f"{label}: launcher exit {rc}; suspect {json.dumps(sus)}; "
+              "exits " + ", ".join(
+                  f"rank {r}: {info['exit']['classification']} (rc "
+                  f"{info['exit']['rc']})" for r, info in sorted(
+                      ranks.items(), key=lambda kv: int(kv[0]))), flush=True)
+        print(f"{label}: {t_exit - t_fault:.2f} s from the fault to the "
+              f"launcher's exit; survivors ended "
+              + ", ".join(f"rank {r} {s:.2f} s" for r, s in sorted(
+                  survivors.items())) + " after the first failure's exit",
+              flush=True)
+        require(rc != 0, f"{label}: the launcher returned 0")
+        require(all(s <= 10.5 for s in survivors.values()),
+                f"{label}: survivors took {survivors}")
+        if tag in ("a", "b"):
+            want = (fault_rank, "kill" if tag == "a" else "stall")
+            require((sus["rank"], sus["classification"]) == want,
+                    f"{label}: suspect {sus}, want {want}")
+            require(sorted(survivors) == sorted(
+                str(r) for r in range(n) if r != fault_rank),
+                f"{label}: survivors {sorted(survivors)}")
+        fr = ranks[str(fault_rank)]["flight_record"]
+        if fr:
+            print(f"{label}: rank {fault_rank} flight record reason "
+                  f"{fr['reason']!r}, complete {fr['complete']}, "
+                  f"{len(fr['trace'])} native spans, "
+                  f"{os.path.getsize(os.path.join(pm, f'flight.rank.{fault_rank}'))}"
+                  " bytes", flush=True)
+        if tag == "b":
+            require(fr and fr["complete"] and fr["reason"] ==
+                    "signal:SIGABRT" and fr["trace"],
+                    f"{label}: rank 1's flight record {fr}")
+            hb = ranks["1"]["heartbeat"]
+            require(hb["step"] == 3 and hb["pending_collectives"] == 0,
+                    f"{label}: rank 1's last heartbeat {hb}")
+        if tag == "d":
+            print(f"{label}: the monitor's verdicts (recorded, not "
+                  "required): " + ", ".join(
+                      f"rank {r}: {info['exit']['classification']}, "
+                      f"pending {(info['heartbeat'] or {}).get('pending_collectives')}"
+                      for r, info in sorted(ranks.items(),
+                                            key=lambda kv: int(kv[0]))),
+                  flush=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for tag, opt in (("e", "direct"), ("f", "hook")):
+        if tag not in tags:
+            continue
+        label = f"postmortem [{cfg_name} -np {n}] ({tag}) {opt} step, sentinel"
+        if device_type == "cuda":
+            torch.cuda.empty_cache()
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_postmortem_")
+        with open(os.path.join(out_dir, "spec.json"), "w") as f:
+            json.dump({"cfg": cfg_name, "device": device_type,
+                       "batch": batch, "seq": seq,
+                       "steps": WARMUP_STEPS + TIMED_STEPS + 1,
+                       "plain_steps": SENTINEL_PLAIN_STEPS,
+                       "mode": "sentinel", "opt": opt}, f)
+        rules = os.path.join(out_dir, "rules.json")
+        with open(rules, "w") as f:
+            json.dump(WATCH_RULES, f)
+        mport = free_port()
+        forensics_sentinel(label, out_dir, n, opt, card, device_type,
+                           cfg_name, mport, rules,
+                           {"HOROVOD_HEARTBEAT_TIMEOUT": timeout_s},
+                           lambda: sentinel_views(mport, n))
+    print(card, flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     if len(args) == 2 and args[0] in ("--rank-worker", "--launched",
-                                      "--measured", "--perfed"):
+                                      "--measured", "--perfed",
+                                      "--watched", "--abort-sync"):
         # a worker the port's launcher started (--ranks N, phases 13, 15)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         if args[0] == "--launched":
@@ -4952,6 +5840,10 @@ def main() -> int:
             return measured_worker(args[1])
         if args[0] == "--perfed":
             return perfed_worker(args[1])
+        if args[0] == "--watched":
+            return watched_worker(args[1])
+        if args[0] == "--abort-sync":
+            return abort_sync_worker(args[1])
         rank_worker(json.loads(args[1]))
         return 0
     import torch
@@ -5035,6 +5927,7 @@ def main() -> int:
     fleet = phase_fleet(torch, np, serve, card, serve_ref)
     measure = phase_measure(torch, card, losses, step_ms, eager_ms)
     perf = phase_perf(torch, np, hvd, llama, F, card, losses, step_ms)
+    watch = phase_forensics(torch, card, losses, step_ms)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -5047,6 +5940,7 @@ def main() -> int:
         row["launches_fleet"] = fleet[row["name"]]
         row["launches_measure"] = measure[row["name"]]
         row["launches_perf"] = perf[row["name"]]
+        row["launches_watch"] = watch[row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

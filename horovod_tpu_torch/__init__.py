@@ -33,6 +33,13 @@ and through the launcher's ``--metrics-port``, ``--timeline-filename``,
 (``perf/``: the step ledger, the memory sampler, the cost model, the
 regression gate) is ``hvd.perf`` with ``hvd.perf_report()``, the
 profiler ``hvd.profiler``; ``GET /perf`` and ``launch doctor`` read them.
+The forensics planes: ``hvd.postmortem`` (``record_step(i)`` stamps the
+heartbeats; the launcher's ``--postmortem DIR`` writes postmortem.json,
+``launch doctor DIR`` renders it), ``hvd.chaos`` (``step(i)`` clocks a
+``--chaos`` spec's faults), ``hvd.watch`` (alert rules and the fleet
+series behind ``--alerts``, ``GET /alerts`` and ``GET /series``) and
+``hvd.sentinel`` (``wrap(step)`` watches the gradient norm, nonfinite
+values and the loss).
 
 The package imports neither JAX nor ``horovod_tpu``; the pieces it shares
 with the JAX package (reduce ops, knobs, exceptions, the native core's
@@ -42,7 +49,8 @@ sources) are its own copies.
 from __future__ import annotations
 
 from . import runtime as _rt
-from . import perf, serve
+from . import chaos, perf, postmortem, serve, watch
+from .watch import sentinel
 from .utils import profiler
 from .data.loader import prefetch
 from .common.reduce_op import (ReduceOp, Average, Sum, Adasum, Min, Max,
@@ -151,4 +159,5 @@ __all__ = [
     "adasum_allreduce", "adasum_hierarchical", "ring_attention",
     "ulysses_attention", "make_ring_attn_fn", "make_ulysses_attn_fn",
     "make_moe_fn", "run", "perf", "perf_report", "profiler",
+    "postmortem", "chaos", "watch", "sentinel",
 ]

@@ -17,7 +17,9 @@ drives (``GaussianProcess``, ``BayesianOptimizer``,
 ``NativeParameterManager``, ``NativeArmBandit``, ``NativeProductBandit``,
 over ``csrc/core/optim.cc``).  The perf plane reads the per-op
 aggregates (``op_stats``) and the core's memory footprint (``mem``).  The
-flight recorder is not bound (ROADMAP queue 1 item 4.3).
+postmortem plane reads the core's liveness (``health``) and arms and
+triggers its flight recorder (``flight_enable``, ``flight_dump``;
+``csrc/core/postmortem.cc``).
 """
 
 from __future__ import annotations
@@ -78,6 +80,11 @@ def load_library() -> ctypes.CDLL:
         lib.hvd_core_mem.argtypes = [vp, ctypes.c_char_p, i32]
         lib.hvd_core_metrics_window.argtypes = [vp, f64, ctypes.c_char_p,
                                                 i32]
+        # the postmortem plane: liveness and the flight recorder
+        lib.hvd_core_health.argtypes = [vp, ctypes.c_char_p, i32]
+        lib.hvd_core_flight_enable.argtypes = [vp, ctypes.c_char_p]
+        lib.hvd_core_flight_dump.argtypes = [vp, ctypes.c_char_p,
+                                             ctypes.c_char_p]
         lib.hvd_core_enable_autotune.argtypes = [vp, i32, i32, i32, f64]
         lib.hvd_core_autotune_state.argtypes = [vp, dptr]
         lib.hvd_gp_create.restype = vp
@@ -546,6 +553,42 @@ class CoordinationCore:
                 except ValueError:
                     continue
         return out
+
+    def health(self) -> dict:
+        """Liveness snapshot (``hvd_core_health``): name-keyed integer
+        fields, ``now_us`` (the ring's steady clock), ``cycles``,
+        ``last_progress_age_us``, ``queue_depth``, ``responses_pending``,
+        ``transport_healthy``, ``shutdown``.  Built without the cycle
+        loop's lock, so it answers while the loop is wedged, which is
+        when the postmortem plane asks.  Unknown lines are ignored."""
+        lines = self._text(lambda b: self._lib.hvd_core_health(
+            self._h, b, len(b))).splitlines()
+        if not lines or not lines[0].startswith("hvd_health_v"):
+            raise RuntimeError(f"unrecognized native health header: "
+                               f"{lines[:1]!r}")
+        out = {"version": int(lines[0].split("hvd_health_v", 1)[1])}
+        for line in lines[1:]:
+            parts = line.split()
+            if len(parts) == 2:
+                try:
+                    out[parts[0]] = int(parts[1])
+                except ValueError:
+                    continue
+        return out
+
+    def flight_enable(self, path: str) -> None:
+        """Arm the crash-time flight recorder: fatal signals and
+        std::terminate dump this core's flight record to ``path``
+        (``csrc/core/postmortem.cc``), chaining to the handler installed
+        before; implies span-ring recording, so the tail is populated.
+        ``postmortem.parse_flight_record`` reads the record."""
+        self._lib.hvd_core_flight_enable(self._h, path.encode())
+
+    def flight_dump(self, path: str, reason: str = "") -> bool:
+        """Write the flight record to ``path`` now
+        (``hvd_core_flight_dump``); True when the file was written."""
+        return self._lib.hvd_core_flight_dump(
+            self._h, path.encode(), reason.encode()) == 0
 
     def trace_enable(self) -> None:
         """Turn on the native span ring (``csrc/core/trace.h``): each

@@ -5,9 +5,10 @@ wire and overlap planes, the input prefetch and ZeRO
 (``parallel/layout.py``), the eager API's controller
 (``runtime.ensure_core``), the serving engine (``serve/config.py``
 ``from_knobs``), the launcher's rendezvous (``runner/``) and the
-measurement plane (``utils/``, ``common/hvdlogging.py``) and the
-perf-attribution plane (``perf/``) need, with the
-same names, defaults and parsing (env > override > default); ``current``
+measurement plane (``utils/``, ``common/hvdlogging.py``), the
+perf-attribution plane (``perf/``) and the forensics planes
+(``postmortem.py``, ``utils/health.py``, ``watch/``, ``chaos/``) need,
+with the same names, defaults and parsing (env > override > default); ``current``
 reads one live (env > the runtime's snapshot > default)."""
 
 from __future__ import annotations
@@ -228,9 +229,99 @@ _knob("HOROVOD_MEM_HIGH_WATERMARK", 0.9, float,
 _knob("HOROVOD_LOG_LEVEL", "warning", str,
       "trace|debug|info|warning|error|fatal")
 _knob("HOROVOD_LOG_HIDE_TIME", False, _parse_bool, "Hide timestamps in logs.")
+# --- the watch plane (watch/) ---
+_knob("HOROVOD_SERIES_RETENTION", 600.0, float,
+      "Fleet time-series history horizon in seconds (watch plane, "
+      "horovod_tpu_torch/watch/series.py): the rendezvous server keeps one "
+      "bounded downsampling ring per (rank, metric family), fed by the "
+      "metric snapshots workers already publish, served at GET /series "
+      "and evaluated by the alert rules engine.  Ring memory is "
+      "retention/resolution points per series, enforced.  Must be "
+      "positive; rejected at init() otherwise.")
+_knob("HOROVOD_SERIES_RESOLUTION", 5.0, float,
+      "Fleet time-series bucket width in seconds (watch plane): samples "
+      "landing inside one resolution bucket replace the bucket's point "
+      "(last wins), and metrics-scope ingest is rate-limited per rank "
+      "to this cadence.  Must be positive and no larger than "
+      "HOROVOD_SERIES_RETENTION; rejected at init() otherwise.")
+_knob("HOROVOD_ALERTS", "", str,
+      "Path of a YAML alert-rules file (watch plane, "
+      "horovod_tpu_torch/watch/rules.py): rules merge over the committed "
+      "default ruleset by name, are published to the rendezvous KV "
+      "scope 'alerts' and evaluated by the driver's engine — firing "
+      "alerts surface at GET /alerts, as merged-timeline instants and "
+      "as the hvd_alerts_* families.  Equivalent to launch --alerts.  "
+      "When set, the file must exist and parse; rejected at init() "
+      "otherwise.  Empty = defaults only.")
+_knob("HOROVOD_SENTINEL", True, _parse_bool,
+      "Training-quality sentinel kill switch (watch plane, "
+      "horovod_tpu_torch/watch/sentinel.py): with it on, hvd.sentinel.wrap "
+      "computes the global grad-norm, the nonfinite count (summed over "
+      "the group: the same verdict on every rank) and loss EMA/divergence "
+      "scalars that ride the existing metrics publisher; a nonfinite "
+      "step triggers an explicit native flight dump (reason 'nan') and "
+      "the committed sentinel-nonfinite critical rule.  0 = "
+      "hvd.sentinel.wrap returns the step untouched.")
+_knob("HOROVOD_SENTINEL_INTERVAL", 1, int,
+      "Sentinel gauge/EMA update cadence in recorded steps (1 = every "
+      "step).  Nonfinite detection always runs every recorded step — a "
+      "NaN must never slip between samples.  Must be >= 1; rejected at "
+      "init() otherwise.")
+# --- the postmortem plane (postmortem.py, utils/health.py) ---
+_knob("HOROVOD_HEARTBEAT", False, _parse_bool,
+      "Enable per-rank heartbeats: a background thread PUTs a liveness "
+      "snapshot (step, native cycle progress, queue depth, pending "
+      "collectives) to the rendezvous KV scope 'health' on the aligned "
+      "fleet clock; the launcher serves the fleet view at /health with "
+      "per-rank staleness and supervises progress.  launch --postmortem "
+      "implies this.")
+_knob("HOROVOD_HEARTBEAT_INTERVAL", 1.0, float,
+      "Seconds between heartbeat publishes to the rendezvous KV.")
+_knob("HOROVOD_HEARTBEAT_TIMEOUT", 10.0, float,
+      "Driver-side supervision threshold in seconds: a rank whose "
+      "heartbeat goes silent for this long is declared heartbeat-lost; "
+      "a rank whose recorded step stops advancing for this long while "
+      "heartbeats continue is declared stalled and killed with SIGABRT "
+      "so its flight record is captured (launch --postmortem).")
 _knob("HOROVOD_FLIGHT_RECORD", "", str,
-      "Path of this rank's crash-time flight record. Not ported yet: "
-      "setting it raises at init (ROADMAP queue 1 item 4.3).")
+      "Path of this rank's crash-time flight record: when set, the "
+      "native core arms fatal-signal/std::terminate handlers that dump "
+      "the trace-ring tail, metrics snapshot and tensor-queue/transport "
+      "state there (csrc/core/postmortem.cc).  launch --postmortem sets a "
+      "per-rank path automatically.")
+_knob("HOROVOD_POSTMORTEM_DIR", "", str,
+      "Directory for crash forensics: launch collects per-rank flight "
+      "records, log tails and final heartbeats there and writes "
+      "postmortem.json on abnormal exit (render with `launch doctor`). "
+      "Equivalent to the --postmortem flag.")
+# --- the chaos plane (chaos/) ---
+_knob("HOROVOD_CHAOS", False, _parse_bool,
+      "Enable the chaos plane: workers fetch the fault-injection spec "
+      "from the rendezvous KV (scope 'chaos', published by launch "
+      "--chaos) and install a deterministic per-rank injector.")
+_knob("HOROVOD_CHAOS_SPEC", "", str,
+      "Path to a chaos spec YAML (horovod_tpu_torch/chaos/spec.py); used when "
+      "no rendezvous-distributed spec is available.")
+_knob("HOROVOD_CHAOS_SEED", 0, int,
+      "Base seed of the chaos plane; every rank derives an independent "
+      "deterministic stream from it (native and Python injectors).")
+_knob("HOROVOD_CHAOS_TCP_RANK", -1, int,
+      "Restrict native transport fault injection to this rank (-1=all).")
+_knob("HOROVOD_CHAOS_TCP_CLOSE_AFTER", 0, int,
+      "Close the controller socket before the Nth frame operation "
+      "(one-shot, deterministic; 0 disables).")
+_knob("HOROVOD_CHAOS_TCP_CLOSE_RATE", 0.0, float,
+      "Per-frame-op probability of an injected controller socket close.")
+_knob("HOROVOD_CHAOS_TCP_DROP_RATE", 0.0, float,
+      "Per-frame-op probability of an injected frame drop (+ close: TCP "
+      "cannot lose a frame on a live connection).")
+_knob("HOROVOD_CHAOS_TCP_DUP_RATE", 0.0, float,
+      "Per-frame-op probability of an injected duplicate frame "
+      "(exercises receiver seq dedup).")
+_knob("HOROVOD_CHAOS_TCP_DELAY_RATE", 0.0, float,
+      "Per-frame-op probability of an injected delay.")
+_knob("HOROVOD_CHAOS_TCP_DELAY_MS", 0, int,
+      "Injected transport delay length in milliseconds.")
 
 _knob("HOROVOD_SERVE_PORT", 0, int,
       "Port of the serving fleet's request router (0 = ephemeral). Must be "

@@ -18,6 +18,12 @@ char g_path[1024] = {0};
 std::atomic<bool> g_installed{false};
 std::atomic<bool> g_dumping{false};
 std::terminate_handler g_prev_terminate = nullptr;
+// The dispositions the fatal signals had before arming, restored before the
+// re-raise so the process dies through whatever was installed first (a
+// Python faulthandler, a CUDA or NCCL handler, or the default action).
+constexpr int kFatal[] = {SIGSEGV, SIGABRT, SIGBUS, SIGFPE, SIGILL};
+constexpr int kNumFatal = sizeof(kFatal) / sizeof(kFatal[0]);
+struct sigaction g_prev_action[kNumFatal];
 
 // ---------------------------------------------------- signal-safe output
 // write(2) + hand-rolled formatting only: snprintf/localtime/malloc are
@@ -94,8 +100,21 @@ void FatalSignalHandler(int sig) {
     strcat(reason, SigName(sig));
     DumpNow(reason);
   }
-  ::signal(sig, SIG_DFL);
-  ::raise(sig);  // die with the original status supervisors expect
+  // Chain: restore the earlier disposition (an ignored fatal signal is
+  // treated as the default, so a crash is never turned into a return),
+  // then re-raise.  The signal is blocked while this handler runs, so the
+  // earlier handler, or the default death with the original status the
+  // supervisors expect, takes it as soon as this one returns.
+  bool restored = false;
+  for (int i = 0; i < kNumFatal; ++i) {
+    if (kFatal[i] != sig) continue;
+    struct sigaction prev = g_prev_action[i];
+    if (!(prev.sa_flags & SA_SIGINFO) && prev.sa_handler == SIG_IGN)
+      prev.sa_handler = SIG_DFL;
+    restored = sigaction(sig, &prev, nullptr) == 0;
+  }
+  if (!restored) ::signal(sig, SIG_DFL);
+  ::raise(sig);
 }
 
 void TerminateHandler() {
@@ -110,8 +129,8 @@ void InstallHandlers() {
   memset(&sa, 0, sizeof(sa));
   sa.sa_handler = FatalSignalHandler;
   sigemptyset(&sa.sa_mask);
-  const int kFatal[] = {SIGSEGV, SIGABRT, SIGBUS, SIGFPE, SIGILL};
-  for (int sig : kFatal) sigaction(sig, &sa, nullptr);
+  for (int i = 0; i < kNumFatal; ++i)
+    sigaction(kFatal[i], &sa, &g_prev_action[i]);
   g_prev_terminate = std::set_terminate(TerminateHandler);
 }
 

@@ -278,6 +278,11 @@ class Engine:
                 raise ValueError(
                     f"{op.kind} {op.name!r}: tensor on {t.device}, but the "
                     f"runtime's collectives run on {self.device}")
+        # chaos straggler hook: a stall event at point "negotiate" slows
+        # every negotiated op of the target rank, which drags its
+        # negotiation ages up and names it in the straggler report
+        from .. import chaos
+        chaos.maybe_stall("negotiate")
         if self.device.type == "cuda":
             op.ready = torch.cuda.Event()
             op.ready.record(torch.cuda.current_stream(self.device))

@@ -23,10 +23,9 @@ measured memory ledger of each rank.
     perf report's ``memory`` section.
   * The OOM-proximity sentinel: crossing ``HOROVOD_MEM_HIGH_WATERMARK``
     fires once per transition (``hvd_mem_pressure_events_total``, a
-    ``mem.pressure`` timeline instant, a warning).  The JAX sentinel also
-    writes a native flight dump; the port's flight recorder comes with
-    the postmortem plane (ROADMAP queue 1 item 4.3), so ``_flight_dump``
-    returns None, as the JAX one does with flight recording off.
+    ``mem.pressure`` timeline instant, a warning) and writes a native
+    flight dump (reason ``mem``) beside the rank's flight record path
+    when ``HOROVOD_FLIGHT_RECORD`` and the native core are up.
 
 Knobs: ``HOROVOD_MEM`` (kill switch), ``HOROVOD_MEM_INTERVAL`` (rate
 limit), ``HOROVOD_MEM_HIGH_WATERMARK``; checked at ``init``
@@ -37,6 +36,7 @@ from __future__ import annotations
 
 import gc
 import math
+import sys
 import threading
 import time
 from typing import Any, Callable, Dict, Optional
@@ -83,13 +83,25 @@ def live_tensor_bytes() -> int:
     """Bytes of the CPU storages the process's live tensors hold, each
     storage counted once (views share one)."""
     import torch
+    # The collector's list holds a reference to every tracked object,
+    # tuples another thread is still building included; CPython raises
+    # SystemError in that thread if it resumes while the reference is
+    # held (_PyTuple_Resize wants a refcount of 1).  So the list is cut
+    # down to the tensors and dropped without letting another thread run.
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e3)
+    try:
+        objs = gc.get_objects()
+        # type(), not isinstance(): some objects warn on __class__
+        tensors = [o for o in objs if issubclass(type(o), torch.Tensor)]
+        del objs
+    finally:
+        sys.setswitchinterval(switch)
     seen = set()
     total = 0
-    for obj in gc.get_objects():
+    for obj in tensors:
         try:
-            # type(), not isinstance(): some objects warn on __class__
-            if not issubclass(type(obj), torch.Tensor) \
-                    or obj.device.type != "cpu":
+            if obj.device.type != "cpu":
                 continue
             st = obj.untyped_storage()
             key = st.data_ptr()
@@ -184,6 +196,7 @@ class MemSampler:
         self.peak_seen = 0        # running max under the CPU source
         self.pressure_above = False   # fire-once transition latch
         self.pressure_events = 0
+        self.dump_paths: list = []    # the flight dumps written
         self._last_t: Optional[float] = None
 
     # ------------------------------------------------------------ geometry
@@ -348,8 +361,31 @@ class MemSampler:
 
     def _flight_dump(self, row: Dict[str, Any], core: Any = None
                      ) -> Optional[str]:
-        """The flight dump the JAX sentinel writes; the port's flight
-        recorder comes with ROADMAP queue 1 item 4.3, so there is none."""
+        """Explicit native flight dump, reason ``mem``: the black box
+        taken before the process dies of memory.  The path is
+        HOROVOD_FLIGHT_RECORD's with a ``.mem`` suffix, so a later crash
+        record never overwrites the pressure evidence.  Uses the caller's
+        core, else the runtime's; None without either or without a
+        path."""
+        path = str(_knob("HOROVOD_FLIGHT_RECORD") or "")
+        if core is None:
+            try:
+                from .. import runtime as _rt
+                if _rt.is_initialized():
+                    core = _rt.get().core
+            except Exception:
+                core = None
+        if core is None or not getattr(core, "_h", True) or not path:
+            return None
+        path = f"{path}.mem"
+        try:
+            if core.flight_dump(
+                    path, reason=f"mem watermark={row['watermark']:.4f}"):
+                with self.lock:
+                    self.dump_paths.append(path)
+                return path
+        except Exception:
+            pass  # forensics must never take the training loop down
         return None
 
     # -------------------------------------------------------------- report

@@ -1,5 +1,12 @@
 """``launch doctor``: the port of ``horovod_tpu/runner/doctor.py``, the
-human end of the perf plane and of the serving fleet's views.
+human end of the postmortem, perf and watch planes and of the serving
+fleet's views.
+
+``launch doctor DIR`` (or a ``postmortem.json``) renders the postmortem
+the launcher wrote under ``--postmortem DIR``, root cause first: the
+first-failing rank and the suspect's classification with its evidence,
+the exit taxonomy, the fleet-clock-ordered last events and each rank's
+flight record and log tail.
 
 ``--perf SOURCE`` renders the perf-attribution plane: SOURCE is a ``GET
 /perf`` URL (or ``host:port``), a saved /perf JSON, or a directory holding
@@ -14,12 +21,16 @@ lifecycle from ``GET /serve/trace`` (or a saved payload): status and the
 worst component, the attribution that sums to the wall time, placement
 attempts, and the deterministic span ids.
 
-The texts are the JAX doctor's, byte for byte, for the same views.  The
-postmortem path (``doctor DIR``) and ``--watch`` render what the
-postmortem and watch planes write; the port has neither yet (ROADMAP
-queue 1 item 4.3), so they exit 2 naming it.
+``--watch SOURCE`` follows the watch plane: ``GET /alerts`` and ``GET
+/series`` (a URL or host:port) re-rendered every ``--interval`` seconds,
+firing alerts first, then sparklines of the hot series; ``--once``, or a
+saved JSON, renders one frame.
+
+The texts are the JAX doctor's, byte for byte, for the same views.
 
 Usage:
+  python -m horovod_tpu_torch.runner.launch doctor /path/to/postmortem_dir
+  python -m horovod_tpu_torch.runner.launch doctor --watch http://127.0.0.1:9090 --once
   python -m horovod_tpu_torch.runner.launch doctor --perf http://127.0.0.1:8080/perf
   python -m horovod_tpu_torch.runner.launch doctor --perf saved_perf.json
   python -m horovod_tpu_torch.runner.launch doctor --serve http://127.0.0.1:9000/serve/stats
@@ -31,7 +42,102 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from typing import Any, Dict, List, Optional
+
+from ..postmortem import load_postmortem
+
+
+# ------------------------------------------------------ postmortem plane
+def _fmt_t(t: Any, t0: float) -> str:
+    if not isinstance(t, (int, float)):
+        return "      ?"
+    return f"{t - t0:+8.3f}s"
+
+
+def _fmt_clock(t: Any) -> str:
+    if not isinstance(t, (int, float)):
+        return "?"
+    return time.strftime("%H:%M:%S", time.localtime(t)) + \
+        f".{int((t % 1) * 1000):03d}"
+
+
+def render_postmortem(pm: Dict[str, Any], max_events: int = 25) -> str:
+    """Root-cause-first text rendering of one postmortem dict."""
+    lines: List[str] = []
+    job = pm.get("job", {})
+    suspect = pm.get("suspect", {})
+    first = pm.get("first_failure")
+    ranks = pm.get("ranks", {})
+    events = pm.get("events", [])
+
+    cmd = " ".join(job.get("command", [])) or "?"
+    lines.append(f"== hvdrun doctor: postmortem of `{cmd}` "
+                 f"(np={job.get('np', '?')}) ==")
+    if first is None:
+        lines.append("ROOT CAUSE: no failing rank recorded — the job "
+                     "ended without a classified failure")
+    else:
+        lines.append(
+            f"ROOT CAUSE: rank {first['rank']} — "
+            f"{suspect.get('classification', 'unknown')} "
+            f"(first failure {first['classification']} at "
+            f"{_fmt_clock(first.get('time'))} fleet clock)")
+    for ev in suspect.get("evidence", []):
+        lines.append(f"  evidence: {ev}")
+
+    lines.append("")
+    lines.append("Exit taxonomy:")
+    for r in sorted(ranks, key=int):
+        e = ranks[r].get("exit", {})
+        hb = ranks[r].get("heartbeat") or {}
+        step = hb.get("step")
+        extra = f", last step {step}" if step is not None else ""
+        lines.append(f"  rank {r}: {e.get('classification', '?')} "
+                     f"(rc={e.get('rc')}{extra})")
+
+    if events:
+        t0 = next((ev["t"] for ev in events
+                   if isinstance(ev.get("t"), (int, float))), 0.0)
+        lines.append("")
+        lines.append(f"Last events (fleet clock, t0={_fmt_clock(t0)}; "
+                     f"showing {min(len(events), max_events)}"
+                     f"/{len(events)}):")
+        for ev in events[-max_events:]:
+            name = ev.get("name", "?")
+            if ev.get("kind") == "span":
+                name = f"{name} [{ev.get('phase', '?')}]"
+            lines.append(f"  {_fmt_t(ev.get('t'), t0)}  rank "
+                         f"{ev.get('rank', '?')}  {ev.get('kind', '?')}: "
+                         f"{name}")
+
+    for r in sorted(ranks, key=int):
+        info = ranks[r]
+        fr = info.get("flight_record")
+        tail = info.get("log_tail")
+        if not fr and not tail:
+            continue
+        lines.append("")
+        lines.append(f"-- rank {r} forensics --")
+        if fr:
+            h = fr.get("health", {})
+            lines.append(
+                f"  flight record: reason={fr.get('reason')} "
+                f"complete={fr.get('complete')} "
+                f"spans={len(fr.get('trace', []))}")
+            lines.append(
+                f"    cycles={h.get('cycles')} "
+                f"last_progress_age_us={h.get('last_progress_age_us')} "
+                f"queue_depth={h.get('queue_depth')} "
+                f"transport_healthy={h.get('transport_healthy')}")
+            for ts, phase, cat, name, arg in fr.get("trace", [])[-5:]:
+                lines.append(f"    span {ts}us {phase}/{cat} {name} {arg}")
+        if tail:
+            lines.append("  log tail:")
+            for ln in tail.strip().splitlines()[-8:]:
+                lines.append(f"    | {ln}")
+    return "\n".join(lines)
+
 
 
 # ------------------------------------------------------------ perf plane
@@ -290,6 +396,126 @@ def _render_perf_layout(lay: Dict[str, Any]) -> List[str]:
 
 
 # ----------------------------------------------------------- serve plane
+# ------------------------------------------------------------ watch plane
+_SPARK = "▁▂▃▄▅▆▇█"
+
+
+def _spark(points: List[Any], width: int = 24) -> str:
+    """Unicode sparkline of a [[t, v], ...] series (newest-right,
+    resampled to ``width`` columns by taking the last value per
+    column)."""
+    vals = [float(v) for _, v in points
+            if isinstance(v, (int, float))]
+    vals = [v for v in vals if v == v and abs(v) != float("inf")]
+    if not vals:
+        return ""
+    vals = vals[-width:]
+    lo, hi = min(vals), max(vals)
+    if hi <= lo:
+        return _SPARK[0] * len(vals)
+    return "".join(
+        _SPARK[min(len(_SPARK) - 1,
+                   int((v - lo) / (hi - lo) * (len(_SPARK) - 1)))]
+        for v in vals)
+
+
+def _fmt_v(v: Any) -> str:
+    if not isinstance(v, (int, float)):
+        return "?"
+    if v != v:
+        return "nan"
+    if v == int(v) and abs(v) < 1e9:
+        return str(int(v))
+    return f"{v:.4g}"
+
+
+def load_watch_view(source: str) -> Dict[str, Any]:
+    """Resolve a ``--watch`` argument: an http URL or bare host:port
+    fetches the live ``GET /alerts`` + ``GET /series`` routes; anything
+    else is a saved JSON file holding ``{"alerts": ..., "series": ...}``
+    (or a bare /alerts payload)."""
+    import json as _json
+    import os
+    import urllib.request
+    if source.startswith(("http://", "https://")) or (
+            ":" in source and not os.path.exists(source)
+            and "/" not in source):
+        base = source if source.startswith("http") else f"http://{source}"
+        base = base.rstrip("/")
+        for suffix in ("/alerts", "/series"):
+            if base.endswith(suffix):
+                base = base[:-len(suffix)]
+        with urllib.request.urlopen(base + "/alerts", timeout=10) as r:
+            alerts = _json.loads(r.read())
+        with urllib.request.urlopen(base + "/series", timeout=10) as r:
+            series = _json.loads(r.read())
+        return {"alerts": alerts, "series": series}
+    with open(source) as f:
+        view = _json.load(f)
+    if "alerts" not in view:
+        view = {"alerts": view, "series": view.get("series_view")}
+    return view
+
+
+def render_watch(view: Dict[str, Any], spark_window: float = 120.0
+                 ) -> str:
+    """Alerts-first rendering of one watch view (docs/watch.md): the
+    firing list severity-ordered, the ruleset summary, then sparklines
+    of the hot families — the ones firing rules watch, plus the
+    standing fleet vitals."""
+    alerts = view.get("alerts") or {}
+    series = view.get("series") or {}
+    firing = alerts.get("firing") or []
+    rules = alerts.get("rules") or []
+    lines: List[str] = []
+    lines.append("== hvdrun doctor --watch: fleet alerts + series ==")
+    if firing:
+        lines.append(f"FIRING ({len(firing)}):")
+        for f in firing:
+            since = f.get("since")
+            ctx = f.get("context") or {}
+            ctx_s = "".join(f" [{k}={_fmt_v(v)}]"
+                            for k, v in sorted(ctx.items()))
+            lines.append(
+                f"  [{f.get('severity', '?'):>8}] {f.get('rule', '?')} "
+                f"rank {f.get('rank', '?')} — {f.get('family', '?')} "
+                f"{f.get('kind', '?')} value={_fmt_v(f.get('value'))} "
+                f"since {_fmt_clock(since)}{ctx_s}")
+    else:
+        lines.append("FIRING (0): fleet quiet")
+    fired = alerts.get("fired_total") or []
+    lifetime = sum(f.get("count", 0) for f in fired)
+    user = alerts.get("user_rules") or []
+    lines.append(
+        f"rules: {len(rules)} active ({len(rules) - len(user)} default"
+        f" + {len(user)} user), {len(firing)} firing, "
+        f"{lifetime} fired lifetime")
+    srows = series.get("series") or []
+    if srows:
+        hot = {f.get("family") for f in firing}
+        hot.update(("hvd_controller_cycle_rate", "hvd_serve_queue_depth",
+                    "hvd_sentinel_loss", "hvd_straggler_skew"))
+        shown = [s for s in srows if s.get("family") in hot
+                 and s.get("points")]
+        if shown:
+            lines.append("")
+            lines.append(f"-- hot series (last {spark_window:.0f}s, "
+                         "newest right) --")
+            now = series.get("now", 0.0)
+            for s in sorted(shown, key=lambda s: (s["family"],
+                                                  s.get("rank", 0))):
+                pts = [p for p in s["points"]
+                       if isinstance(p[0], (int, float))
+                       and p[0] >= now - spark_window]
+                if not pts:
+                    continue
+                last = pts[-1][1]
+                lines.append(
+                    f"  {s['family']:<34} rank {s.get('rank', '?')}: "
+                    f"{_spark(pts):<24} {_fmt_v(last)}")
+    return "\n".join(lines)
+
+
 def load_serve_view(source: str) -> Dict[str, Any]:
     """Resolve a ``--serve`` argument to the /serve/stats payload: an
     http URL or bare host:port fetches the live route; anything else is
@@ -630,24 +856,21 @@ def render_request(rec: Dict[str, Any]) -> str:
     return "\n".join(lines)
 
 
-def _refusal(what: str) -> str:
-    return (f"launch doctor: {what} is not ported yet: it renders what the "
-            "postmortem and watch planes write (ROADMAP queue 1 item 4.3)")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="launch doctor",
-        description="Render the fleet step-time attribution (--perf), the "
-                    "serving fleet's view (--serve) or one request's "
-                    "lifecycle (--request)")
+        description="Render a postmortem.json root-cause-first, or the "
+                    "fleet step-time attribution (--perf), the serving "
+                    "fleet's view (--serve), one request's lifecycle "
+                    "(--request) or the watch plane (--watch)")
     ap.add_argument("path",
-                    help="with --perf: a GET /perf URL (or host:port), a "
-                         "saved /perf JSON, or a directory holding "
-                         "perf.json; with --serve / --request: a URL, "
-                         "host:port or a saved JSON")
+                    help="postmortem.json or the --postmortem directory "
+                         "holding it; with --perf: a GET /perf URL (or "
+                         "host:port), a saved /perf JSON, or a directory "
+                         "holding perf.json; with --serve / --request / "
+                         "--watch: a URL, host:port or a saved JSON")
     ap.add_argument("--events", type=int, default=25,
-                    help="postmortem events to show (item 4.3)")
+                    help="how many fleet-clock-ordered last events to show")
     ap.add_argument("--perf", action="store_true",
                     help="render the perf-attribution view")
     ap.add_argument("--serve", action="store_true",
@@ -659,17 +882,19 @@ def main(argv=None) -> int:
                          "plane (path = GET /serve/trace URL, host:port, "
                          "or a saved JSON)")
     ap.add_argument("--watch", action="store_true",
-                    help="live watch-plane follow mode (item 4.3)")
+                    help="live watch-plane follow mode: re-render GET "
+                         "/alerts + /series every --interval seconds, "
+                         "alerts first, then sparklines of the hot "
+                         "families; a saved JSON renders once")
     ap.add_argument("--once", action="store_true",
-                    help="with --watch: a single frame (item 4.3)")
+                    help="with --watch: render a single frame and exit")
     ap.add_argument("--interval", type=float, default=2.0,
                     help="with --watch: seconds between frames")
     ap.add_argument("--json", action="store_true",
                     help="dump the raw JSON instead of the rendering")
     args = ap.parse_args(argv)
     if args.watch:
-        print(_refusal("--watch"), file=sys.stderr)
-        return 2
+        return _watch(args)
     if args.request:
         try:
             view = load_trace_view(args.path)
@@ -703,8 +928,50 @@ def main(argv=None) -> int:
         else:
             print(render(view))
         return 0
-    print(_refusal("the postmortem view"), file=sys.stderr)
-    return 2
+    try:
+        pm = load_postmortem(args.path)
+    except (OSError, ValueError) as e:
+        print(f"launch doctor: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        json.dump(pm, sys.stdout, indent=1)
+        print()
+    else:
+        print(render_postmortem(pm, max_events=args.events))
+    return 0
+
+
+def _watch(args) -> int:
+    """``--watch``: one frame, then (a live source without ``--once``)
+    a frame every ``--interval`` seconds until interrupted."""
+    import os
+    try:
+        view = load_watch_view(args.path)
+    except Exception as e:
+        print(f"launch doctor: {e}", file=sys.stderr)
+        return 2
+    if args.json:
+        json.dump(view, sys.stdout, indent=1)
+        print()
+        return 0
+    print(render_watch(view))
+    live = args.path.startswith(("http://", "https://")) or (
+        ":" in args.path and not os.path.exists(args.path))
+    if args.once or not live:
+        return 0  # a saved view has nothing to follow
+    try:
+        while True:
+            time.sleep(max(0.2, args.interval))
+            try:
+                view = load_watch_view(args.path)
+            except Exception as e:
+                print(f"launch doctor: refetch failed: {e}",
+                      file=sys.stderr)
+                continue
+            print()
+            print(render_watch(view))
+    except KeyboardInterrupt:
+        return 0
 
 
 if __name__ == "__main__":

@@ -17,8 +17,9 @@ other server pass through untouched.
 
 Each transient failure against a shard of a sharded KV counts into
 ``hvd_kv_shard_unavailable_total{shard=...}``, per attempt, as in the JAX
-client.  The JAX client also lets the chaos plane black the KV out
-(ROADMAP queue 1 item 4.5); the port has no chaos plane yet.
+client.  The chaos plane's KV blackout injects here (``_chaos_kv``): a
+matching ``kv_blackout`` event fails the op as an unreachable server
+would, so the retry budget is what rides it out, or surfaces it.
 """
 
 from __future__ import annotations
@@ -94,6 +95,14 @@ def _transient(e: Exception) -> bool:
                           TimeoutError))
 
 
+def _chaos_kv(op: str, scope: str = "") -> None:
+    # lazy: the chaos plane resolves its spec through this module's get_kv
+    from .. import chaos
+    inj = chaos.active()
+    if inj is not None:
+        inj.maybe_fail_kv(op, scope)
+
+
 def _count_shard_unavailable(shard: int) -> None:
     if _shard_map() is None:
         return
@@ -111,6 +120,7 @@ def put_kv(addr: str, port: int, scope: str, key: str,
     delays = _retry_delays(retries)
     for attempt in range(len(delays) + 1):
         try:
+            _chaos_kv("put", scope)
             req = urllib.request.Request(url, data=value, method="PUT")
             with urllib.request.urlopen(req, timeout=10):
                 return
@@ -139,6 +149,7 @@ def get_kv(addr: str, port: int, scope: str, key: str,
     deadline = time.time() + timeout
     while True:
         try:
+            _chaos_kv("get", scope)
             with urllib.request.urlopen(url, timeout=10) as resp:
                 return resp.read()
         except urllib.error.HTTPError as e:
@@ -162,6 +173,7 @@ def delete_kv(addr: str, port: int, scope: str, key: str,
     delays = _retry_delays(retries)
     for attempt in range(len(delays) + 1):
         try:
+            _chaos_kv("put", scope)  # a delete is a write for blackouts
             req = urllib.request.Request(url, method="DELETE")
             with urllib.request.urlopen(req, timeout=10):
                 return True

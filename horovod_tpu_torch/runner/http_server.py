@@ -44,16 +44,27 @@ The measurement plane's routes (``utils/``), as on the JAX server:
   * ``GET /perf`` merges the ``perf`` scope's per-rank reports into the
     fleet's step attribution (``perf/ledger.py``).
 
-The JAX server also renders the planes the port does not have yet.  Each
-of those routes answers 404 here, with no body, until its plane lands
-(:data:`PLANE_ROUTES` names the ROADMAP item of each); a key stored under
-one of their scope names is still a plain KV entry.
+The forensics planes' routes, as on the JAX server:
+
+  * ``GET /health`` renders the ``health`` scope's heartbeats with
+    per-rank staleness from the server's receipt times
+    (``utils/health.fleet_health``; ``?stale_after=S``);
+  * ``GET /series`` and ``GET /alerts`` read the watch plane's series
+    store and alert engine (``watch/``), which :meth:`RendezvousServer.start`
+    installs on the store that owns the ``metrics`` scope: every
+    ``metrics`` PUT feeds the store and runs an evaluation pass, every
+    ``health`` PUT feeds the heartbeat series, and a firing alert lands as
+    an instant on its rank's lane of the merged timeline.
+
+Every route the JAX server renders is rendered here
+(:data:`PLANE_ROUTES` is empty).
 """
 
 from __future__ import annotations
 
 import itertools
 import json
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -65,14 +76,13 @@ METRICS_SCOPE = "metrics"
 PERF_SCOPE = "perf"
 TIMELINE_SCOPE = "timeline"
 CLOCK_SCOPE = "clock"
+HEALTH_SCOPE = "health"
+SERIES_ROUTE = "series"
+ALERTS_ROUTE = "alerts"
 
-# (method, scope, key) of a route the JAX server renders -> the ROADMAP
-# queue 1 item whose plane brings it
-PLANE_ROUTES: Dict[Tuple[str, str, str], str] = {
-    ("GET", "health", ""): "4.3",
-    ("GET", "series", ""): "4.3",
-    ("GET", "alerts", ""): "4.3",
-}
+# (method, scope, key) of a route the JAX server renders that waits for a
+# plane the port does not have yet -> the ROADMAP queue 1 item bringing it
+PLANE_ROUTES: Dict[Tuple[str, str, str], str] = {}
 # serve_out writes wake the router's stream drains (serve/router.py waits
 # on kv_wakeup instead of busy-polling); serve_kv writes wake the decode
 # sub-fleet's handoff probes.  Matching is on the base name, so replica
@@ -171,6 +181,13 @@ def trace_span(server, lane: str, name: str, start_t: float,
         pass
 
 
+def watch_state_for(server):
+    """The watch plane's server-side state (series store and alert
+    engine), installed on the store that owns the ``metrics`` scope at
+    server start, or None on a server that has none."""
+    return getattr(store_for(server, METRICS_SCOPE), "watch_state", None)
+
+
 class _KVHandler(BaseHTTPRequestHandler):
     server_version = "hvdtpu-rendezvous/1.0"
 
@@ -212,6 +229,20 @@ class _KVHandler(BaseHTTPRequestHandler):
         self.send_response(200)
         self.end_headers()
         wake_stream(self.server, scope, key)
+        # the watch plane: metrics snapshots feed the fleet series store
+        # (rate-limited to its resolution) and run an evaluation pass;
+        # heartbeats feed the liveness series.  Telemetry never fails the
+        # KV op that carried it.
+        if scope in (METRICS_SCOPE, HEALTH_SCOPE):
+            try:
+                ws = watch_state_for(self.server)
+                if ws is not None:
+                    if scope == METRICS_SCOPE:
+                        ws.ingest_metrics(key, value)
+                    else:
+                        ws.note_heartbeat(key)
+            except Exception:
+                pass
 
     def do_POST(self) -> None:  # noqa: N802
         scope, key = self._split()
@@ -275,6 +306,68 @@ class _KVHandler(BaseHTTPRequestHandler):
             stored = dict(store.kv.get(PERF_SCOPE, {}))  # type: ignore
         self._serve_json(merge_perf_reports(stored))
 
+    def _serve_health(self) -> None:
+        """The fleet's liveness view: the ``health`` scope's heartbeats
+        with per-rank staleness judged from the server's receipt times
+        (``GET /health?stale_after=S``, default 10 s), and the KV shards'
+        health on a sharded KV."""
+        from urllib.parse import parse_qs
+        from ..utils.health import fleet_health
+        stale_after = 10.0
+        try:
+            q = parse_qs(getattr(self, "_query", ""))
+            if q.get("stale_after"):
+                stale_after = float(q["stale_after"][0])
+        except (ValueError, TypeError):
+            pass  # a malformed query keeps the default patience
+        store = store_for(self.server, HEALTH_SCOPE)
+        with store.kv_lock:  # type: ignore[attr-defined]
+            stored = dict(store.kv.get(HEALTH_SCOPE, {}))  # type: ignore
+            times = dict(store.kv_times.get(  # type: ignore
+                HEALTH_SCOPE, {}))
+        view = fleet_health(stored, times, stale_after=stale_after)
+        shards = kv_shard_health(self.server)
+        if shards is not None:
+            view["kv_shards"] = shards
+        self._serve_json(view)
+
+    def _serve_series(self) -> None:
+        """The fleet series store's view: ``GET
+        /series?family=F&rank=N&window=S`` filters, bare ``GET /series``
+        returns everything retained."""
+        from urllib.parse import parse_qs
+        ws = watch_state_for(self.server)
+        if ws is None:
+            self._serve_json({"error": "watch plane not installed"})
+            return
+        family = rank = window = None
+        try:
+            q = parse_qs(getattr(self, "_query", ""))
+            if q.get("family"):
+                family = q["family"][0]
+            if q.get("rank"):
+                rank = int(q["rank"][0])
+            if q.get("window"):
+                window = float(q["window"][0])
+        except (ValueError, TypeError):
+            pass  # a malformed query gives the unfiltered view
+        self._serve_json(ws.store.query(family=family, rank=rank,
+                                        window_s=window))
+
+    def _serve_alerts(self) -> None:
+        """One evaluation pass of the alert engine: firing alerts first
+        (by severity), the ruleset and the transition history, plus the
+        series store's bounds; what ``launch doctor --watch`` renders."""
+        ws = watch_state_for(self.server)
+        if ws is None:
+            self._serve_json({"error": "watch plane not installed"})
+            return
+        view = ws.engine.view()
+        view["series"] = {"families": len(ws.store.families()),
+                          "points": ws.store.point_count(),
+                          "dropped_series": ws.store.dropped_series}
+        self._serve_json(view)
+
     def do_GET(self) -> None:  # noqa: N802
         scope, key = self._split()
         if scope == "serve" and key in ("stats", "trace"):
@@ -294,6 +387,15 @@ class _KVHandler(BaseHTTPRequestHandler):
             return
         if scope == PERF_SCOPE and not key:
             self._serve_perf()
+            return
+        if scope == HEALTH_SCOPE and not key:
+            self._serve_health()
+            return
+        if scope == SERIES_ROUTE and not key:
+            self._serve_series()
+            return
+        if scope == ALERTS_ROUTE and not key:
+            self._serve_alerts()
             return
         if ("GET", scope, key) in PLANE_ROUTES:
             self._not_found()
@@ -397,7 +499,55 @@ class RendezvousServer:
             self._threads.append(t)
         self._httpd = stores[0]
         self._shard_httpds = stores
+        self._install_watch_state(stores)
         return self._httpd.server_address[1]
+
+    def _install_watch_state(self, stores) -> None:
+        """The watch plane's series store and alert engine, on the store
+        that owns the ``metrics`` scope.  A firing alert also lands as an
+        instant on its rank's lane of the ``timeline`` scope, on this
+        server's clock, the epoch the ranks' chunks are aligned to."""
+        from ..watch import make_watch_state
+        seq = itertools.count()
+
+        def alert_instant(rule: str, rank: int, severity: str,
+                          now: float) -> None:
+            chunk = {"rank": int(rank), "seq": -1, "events": [
+                {"name": f"alert.{rule}", "ph": "i", "s": "p",
+                 "ts": now * 1e6, "lane": "alerts",
+                 "args": {"rule": rule, "severity": severity}}]}
+            tl = store_for(stores[0], TIMELINE_SCOPE)
+            key = f"alert.{rank}.{next(seq):06d}"
+            with tl.kv_lock:  # type: ignore[attr-defined]
+                tl.kv.setdefault(TIMELINE_SCOPE, {})[key] = \
+                    json.dumps(chunk).encode()  # type: ignore
+                tl.kv_times.setdefault(TIMELINE_SCOPE, {})[key] = \
+                    time.time()  # type: ignore[attr-defined]
+
+        ws = make_watch_state(
+            instant_fn=alert_instant,
+            log_fn=lambda m: print(m, file=sys.stderr, flush=True))
+        store_for(stores[0], METRICS_SCOPE).watch_state = ws
+
+    @property
+    def watch_state(self):
+        """The installed watch plane (None before start())."""
+        if self._httpd is None:
+            return None
+        return watch_state_for(self._httpd)
+
+    def install_alert_rules(self, rules) -> None:
+        """Merge user alert rules (``launch --alerts`` / HOROVOD_ALERTS)
+        over the committed defaults by name and publish the merged set to
+        KV scope ``alerts`` key ``rules``, as the chaos spec is
+        distributed."""
+        ws = self.watch_state
+        if ws is None:
+            return
+        ws.engine.set_rules(rules)
+        from ..watch import KV_KEY, KV_SCOPE, rules_to_json
+        self.put(KV_SCOPE, KV_KEY,
+                 rules_to_json(ws.engine.rules).encode())
 
     @property
     def port(self) -> int:

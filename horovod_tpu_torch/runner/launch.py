@@ -33,8 +33,7 @@ ephemeral port the banner prints).  ``--replicas N --replica-id K`` stamp
 ``HOROVOD_SERVE_REPLICAS``/``_REPLICA_ID``; a launch with K > 0 joins the
 router that replica 0's launch hosts (:func:`serve_router_join`), as the
 JAX launcher's help describes the replicated tier.  ``--serve`` turns on
-the metrics plane, as the JAX launcher does; its heartbeat plane waits for
-ROADMAP queue 1 item 4.3.
+the metrics and heartbeat planes, as the JAX launcher does.
 
 The measurement plane (``utils/``): ``--metrics-port P`` pins the
 rendezvous server to P, whose ``GET /metrics`` serves the fleet's
@@ -46,15 +45,29 @@ rank-laned trace of the fleet written at job end, the one ``GET
 /timeline`` serves live); ``--autotune`` and its ``--autotune-*`` knobs;
 the stall inspector's ``--no-stall-check`` and
 ``--stall-shutdown-time-seconds``; ``--log-level`` and
-``--log-hide-timestamp``.  Each stamps the JAX launcher's env knob.
-(The JAX launcher also counts each worker's exit into
-``hvd_worker_exits_total`` by cause, which needs the postmortem plane's
-exit classifier: ROADMAP queue 1 item 4.3.)
+``--log-hide-timestamp``.  Each stamps the JAX launcher's env knob.  Each
+worker's exit counts into ``hvd_worker_exits_total`` by cause
+(``postmortem.classify_exit``).
 
-``doctor`` (``python -m horovod_tpu_torch.runner.launch doctor --perf
-URL``, ``--serve URL``, ``--request RID URL``) renders the perf plane's
-``GET /perf`` and the fleet's ``/serve/stats`` and ``/serve/trace``
-(``runner/doctor.py``); ``HOROVOD_PERF`` in a worker's environment starts
+The forensics planes: ``--postmortem DIR`` (or ``HOROVOD_POSTMORTEM_DIR``)
+arms each rank's flight recorder at ``DIR/flight.rank.N``, turns the
+heartbeats on (``GET /health``) and keeps the workers' log tails under
+``DIR/logs`` unless ``--output-filename`` says otherwise; the launcher
+supervises the heartbeats (``utils/health.HealthMonitor``, patience
+``HOROVOD_HEARTBEAT_TIMEOUT``), SIGABRTs a rank whose heartbeat went
+silent or whose progress froze, so its flight recorder fires, and on an
+abnormal exit writes ``DIR/postmortem.json``.  ``--alerts RULES`` merges
+a rules file over the watch plane's defaults in the rendezvous's alert
+engine (``GET /alerts``, ``GET /series``) and publishes the merged set at
+KV scope ``alerts``; ``--chaos SPEC`` checks a fault-injection spec at
+launch, publishes it at KV scope ``chaos`` for every rank's injector and
+exports its transport faults as ``HOROVOD_CHAOS_*``.
+
+``doctor`` (``python -m horovod_tpu_torch.runner.launch doctor DIR``,
+``--perf URL``, ``--serve URL``, ``--request RID URL``, ``--watch URL``)
+renders a postmortem, the perf plane's ``GET /perf``, the fleet's
+``/serve/stats`` and ``/serve/trace`` and the watch plane's ``/alerts``
+and ``/series`` (``runner/doctor.py``); ``HOROVOD_PERF`` in a worker's environment starts
 its perf-report publisher.
 
 The JAX launcher also drives planes the port does not have yet.  Their
@@ -87,15 +100,12 @@ PROG = "python -m horovod_tpu_torch.runner.launch"
 
 # dest -> (flag, what it needs, the ROADMAP queue 1 item that brings it)
 REFUSED: Dict[str, tuple] = {
-    "postmortem": ("--postmortem", "the postmortem plane", "4.3"),
-    "alerts": ("--alerts", "the watch plane", "4.3"),
     "min_np": ("--min-np", "elastic training", "4.4"),
     "max_np": ("--max-np", "elastic training", "4.4"),
     "host_discovery_script": ("--host-discovery-script",
                               "elastic training", "4.4"),
     "elastic_timeout": ("--elastic-timeout", "elastic training", "4.4"),
     "reset_limit": ("--reset-limit", "elastic training", "4.4"),
-    "chaos": ("--chaos", "the chaos plane", "4.5"),
     "scenario": ("--scenario", "the scenario plane", "4.5"),
 }
 # flags with no meaning on this stack: accepted, with a warning
@@ -256,7 +266,14 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--config-file", default=None,
                    help="YAML config (reference schema: params/autotune/"
                         "timeline/stall-check sections)")
-    p.add_argument("--postmortem", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--postmortem", default=None, metavar="DIR",
+                   help="crash-forensics directory: workers arm the native "
+                        "flight recorder (per-rank DIR/flight.rank.N) and "
+                        "publish heartbeats served at GET /health; the "
+                        "launcher supervises heartbeat loss and progress "
+                        "stalls and on an abnormal exit writes "
+                        "DIR/postmortem.json; render it with `launch "
+                        "doctor DIR`")
     p.add_argument("--serve", default=None, metavar="CKPT_DIR",
                    help="serving mode (docs/serving.md): instead of a "
                         "training command, every slot runs a "
@@ -264,10 +281,8 @@ def make_parser() -> argparse.ArgumentParser:
                         "servable directory (serve.json + checkpoint); "
                         "the rendezvous server grows a POST /generate "
                         "router, GET /serve/stats and POST /admin/drain, "
-                        "and the metrics plane is on (HOROVOD_METRICS). "
-                        "Unlike the JAX launcher it does not turn on the "
-                        "heartbeat plane, which the port does not have "
-                        "yet (ROADMAP queue 1 item 4.3)")
+                        "and the metrics and heartbeat planes are on "
+                        "(HOROVOD_METRICS, HOROVOD_HEARTBEAT)")
     p.add_argument("--serve-port", type=int, default=None,
                    help="pin the rendezvous/router port for --serve "
                         "(HOROVOD_SERVE_PORT; default: the knob, else "
@@ -289,8 +304,19 @@ def make_parser() -> argparse.ArgumentParser:
                         "(0..replicas-1, HOROVOD_SERVE_REPLICA_ID); "
                         "replica 0 hosts the router, the rest join it at "
                         "--serve-port")
-    p.add_argument("--alerts", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--chaos", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--alerts", default=None, metavar="RULES_YAML",
+                   help="alert rules for the watch plane: checked at "
+                        "launch, merged over the default rules by name, "
+                        "published at KV scope 'alerts' and evaluated "
+                        "by the rendezvous against the fleet series; "
+                        "firing alerts at GET /alerts (follow them: "
+                        "`launch doctor --watch URL`)")
+    p.add_argument("--chaos", default=None, metavar="SPEC_YAML",
+                   help="deterministic fault-injection spec: checked at "
+                        "launch, published at KV scope 'chaos' so every "
+                        "rank injects from one seeded plan; transport "
+                        "faults export as HOROVOD_CHAOS_* env for the "
+                        "native core")
     p.add_argument("--scenario", default=None, help=argparse.SUPPRESS)
     p.add_argument("--min-np", type=int, default=None,
                    help=argparse.SUPPRESS)
@@ -444,12 +470,16 @@ def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
     if args.autotune_gaussian_process_noise is not None:
         env["HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"] = \
             str(args.autotune_gaussian_process_noise)
+    chaos_spec = load_chaos_spec(args)
+    if chaos_spec is not None:
+        env["HOROVOD_CHAOS"] = "1"
+        env.update(chaos_spec.transport_env())
     if getattr(args, "serve", None):
-        # serving workers publish hvd_serve_* metrics like any trainer
-        # (the JAX launcher also stamps HOROVOD_HEARTBEAT here: ROADMAP
-        # queue 1 item 4.3); this launch's fleet is replica K of N behind
-        # a shared router
+        # serving workers publish hvd_serve_* metrics and heartbeats like
+        # any trainer; this launch's fleet is replica K of N behind a
+        # shared router
         env.setdefault("HOROVOD_METRICS", "1")
+        env.setdefault("HOROVOD_HEARTBEAT", "1")
         if getattr(args, "replicas", None) is not None:
             env["HOROVOD_SERVE_REPLICAS"] = str(args.replicas)
         if getattr(args, "replica_id", None) is not None:
@@ -461,6 +491,50 @@ def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
                   "accepted for launch-script compatibility only",
                   file=sys.stderr)
     return env
+
+
+def load_chaos_spec(args: argparse.Namespace):
+    """The ``--chaos`` spec, parsed and checked once per launch (cached on
+    the namespace, so the env and the KV publish share one parse: a typo'd
+    spec fails the launch, not a worker mid-run), or None.  The JAX
+    launcher merges it with a ``--scenario`` storm (``chaos.merge_specs``);
+    ``--scenario`` is refused here (ROADMAP queue 1 item 4.5)."""
+    if not getattr(args, "chaos", None):
+        return None
+    if getattr(args, "_chaos_spec", None) is None:
+        from ..chaos import load_spec
+        args._chaos_spec = load_spec(args.chaos)
+    return args._chaos_spec
+
+
+def publish_chaos_spec(args: argparse.Namespace,
+                       rendezvous: RendezvousServer) -> None:
+    """Put the chaos spec on the rendezvous KV (scope ``chaos``), so
+    every rank, local or ssh-remote, installs its injector from one
+    plan."""
+    spec = load_chaos_spec(args)
+    if spec is None:
+        return
+    from ..chaos import KV_KEY, KV_SCOPE
+    rendezvous.put(KV_SCOPE, KV_KEY, spec.to_json().encode())
+
+
+def install_alert_rules(args: argparse.Namespace,
+                        rendezvous: RendezvousServer) -> None:
+    """Resolve the user ruleset (``--alerts`` > HOROVOD_ALERTS > none),
+    merge it over the defaults in the rendezvous's alert engine and
+    publish the merged set at KV scope ``alerts``.  A malformed rules file
+    fails the launch (the parse raises ValueError), never a detector
+    mid-run."""
+    path = getattr(args, "alerts", None) \
+        or os.environ.get("HOROVOD_ALERTS") or None
+    rules = None
+    if path:
+        if getattr(args, "_alert_rules", None) is None:
+            from ..watch import load_rules
+            args._alert_rules = load_rules(path)
+        rules = args._alert_rules
+    rendezvous.install_alert_rules(rules)
 
 
 def _pump_prefixed(stream, sink, rank: int, close_sink: bool) -> None:
@@ -815,6 +889,65 @@ def write_merged_timeline(rendezvous: RendezvousServer, path: str,
     return have_events
 
 
+def _log_tail(output_filename: str, rank: int, limit: int = 4000) -> str:
+    """The last bytes of a rank's redirected streams (stderr carries the
+    tracebacks and the chaos and stall warnings the classifier keys
+    on)."""
+    tail = ""
+    for stream in ("stdout", "stderr"):
+        fp = os.path.join(output_filename, f"rank.{rank}", stream)
+        try:
+            with open(fp, errors="replace") as f:
+                data = f.read()
+        except OSError:
+            continue
+        if data.strip():
+            tail += data[-limit:]
+    return tail
+
+
+def write_job_postmortem(rendezvous: RendezvousServer, postmortem_dir: str,
+                         exits: Dict[int, dict], command: List[str],
+                         np_: int, output_filename: Optional[str] = None,
+                         sink=None) -> str:
+    """Collect the fleet's forensics (the ranks' flight records, log
+    tails, final heartbeats and condensed metric snapshots) and write
+    ``DIR/postmortem.json`` (``postmortem.build_postmortem``).  The
+    launcher calls it on an abnormal exit; ``launch doctor DIR`` renders
+    it."""
+    from .. import postmortem as PM
+    from ..utils.health import fleet_health
+    view = fleet_health(rendezvous.scope_items("health"),
+                        rendezvous.scope_receipt_times("health"))
+    flights = {}
+    for rank in exits:
+        p = os.path.join(postmortem_dir, f"flight.rank.{rank}")
+        if os.path.exists(p):
+            try:
+                flights[rank] = PM.parse_flight_record(p)
+            except (OSError, ValueError):
+                continue  # a torn record is absent evidence, not a crash
+    tails = {}
+    if output_filename:
+        for rank in exits:
+            t = _log_tail(output_filename, rank)
+            if t:
+                tails[rank] = t
+    pm = PM.build_postmortem(
+        job={"np": np_, "command": list(command)},
+        exits=exits, health_view=view, flight_records=flights,
+        log_tails=tails,
+        metric_snapshots=harvest_metric_snapshots(rendezvous))
+    path = PM.write_postmortem(
+        pm, os.path.join(postmortem_dir, "postmortem.json"))
+    suspect = pm.get("suspect", {})
+    print(f"{PROG}: postmortem: {path}: suspect rank "
+          f"{suspect.get('rank')} ({suspect.get('classification')}); "
+          f"render: {PROG} doctor {postmortem_dir}",
+          file=sink or sys.stderr, flush=True)
+    return path
+
+
 class _Terminated(Exception):
     """SIGTERM to the launcher: end the workers as Ctrl-C does."""
 
@@ -846,6 +979,16 @@ def launch_static(args: argparse.Namespace, command: List[str],
                        or getattr(args, "serve", None) is not None
                        or os.environ.get("HOROVOD_METRICS", "") not in
                        ("", "0", "false"))
+    # the postmortem plane: flight records, heartbeats, supervision and
+    # postmortem.json on an abnormal exit
+    postmortem_dir = (getattr(args, "postmortem", None)
+                      or os.environ.get("HOROVOD_POSTMORTEM_DIR") or None)
+    if postmortem_dir:
+        os.makedirs(postmortem_dir, exist_ok=True)
+        if not args.output_filename:
+            # log tails are evidence: the classifier keys on stderr's
+            # tracebacks and warnings
+            args.output_filename = os.path.join(postmortem_dir, "logs")
     if rendezvous is None:
         # port priority: --metrics-port > --serve-port > HOROVOD_SERVE_PORT
         # > ephemeral
@@ -864,6 +1007,8 @@ def launch_static(args: argparse.Namespace, command: List[str],
               f"{socket.gethostname()}:{rdv_port}/generate  (stats: GET "
               "/serve/stats, drain: POST /admin/drain, metrics: GET "
               "/metrics)", file=sys.stderr, flush=True)
+    publish_chaos_spec(args, rendezvous)
+    install_alert_rules(args, rendezvous)
     for slot in slots:
         rendezvous.put("rank", str(slot.rank),
                        repr(slot.to_env()).encode())
@@ -897,6 +1042,12 @@ def launch_static(args: argparse.Namespace, command: List[str],
             # shared path would race)
             updates["HOROVOD_TIMELINE"] = \
                 f"{args.timeline_merge}.rank.{slot.rank}.json"
+        if postmortem_dir:
+            # heartbeats feed /health and the supervision; the per-rank
+            # flight record path arms the native recorder at init
+            updates.setdefault("HOROVOD_HEARTBEAT", "1")
+            updates["HOROVOD_FLIGHT_RECORD"] = os.path.join(
+                postmortem_dir, f"flight.rank.{slot.rank}")
         if np_ > 1:
             updates["HOROVOD_COORDINATOR_ADDR"] = \
                 f"{coord_host}:{args.coordinator_port}"
@@ -916,18 +1067,21 @@ def launch_static(args: argparse.Namespace, command: List[str],
     exit_code = 0
 
     def reap(rank: int, proc: subprocess.Popen,
+             cause: Optional[str] = None,
              by_launcher: bool = False) -> None:
-        """Record one worker exit; the first nonzero one a worker made
-        itself sets the job's code.  (The JAX launcher also counts the
-        exit into hvd_worker_exits_total by cause, which needs the
-        postmortem plane's classifier: ROADMAP queue 1 item 4.3.)"""
+        """Record one worker exit (its row of the postmortem, its cause
+        in hvd_worker_exits_total); the first failure a worker made
+        itself, or a supervision verdict, sets the job's code."""
         nonlocal exit_code
         rc = proc.wait()
         join_output_pumps(proc)
-        exits[rank] = {"rc": rc, "time": time.time(),
+        exits[rank] = {"rc": rc, "time": time.time(), "cause": cause,
                        "by_launcher": by_launcher}
-        if rc != 0 and not by_launcher and exit_code == 0:
-            exit_code = rc
+        from ..postmortem import classify_exit
+        from ..utils import metrics as M
+        M.WORKER_EXITS.inc(cause=classify_exit(rc, by_launcher, cause))
+        if (rc != 0 or cause) and not by_launcher and exit_code == 0:
+            exit_code = rc if rc != 0 else 1
 
     # live straggler check: needs the metrics plane's per-rank snapshots
     # and an explicit period (HOROVOD_STRAGGLER_CHECK_SECS > 0)
@@ -941,6 +1095,20 @@ def launch_static(args: argparse.Namespace, command: List[str],
             interval=check_secs,
             log_fn=lambda msg: print(msg, file=sys.stderr, flush=True))
         monitor.start()
+
+    # supervision: heartbeat-lost and progress-stall verdicts from the
+    # fleet's health scope
+    health_mon = None
+    if postmortem_dir:
+        from ..utils.health import HealthMonitor, fleet_health
+        hb_timeout = float(os.environ.get("HOROVOD_HEARTBEAT_TIMEOUT",
+                                          "10") or 10)
+        health_mon = HealthMonitor(
+            lambda: fleet_health(
+                rendezvous.scope_items("health"),
+                rendezvous.scope_receipt_times("health"),
+                stale_after=hb_timeout),
+            timeout=hb_timeout)
 
     main_thread = threading.current_thread() is threading.main_thread()
     old_term = signal.signal(signal.SIGTERM, _raise_terminated) \
@@ -972,6 +1140,23 @@ def launch_static(args: argparse.Namespace, command: List[str],
                         p.kill()
                     reap(r, p, by_launcher=True)
                 break
+            if health_mon is not None and live:
+                for r, cause in health_mon.verdicts(live).items():
+                    p = procs[r]
+                    if p.poll() is None:
+                        # SIGABRT, not SIGTERM: the abort trips the armed
+                        # flight recorder, so the kill that confirms the
+                        # stall also takes the rank's black box
+                        print(f"{PROG}: rank {r}: {cause} beyond "
+                              f"{health_mon.timeout:.0f}s; aborting for "
+                              "forensics", file=sys.stderr, flush=True)
+                        p.send_signal(signal.SIGABRT)
+                        try:
+                            p.wait(timeout=10)
+                        except subprocess.TimeoutExpired:
+                            p.kill()
+                    reap(r, p, cause=cause)
+                    progressed = True
             if not progressed:
                 time.sleep(0.2)
         return exit_code
@@ -998,6 +1183,14 @@ def launch_static(args: argparse.Namespace, command: List[str],
             report_stragglers(rendezvous)
         if args.timeline_merge:
             write_merged_timeline(rendezvous, args.timeline_merge)
+        if postmortem_dir and exits and exit_code != 0:
+            try:
+                write_job_postmortem(rendezvous, postmortem_dir, exits,
+                                     command, np_,
+                                     output_filename=args.output_filename)
+            except Exception as e:  # forensics must never mask the rc
+                print(f"{PROG}: postmortem collection failed: {e}",
+                      file=sys.stderr, flush=True)
         rendezvous.stop()
 
 
@@ -1005,8 +1198,8 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "doctor":
-        # the read side of the perf plane and the serving views: no
-        # launch, no rendezvous, just the rendering
+        # the read side of the postmortem, perf and watch planes and the
+        # serving views: no launch, no rendezvous, just the rendering
         from .doctor import main as doctor_main
         return doctor_main(argv[1:])
     args = make_parser().parse_args(argv)

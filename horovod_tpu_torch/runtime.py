@@ -32,6 +32,10 @@ when overlap is on), the ``StallInspector`` (unless
 ``HOROVOD_STALL_CHECK_DISABLE``), the ``MetricsPublisher``
 (``HOROVOD_METRICS``) and the perf plane's ``PerfPublisher``
 (``HOROVOD_PERF``; ``perf/ledger.py``), whose link class it resolves.
+The forensics planes follow: the heartbeat publisher
+(``HOROVOD_HEARTBEAT``, ``utils/health.py``) and the chaos injector
+(``chaos/``); the watch knobs are checked, and the native core arms its
+flight recorder under ``HOROVOD_FLIGHT_RECORD`` when it comes up.
 Each metrics snapshot imports the native core's per-op aggregates and
 takes a memory sample (``perf/memstats.py``, under ``HOROVOD_MEM``).  The native core, when it comes up, gets the
 autotune switch and the trace drainer.  ``fusion_threshold``,
@@ -107,12 +111,9 @@ class Runtime:
         validate_serve_knobs(knobs)
         from .parallel.layout import (build_layout, resolve_layout,
                                       validate_layout_knobs)
-        if knobs["HOROVOD_FLIGHT_RECORD"]:
-            raise NotImplementedError(
-                "HOROVOD_FLIGHT_RECORD: the native core's crash-time flight "
-                "recorder comes with the postmortem plane (ROADMAP queue 1 "
-                "item 4.3)")
         validate_kv_knobs(knobs)
+        from .watch import validate_watch_knobs
+        validate_watch_knobs(knobs)
         from .perf import validate_mem_knobs, validate_perf_knobs
         validate_perf_knobs(knobs)
         validate_mem_knobs(knobs)
@@ -131,6 +132,7 @@ class Runtime:
         self.stall_inspector = None
         self.metrics_publisher = None
         self.perf_publisher = None
+        self.heartbeat = None
         self._size = max(knobs["HOROVOD_SIZE"], 1)
         self._rank = max(knobs["HOROVOD_RANK"], 0)
         self._local_rank = max(knobs["HOROVOD_LOCAL_RANK"], 0)
@@ -180,6 +182,7 @@ class Runtime:
         # this rank's coordinate and dp, tp and pp subgroups, or None
         self.layout = build_layout(*dims) if dims is not None else None
         self._start_measurement()
+        self._start_forensics()
         if self._controller == "tcp":
             self.ensure_core()
 
@@ -191,7 +194,9 @@ class Runtime:
         rdv_addr = knobs["HOROVOD_RENDEZVOUS_ADDR"]
         rdv_port = knobs["HOROVOD_RENDEZVOUS_PORT"]
         path = knobs["HOROVOD_TIMELINE"]
-        if rdv_addr and rdv_port and path:
+        if rdv_addr and rdv_port and (path or knobs["HOROVOD_HEARTBEAT"]):
+            # heartbeats ride the trace's aligned fleet clock: the
+            # postmortem orders the ranks' last events by it
             from .utils.clocksync import ClockSync
             self.clock_sync = ClockSync(rdv_addr, rdv_port)
         if path and path != "DYNAMIC":
@@ -239,6 +244,41 @@ class Runtime:
                 addr=rdv_addr, port=rdv_port, rank=self._rank,
                 interval=knobs["HOROVOD_PERF_INTERVAL"])
 
+    def _start_forensics(self) -> None:
+        """The postmortem and chaos planes of this rank
+        (``horovod_tpu/runtime.py`` :308-328): the heartbeat publisher
+        under ``HOROVOD_HEARTBEAT`` (KV scope ``health``: step progress,
+        the native core's liveness, the stall inspector's pending count
+        and the memory sampler's last row), and this rank's chaos
+        injector from the spec ``launch --chaos`` published (or
+        ``HOROVOD_CHAOS_SPEC``), installed before the native core comes up
+        because its transport reads the ``HOROVOD_CHAOS_TCP_*`` faults at
+        construction."""
+        knobs = self.knobs
+        if knobs["HOROVOD_HEARTBEAT"]:
+            from .utils.health import HeartbeatPublisher
+            self.heartbeat = HeartbeatPublisher(
+                addr=knobs["HOROVOD_RENDEZVOUS_ADDR"],
+                port=knobs["HOROVOD_RENDEZVOUS_PORT"], rank=self._rank,
+                payload_fn=self._heartbeat_payload,
+                interval=knobs["HOROVOD_HEARTBEAT_INTERVAL"])
+        from . import chaos
+        chaos.ensure_installed(knobs, rank=self._rank)
+
+    def _heartbeat_payload(self) -> Dict[str, Any]:
+        """One heartbeat (``utils/health.py``): step progress, the native
+        core's liveness and the pending-collective count that fleet-stall
+        attribution keys on."""
+        from .utils.health import heartbeat_payload
+        pending = None
+        if self.stall_inspector is not None:
+            pending = self.stall_inspector.pending_count()
+        core = self.core
+        if core is not None and not getattr(core, "_h", None):
+            core = None  # a closing core: the heartbeat must not touch it
+        return heartbeat_payload(self._rank, clock=self.clock_sync,
+                                 core=core, pending_collectives=pending)
+
     def _build_hierarchy(self):
         """``(cross_group, local_group)`` of this rank on a two-level layout
         (``1 < local_size < size``), else None.  Every rank creates every
@@ -280,6 +320,10 @@ class Runtime:
                     "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES"],
                 gp_noise=self.knobs[
                     "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"])
+        if self.knobs["HOROVOD_FLIGHT_RECORD"]:
+            # the crash-time flight recorder, armed as soon as there is a
+            # core to record (launch --postmortem sets a per-rank path)
+            self.core.flight_enable(self.knobs["HOROVOD_FLIGHT_RECORD"])
         self._attach_native_trace()
         return self.core
 
@@ -423,9 +467,15 @@ class Runtime:
             self.timeline = None
 
     def shutdown(self) -> None:
-        # the final metrics publish while the native core is alive, so the
-        # straggler report sees complete histograms; then the final native
-        # drain, the final chunk publish and the local file
+        # the sentinel's last steps recorded, then the final heartbeat
+        # while the core is alive (the postmortem's last known state of
+        # this rank); the final metrics publish while the native core is
+        # alive, so the straggler report sees complete histograms; then the
+        # final native drain, the final chunk publish and the local file
+        from .watch import sentinel
+        sentinel.drain()
+        if self.heartbeat is not None:
+            self.heartbeat.close()
         if self.perf_publisher is not None:
             self.perf_publisher.close()
         if self.metrics_publisher is not None:

@@ -1171,6 +1171,8 @@ class ServeEngine:
             if decode_row:
                 self._tokens_decode += emitted_n
                 M.SERVE_TOKENS.inc(emitted_n, phase="decode")
+        from .. import postmortem as PM
+        PM.record_step(tick)  # engine liveness on the /health plane
         return {"tick": tick, "processed": used, "emitted": emitted,
                 "finished": finished, "handoff": handoffs}
 

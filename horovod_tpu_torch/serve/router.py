@@ -7,8 +7,8 @@ As the JAX router does, it counts into the ``hvd_serve_*`` and
 pruning, lifecycle components, routed, affinity hits and misses, replicas
 up, re-dispatches) and emits the merged timeline's ROUTE and STREAM spans
 (``runner/http_server.trace_span``); telemetry never takes the front door
-down.  The JAX view's firing alerts in ``/serve/stats`` wait for the watch
-plane (ROADMAP queue 1 item 4.3).
+down.  ``/serve/stats`` carries the watch plane's firing alerts beside the
+admission state.
 
 ``POST /generate`` accepts ``{"tokens": [...], "max_new_tokens": N}``,
 enqueues the request onto the rendezvous KV (scope ``serve_req`` —
@@ -845,8 +845,8 @@ def render_stats(server) -> Dict[str, Any]:
     """GET /serve/stats: router counters + the engine fleet's
     self-published stats (KV scope ``serve`` key ``stats``), plus the
     control-plane shard health when the KV is sharded (the operational
-    view `hvdrun doctor --serve` renders; docs/control-plane.md).  The
-    JAX view's firing alerts wait for the watch plane (item 4.3)."""
+    view `hvdrun doctor --serve` renders; docs/control-plane.md), and the
+    watch plane's firing alerts."""
     state = get_router_state(server)
     out: Dict[str, Any] = {"router": state.counters()}
     st = _store(server, STATS_SCOPE)
@@ -877,10 +877,21 @@ def render_stats(server) -> Dict[str, Any]:
             str(rid): rr.replicas[rid].get("stats", {})
             for rid in sorted(rr.replicas)}
         out["replicas"] = view
-    from ..runner.http_server import kv_shard_health
+    from ..runner.http_server import kv_shard_health, watch_state_for
     shards = kv_shard_health(server)
     if shards is not None:
         out["kv_shards"] = shards
+    ws = watch_state_for(server)
+    if ws is not None:
+        # the on-call reader checking the front door sees the firing
+        # alerts next to the admission state
+        firing = ws.engine.evaluate()
+        out["alerts"] = {
+            "firing": len(firing),
+            "critical": sum(1 for f in firing
+                            if f.get("severity") == "critical"),
+            "rules": sorted({f["rule"] for f in firing}),
+        }
     return out
 
 

@@ -51,10 +51,12 @@ Fault tolerance (docs/serving.md#fault-tolerance):
 SLO observability is inherited, not added: the engine records the
 ``hvd_serve_*`` metrics (published by the runtime's ``MetricsPublisher``
 to ``/metrics``, which ``--serve`` turns on) and per-request spans into
-the merged timeline, and rank 0 counts redriven requests.  Left out until
-the port has their planes: the JAX loop's serve-aware chaos
-(``chaos.step``/``maybe_stall``, ROADMAP queue 1 item 4.5) and its
-``postmortem.record_step`` liveness tick (item 4.3).
+the merged timeline, and rank 0 counts redriven requests.  The loop ticks
+``postmortem.record_step`` on every iteration, idle ones included, so
+``/health`` supervision sees an idle fleet alive and only a frozen loop
+stall, and it carries the serve-aware chaos hooks: ``maybe_stall
+("serve_tick")`` each iteration and ``chaos.step`` on the engine's work
+tick, so a spec's kill at step K lands mid-stream.
 """
 
 from __future__ import annotations
@@ -486,6 +488,8 @@ class FleetFrontend:
         """Serve until ``ttl_s`` elapses (0 = until interrupted), or a
         drain completes.  Rank 0 paces the fleet; followers block on the
         plan stream."""
+        from .. import chaos
+        from .. import postmortem as PM
         fleet = self.nprocs > 1 and bool(self.addr and self.port)
         solo_kv = self.nprocs == 1 and bool(self.addr and self.port)
         kv_backed = fleet or solo_kv
@@ -501,8 +505,10 @@ class FleetFrontend:
         drain_check_t = 0.0
         try:
             while True:
-                # (the JAX loop ticks postmortem.record_step and
-                # chaos.maybe_stall here: items 4.3 and 4.5)
+                # loop liveness for /health supervision: an idle fleet
+                # must look alive; only a wedged loop or engine freezes
+                PM.record_step(self.tick)
+                chaos.maybe_stall("serve_tick")
                 if self.rank == 0:
                     if drain_t is None and kv_backed and \
                             time.monotonic() >= drain_check_t:
@@ -585,8 +591,9 @@ class FleetFrontend:
                             self._publish_done(r["id"],
                                                {"done": True, "tokens": [],
                                                 "error": str(e)})
-                # (the JAX loop clocks chaos.step on the engine's tick
-                # here: item 4.5)
+                # the chaos step clock is the engine's work tick: it
+                # advances only while the fleet prefills or decodes
+                chaos.step(self.engine.tick)
                 report = self.engine.step()
                 if self.rank == 0 and kv_backed:
                     self._publish_report(report)

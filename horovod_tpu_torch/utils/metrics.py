@@ -14,8 +14,8 @@ The process-global registry every layer of the port records into:
 Family names, help strings, label keys and histogram buckets are the JAX
 module's letter for letter, so a scrape from either package reads the
 same; the whole standard family set is declared here, the families of
-planes the port does not record yet (perf, memory, watch, elastic)
-included, so a fleet scrape already has the whole schema.
+planes the port does not record yet (elastic) included, so a fleet
+scrape already has the whole schema.
 
 Exposition: each worker periodically PUTs a JSON :func:`MetricsRegistry.
 snapshot` to the rendezvous KV (``MetricsPublisher``); the rendezvous HTTP
@@ -23,9 +23,11 @@ server's ``/metrics`` route renders the fleet-wide Prometheus text view
 (``runner/http_server.py``), and the launcher prints a rank-0 end-of-run
 straggler report (:func:`straggler_report`).
 
-Stdlib-only with no package-relative imports at module level.  Histogram
-buckets are power-of-2 microseconds (expressed in seconds), matching the
-native core's fixed-bucket layout so native histograms import loss-free.
+Stdlib-only; its one package-relative import, the straggler check it
+shares with the watch plane (``watch/rules.py``), is stdlib-only too.
+Histogram buckets are power-of-2 microseconds (expressed in seconds),
+matching the native core's fixed-bucket layout so native histograms
+import loss-free.
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ import threading
 import time
 import urllib.request
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+# the ONE straggler check, shared with the watch plane's series store and
+# its `straggler-suspect` rule
+from ..watch.rules import straggler_skew, straggler_verdict  # noqa: F401
 
 SNAPSHOT_VERSION = 1
 
@@ -1129,47 +1135,6 @@ def _age_rows(snapshots: Dict[int, Dict[str, Any]],
         rows.append((rank, _hist_quantile(fam, 0.5),
                      _hist_quantile(fam, 0.99), _hist_count(fam)))
     return rows
-
-
-def straggler_skew(p99_by_rank: Dict[int, float],
-                   floor_seconds: float = 1e-3
-                   ) -> Dict[int, Dict[str, float]]:
-    """Per-rank negotiation-age skew: rank's p99 over the median of its
-    PEERS' p99s (the port's copy of ``horovod_tpu/watch/rules.py``'s, until
-    the watch plane is ported).  Ratios below the absolute floor are
-    reported as 0 so us-level jitter on an idle fleet never fires; the
-    default threshold stays 4x because power-of-2 histogram buckets make
-    2x degenerate (adjacent buckets differ by exactly 2x)."""
-    out: Dict[int, Dict[str, float]] = {}
-    if len(p99_by_rank) < 2:
-        return out  # detection needs a peer baseline
-    for rank, p99 in p99_by_rank.items():
-        peers = sorted(v for r, v in p99_by_rank.items() if r != rank)
-        peer_median = peers[len(peers) // 2]
-        ratio = p99 / max(peer_median, 1e-9)
-        if p99 < floor_seconds:
-            ratio = 0.0
-        out[rank] = {"ratio": ratio, "p99": p99,
-                     "peer_median_p99": peer_median}
-    return out
-
-
-def straggler_verdict(p99_by_rank: Dict[int, float],
-                      skew_ratio: float = 4.0,
-                      floor_seconds: float = 1e-3
-                      ) -> Optional[Dict[str, float]]:
-    """The worst-skewed rank of :func:`straggler_skew` iff its ratio
-    clears the threshold, else None."""
-    skews = straggler_skew(p99_by_rank, floor_seconds=floor_seconds)
-    if not skews:
-        return None
-    rank = max(skews, key=lambda r: skews[r]["ratio"])
-    s = skews[rank]
-    if not s["ratio"] >= skew_ratio:
-        return None
-    return {"rank": rank, "p99": s["p99"],
-            "peer_median_p99": s["peer_median_p99"],
-            "ratio": s["ratio"]}
 
 
 def detect_straggler(snapshots: Dict[int, Dict[str, Any]],

@@ -65,8 +65,13 @@ class StallInspector:
             self._pending.setdefault(name, time.monotonic())
 
     def record_complete(self, name: str) -> None:
-        # (the JAX inspector's chaos straggler hook, chaos.maybe_stall,
-        # comes with the chaos plane: ROADMAP queue 1 item 4.5)
+        # Chaos straggler hook: a stall event at point "complete" slows
+        # this rank between the collective's completion and its record,
+        # the slow-host straggler mode.  Peers are not dragged along (the
+        # collective already finished), so the inflated ages are this
+        # rank's own, which is what the straggler report must name.
+        from .. import chaos
+        chaos.maybe_stall("complete")
         with self._lock:
             submitted = self._pending.pop(name, None)
             self._warned.pop(name, None)

@@ -238,10 +238,21 @@ def test_signature_rows_free_for_ragged_kinds():
 
 
 @pytest.mark.parametrize("knob", ["HOROVOD_FLIGHT_RECORD"])
-def test_unported_controller_knobs_raise(monkeypatch, knob):
-    monkeypatch.setenv(knob, "1")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4.3"):
-        hvd.init(device="cpu")
+def test_unported_controller_knobs_raise(monkeypatch, tmp_path, knob):
+    """HOROVOD_FLIGHT_RECORD raised here until the postmortem plane came
+    (item 4.3); now ``init`` takes it, and the native core, when it comes
+    up, arms its flight recorder at that path."""
+    path = str(tmp_path / "flight.rank.0")
+    monkeypatch.setenv(knob, path)
+    monkeypatch.setenv("HOROVOD_CONTROLLER", "tcp")
+    monkeypatch.setenv("HOROVOD_CONTROLLER_PORT", str(_free_port()))
+    rt = hvd.init(device="cpu")
+    try:
+        assert rt.core is not None and rt.core.flight_dump(path, "armed")
+        with open(path) as f:
+            assert f.readline().startswith("hvd_flight_v")
+    finally:
+        hvd.shutdown()
     assert not hvd.is_initialized()
 
 

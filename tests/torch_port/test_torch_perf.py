@@ -723,7 +723,10 @@ def test_render_request_matches_jax(name):
 def test_doctor_command_line(tmp_path, capsys):
     """``launch doctor`` with ``--perf``, ``--serve`` and ``--request`` on
     saved views exits 0 with the JAX doctor's text; a missing file exits
-    2; the postmortem path and ``--watch`` exit 2 naming item 4.3."""
+    2; the postmortem path and ``--watch`` render now (the postmortem
+    plane, item 4.3), so a directory without a postmortem.json and a perf
+    view given to ``--watch`` are what they read, and exit as the JAX
+    doctor exits on them."""
     from horovod_tpu_torch.runner import launch as TL
     perf = tmp_path / "perf.json"
     perf.write_text(json.dumps(_perf_views()["comm"]))
@@ -748,9 +751,13 @@ def test_doctor_command_line(tmp_path, capsys):
                  ["--request", "req.424242", str(trace)]):
         assert TL.run_commandline(["doctor"] + args) == 2
     capsys.readouterr()
-    for args in ([str(tmp_path)], ["--watch", str(perf), "--once"]):
-        assert TL.run_commandline(["doctor"] + args) == 2
-        assert "ROADMAP queue 1 item 4.3" in capsys.readouterr().err
+    assert TL.run_commandline(["doctor", str(tmp_path)]) == 2
+    assert "postmortem.json" in capsys.readouterr().err
+    assert TL.run_commandline(["doctor", "--watch", str(perf),
+                               "--once"]) == 0
+    got = capsys.readouterr().out
+    assert JD.main(["--watch", str(perf), "--once"]) == 0
+    assert got == capsys.readouterr().out
 
 
 # --------------------------------------------------------------- profiler

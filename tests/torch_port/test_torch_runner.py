@@ -505,22 +505,37 @@ def test_measure_routes_answer(servers, scope):
         assert rank0(t_body) == rank0(j_body)
 
 
-@pytest.mark.parametrize("route", sorted(PLANE_ROUTES))
+# the routes the port answered 404 on until their plane (item 4.3) came
+_FORENSICS_ROUTES = (("GET", "alerts", ""), ("GET", "health", ""),
+                     ("GET", "series", ""))
+
+
+@pytest.mark.parametrize("route", sorted(set(PLANE_ROUTES)
+                                         | set(_FORENSICS_ROUTES)))
 def test_plane_routes_wait_for_their_plane(servers, route):
     """Each route the JAX server renders for a plane the port does not have
-    yet answers 404, and ROADMAP lists its item."""
+    yet answers 404, and ROADMAP lists its item; every other one answers
+    as the JAX server does (the forensics routes: 200, JSON with the same
+    keys)."""
     method, scope, key = route
-    _, tp = servers
+    jp, tp = servers
     path = f"/{scope}/{key}" if key else f"/{scope}"
     body = b"{}" if method == "POST" else b""
-    resp = _raw(tp, f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
-                f"Content-Length: {len(body)}\r\nConnection: close\r\n\r\n"
-                .encode() + body)
-    assert resp.startswith(b"HTTP/1.0 404")
-    roadmap = open(os.path.join(os.path.dirname(__file__), "..", "..",
-                                "ROADMAP.md")).read()
-    assert f"`{path}`" in roadmap
-    assert PLANE_ROUTES[route] in ("3.4", "4.1", "4.2", "4.3")
+    req = (f"{method} {path} HTTP/1.1\r\nHost: x\r\nContent-Length: "
+           f"{len(body)}\r\nConnection: close\r\n\r\n".encode() + body)
+    resp = _raw(tp, req)
+    if route in PLANE_ROUTES:
+        assert resp.startswith(b"HTTP/1.0 404")
+        roadmap = open(os.path.join(os.path.dirname(__file__), "..", "..",
+                                    "ROADMAP.md")).read()
+        assert f"`{path}`" in roadmap
+        assert PLANE_ROUTES[route] in ("3.4", "4.1", "4.2", "4.4", "4.5")
+        return
+    want = _raw(jp, req)
+    assert resp.startswith(b"HTTP/1.0 200") and want.startswith(
+        b"HTTP/1.0 200")
+    assert set(json.loads(resp.partition(b"\r\n\r\n")[2])) == set(
+        json.loads(want.partition(b"\r\n\r\n")[2]))
 
 
 def _perf_reports(case):
@@ -618,6 +633,29 @@ def test_measure_flags_are_no_longer_refused(dest):
         JL.make_parser().parse_args(argv))
 
 
+_FORENSICS_FLAGS = {"postmortem": "--postmortem", "alerts": "--alerts",
+                    "chaos": "--chaos"}
+
+
+@pytest.mark.parametrize("dest", sorted(_FORENSICS_FLAGS))
+def test_forensics_flags_are_no_longer_refused(dest, tmp_path):
+    """``--postmortem``, ``--alerts`` and ``--chaos`` (refused until item
+    4.3) parse, pass ``refused_flag`` and stamp the JAX launcher's env."""
+    assert dest not in TL.REFUSED
+    value = {"postmortem": str(tmp_path / "pm"),
+             "alerts": str(tmp_path / "rules.json"),
+             "chaos": str(tmp_path / "chaos.json")}[dest]
+    (tmp_path / "rules.json").write_text('{"rules": []}')
+    (tmp_path / "chaos.json").write_text(
+        '{"seed": 3, "transport": {"drop_rate": 0.5}, "events": []}')
+    argv = ["-np", "2", _FORENSICS_FLAGS[dest], value, "python", "t.py"]
+    args = TL.make_parser().parse_args(argv)
+    assert getattr(args, dest) == value
+    assert TL.refused_flag(args) is None
+    assert TL.args_to_env(args) == JL.args_to_env(
+        JL.make_parser().parse_args(argv))
+
+
 @pytest.mark.parametrize("dest", sorted(TL.REFUSED))
 def test_every_refused_flag_exits_2_and_names_its_item(dest, capsys):
     flag, _, item = TL.REFUSED[dest]
@@ -642,11 +680,11 @@ def test_transport_and_device_flags_exit_2(argv, needle, capsys):
 
 
 def test_doctor_and_missing_command_exit_2(capsys):
-    """``doctor`` renders the perf and serving views now; its postmortem
-    path (a directory or file argument without a view flag) waits for the
-    postmortem plane and says so."""
+    """``doctor`` on a path without a postmortem.json (its postmortem view,
+    item 4.3) exits 2 naming what it could not read, as the JAX doctor
+    does; a launch without a command exits 2."""
     assert TL.run_commandline(["doctor", "x"]) == 2
-    assert "ROADMAP queue 1 item 4.3" in capsys.readouterr().err
+    assert "No such file or directory: 'x'" in capsys.readouterr().err
     assert TL.run_commandline(["-np", "1"]) == 2
     assert TL.run_commandline(["python", "t.py"]) == 2
 

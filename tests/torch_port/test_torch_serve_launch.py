@@ -255,10 +255,11 @@ def test_serve_port_command_and_env_match_the_jax_launcher(monkeypatch):
         tenv, jenv = TLN.args_to_env(ta), JLN.args_to_env(ja)
         for name in ("HOROVOD_SERVE_REPLICAS", "HOROVOD_SERVE_REPLICA_ID"):
             assert tenv.get(name) == jenv.get(name)
-        # --serve turns on the metrics plane as the JAX launcher does;
-        # the heartbeat plane the port lacks is not stamped (item 4.3)
+        # --serve turns on the metrics and heartbeat planes as the JAX
+        # launcher does
         assert tenv.get("HOROVOD_METRICS") == jenv.get("HOROVOD_METRICS")
-        assert "HOROVOD_HEARTBEAT" not in tenv
+        assert tenv.get("HOROVOD_HEARTBEAT") == \
+            jenv.get("HOROVOD_HEARTBEAT")
     monkeypatch.setenv("HOROVOD_SERVE_PORT", "4321")
     args = TLN.make_parser().parse_args(["--serve", "d"])
     assert TLN.resolve_serve_port(args) == 4321
