@@ -187,15 +187,32 @@ Phases, in order; any failure exits non-zero before the result line:
    faulthandler: a complete record with native spans and the chained
    handler's report.  Phase 14's fleets read ``GET /health`` while idle:
    every rank's step must advance;
-9. printed last, after phase 17: a ``{"kernels": [...]}`` JSON line (the
+18. elastic (``phase_elastic``): ``launch --min-np 1 --max-np 1
+   --host-discovery-script S --chaos SPEC`` over ``chip_smoke.py --elastic
+   DIR`` (S prints ``localhost:1`` and ``127.0.0.1:1``; the spec has a
+   ``state_dir``, so its kill fires once): phase 5's ``1b`` step (its
+   seed, batches and AdamW, through ``DistributedOptimizer`` and
+   ``flash_attention``) for its first 6 steps under ``hvd.elastic.run``
+   with a ``TreeState`` in the fast store, committing after every second
+   step; the chaos kill after step 4, two steps after the commit of step
+   2.  The driver blacklists the first alias and resets; round 1 runs on
+   the other, restores the commit of step 2 and trains to step 6.  Every loss of
+   both rounds must be bitwise phase 5's at its step, each kernel
+   launched 16 times a step in each round, the rank's and the launcher's
+   exits 0 after one reset; before it, the store's filesystem must have
+   room for its commits, and the store is deleted after it.  Printed: the
+   bytes a commit writes, each commit's ms, the restore's ms, the seconds
+   from the kill to the launcher's reset and from the reset to round 1's
+   first finished step (with the new process's start-up split);
+9. printed last, after phase 18: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128`` and MoE
    ``mini``-shape ``d32`` numbers, D=128 resources, its ring-shape
    ``ring`` numbers and the launches of each phase, ``launches_fleet``
    the fleets', ``launches_measure`` phase 15's, ``launches_perf`` phase
-   16's, ``launches_watch`` phase 17's), then the ``{"ok":
-   true, "device": {...}}`` JSON line.
+   16's, ``launches_watch`` phase 17's, ``launches_elastic`` phase 18's
+   two rounds'), then the ``{"ok": true, "device": {...}}`` JSON line.
 
-    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem]
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, started by the port's launcher as
@@ -307,7 +324,25 @@ required), with the seconds from the fault to the launcher's exit and to
 each survivor's end (at most 10.5 s); then phase 17's sentinel launch
 across the N ranks on the direct (e) and the hook-driven (f) step: the
 scalars reduced over the ranks, rank 1's NaN every rank's verdict, the
-wrapped step against the same step unwrapped.  ``--parts`` runs a
+wrapped step against the same step unwrapped.  The ``elastic`` part
+(``rank_elastic``, the parent again) makes one elastic launch an
+experiment (``launch --min-np N --max-np N --host-discovery-script S``,
+S printing ``localhost:N`` and ``127.0.0.1:N``) over ``chip_smoke.py
+--elastic DIR``, ``1b`` at 4 x 2048 a card: (a) an unfaulted launch, then
+a chaos kill of rank 2 after step 6, round 1's losses bitwise the
+unfaulted launch's and the parameters bitwise equal across ranks
+(checksum allgather) and to the unfaulted run's; (b) rank 0 crashing
+between the data and the marker of its second commit (``crash_commit``,
+``pre_marker``): every rank restores the first commit, none reads the
+torn one, commits go on past it, the losses from there bitwise (a)'s
+unfaulted ones; (c) elastic serving (``rank_elastic_serve``): ``launch
+--serve`` with ``--min-np 2 --max-np 2`` over the fp32 ``1b`` servable
+of phase 14, serving phase 14's requests, rank 1 chaos-killed at an engine
+tick while tokens stream: every stream byte-identical to one card's
+tokens, the journal's redrives counted, ``POST /admin/drain`` ending the
+launcher with exit 0.  Printed: commit ms and bytes per rank, restore ms,
+the seconds from the fault to the reset and from the reset to the first
+step, and from the kill to the first redriven token.  ``--parts`` runs a
 subset (default: all).
 
 TF32 is off for matrix products and convolutions
@@ -3082,7 +3117,7 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 # --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
 # path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
 RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve", "measure",
-              "perf", "postmortem")
+              "perf", "postmortem", "elastic")
 
 
 def rank_worker(spec: dict) -> None:
@@ -3275,7 +3310,8 @@ def phase_ranks(torch, n: int, parts) -> None:
     require(torch.cuda.device_count() >= n,
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
     worker_parts = [p for p in parts
-                    if p not in ("serve", "measure", "perf", "postmortem")]
+                    if p not in ("serve", "measure", "perf", "postmortem",
+                                 "elastic")]
     if worker_parts:
         rc = launch.run_commandline(ranks_argv(n, worker_parts))
         require(rc == 0, f"--ranks {n}: the launcher returned {rc}")
@@ -3312,6 +3348,15 @@ def phase_ranks(torch, n: int, parts) -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
         rank_postmortem(torch, n, card)
+    if "elastic" in parts:
+        # elastic training and serving: the parent starts one elastic
+        # launch an experiment and reads what the rounds leave
+        import numpy as np
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        rank_elastic(torch, np, n, card)
 
 
 LAUNCH_STEPS = 3         # phase 13: 1 warm-up and 2 timed steps
@@ -5827,11 +5872,654 @@ def rank_postmortem(torch, n: int, card: str, device_type: str = "cuda",
     print(card, flush=True)
 
 
+ELASTIC_STEPS = WARMUP_STEPS + TIMED_STEPS + 1  # phase 5's 8 steps and batches
+ELASTIC_KILL_STEP = 6    # --parts elastic (a): after step 6, two after the commit of step 4
+ELASTIC_PHASE_STEPS = 6  # phase 18: phase 5's first 6 steps, two commits
+ELASTIC_PHASE_KILL = 4   # phase 18: the kill after step 4, two after the commit of step 2
+ELASTIC_TORN_COMMIT = 1  # (b): the store step rank 0 tears (the commit of step 4)
+ELASTIC_MAX_TO_KEEP = 2  # the commits TreeState keeps, as JaxState
+ELASTIC_DEADLINE = 900   # seconds an elastic launch may take to exit
+
+
+def elastic_worker(out_dir: str) -> int:
+    """``--elastic DIR``: one rank of phase 18 and ``--parts elastic``
+    (a)-(b), started by the elastic driver (``launch --min-np --max-np
+    --host-discovery-script``).  Phase 5's configuration (``1b`` at full
+    width and depth, bf16, AdamW through ``DistributedOptimizer``, the
+    flash kernels, ``ce_chunks=8``, the same seeded weights and its
+    first ``steps`` batches of ``DIR/elastic.json``, ``TRAIN_BATCH`` rows a
+    rank) under
+    ``hvd.elastic.run`` with a ``TreeState`` in the fast store at
+    ``DIR/elastic.json``'s ``store``.  A reset round restores the last
+    commit (``load_from_disk``; a round that finds commits and restores
+    none fails), a fresh start broadcasts rank 0's parameters and
+    optimizer state as phase 5 does; then the rank trains to the last
+    step.  After step ``i`` the rank
+    calls ``hvd.chaos.step(i + 1)`` and commits after every second step
+    but the last.  Every step's loss and the kernels' launches so far,
+    each commit's ms and bytes, the restore's ms and the parameters'
+    checksums gathered from every rank land in ``DIR/elastic.rank<r>.jsonl``
+    with the host clock.  A rank that fails prints its traceback and exits
+    at once."""
+    t_main = time.time()
+    try:
+        return elastic_rank(out_dir, t_main)
+    except BaseException:
+        import traceback
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def elastic_rank(out_dir: str, t_main: float) -> int:
+    with open(os.path.join(out_dir, "elastic.json")) as f:
+        spec = json.load(f)
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device_type = spec.get("device", "cuda")
+    t_import = time.time()
+    dev = hvd.init(device=None if device_type == "cuda"
+                   else device_type).device
+    t_init = time.time()
+    require(dev.type == device_type, f"the elastic worker runs on {dev}")
+    rank, n = hvd.rank(), hvd.size()
+    rnd = int(os.environ.get("HOROVOD_ELASTIC_ROUND", "0"))
+    log = os.path.join(out_dir, f"elastic.rank{rank}.jsonl")
+
+    def record(**rec):
+        rec.update(round=rnd, t=time.time())
+        with open(log, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    cfg = llama.CONFIGS[spec.get("cfg", "1b")]
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    sync()
+    t_model = time.time()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=0.01),
+        named_parameters=model.named_parameters())
+    step = hvd.make_train_step(
+        model, lambda m, ids: llama.loss_fn(m, ids, attn_fn=hvd.flash_attention,
+                                            ce_chunks=8), opt)
+    rows, seq = spec.get("batch", TRAIN_BATCH), spec.get("seq", TRAIN_SEQ)
+    steps = spec.get("steps", ELASTIC_STEPS)
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, cfg.vocab, (rows * n, seq + 1),
+                           dtype=np.int32) for _ in range(steps)]
+    t_batches = time.time()
+    state = hvd.elastic.TreeState(params=model, opt_state=opt, step=0,
+                                  sharded_commit_dir=spec["store"])
+    own = sorted(state._fast().steps())
+    sync()
+    t_ready = time.time()
+    t0 = time.perf_counter()
+    restored = state.load_from_disk()
+    sync()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    require(restored or not own, f"rank {rank}: commits {own} on disk, "
+            "none restored (a quiet cold start)")
+    if not restored:
+        # a fresh start, as phase 5 starts
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        hvd.broadcast_optimizer_state(opt, root_rank=0)
+        sync()
+    record(kind="start", restored=state.last_restore, step=state.step,
+           restore_ms=restore_ms if restored else None, own_steps=own,
+           t_main=t_main, t_import=t_import, t_init=t_init,
+           t_model=t_model, t_batches=t_batches, t_ready=t_ready)
+    F.reset_launches()
+
+    @hvd.elastic.run
+    def loop(state):
+        for i in range(state.step, steps):
+            loss = float(step(torch.from_numpy(batches[i]).to(dev)))
+            record(kind="step", step=i, loss=loss, launches=dict(F.LAUNCHES))
+            state.step = i + 1
+            record(kind="tick", chaos_step=state.step)
+            hvd.chaos.step(state.step)
+            if state.step % 2 == 0 and state.step < steps:
+                sync()
+                t = time.perf_counter()
+                state.commit()
+                sync()
+                record(kind="commit", step=state.step,
+                       ms=(time.perf_counter() - t) * 1e3,
+                       bytes=state.last_commit_bytes)
+
+    loop(state)
+    sums = param_checksums(torch, list(model.parameters())).cpu().tolist()
+    every = hvd.allgather_object(sums)
+    record(kind="end", launches=dict(F.LAUNCHES), checksums=sums,
+           same_params=all(s == every[0] for s in every),
+           commits=sorted(state._fast().steps()))
+    hvd.shutdown()
+    return 0
+
+
+def commit_room(label: str, store_dir: str, n: int, cfg) -> int:
+    """The bytes one rank's commit writes (bf16 parameters and AdamW's two
+    bf16 moments), after checking that the store's filesystem has room
+    for ``ELASTIC_MAX_TO_KEEP`` commits of every rank plus the one being
+    written."""
+    import shutil
+    from horovod_tpu_torch.models import llama
+    per_rank = 3 * llama.param_count(cfg) * 2
+    need = (ELASTIC_MAX_TO_KEEP + 1) * n * per_rank
+    free = shutil.disk_usage(store_dir).free
+    require(free >= need, f"{label}: the commit store's filesystem "
+            f"({store_dir}) has {free / 1e9:.1f} GB free; {n} rank(s) "
+            f"keeping {ELASTIC_MAX_TO_KEEP} commits of {per_rank / 1e9:.2f} "
+            f"GB while writing one more need {need / 1e9:.1f} GB")
+    return per_rank
+
+
+def write_discovery(out_dir: str, n: int) -> str:
+    """A discovery script printing ``localhost:n`` and ``127.0.0.1:n``:
+    two aliases of this machine, one round on each (the first round's
+    failure blacklists the alias it ran on)."""
+    path = os.path.join(out_dir, "discover.sh")
+    with open(path, "w") as f:
+        f.write(f"#!/bin/sh\necho localhost:{n}\necho 127.0.0.1:{n}\n")
+    os.chmod(path, 0o755)
+    return path
+
+
+def write_chaos(out_dir: str, event: dict, seed: int) -> str:
+    path = os.path.join(out_dir, "chaos.json")
+    with open(path, "w") as f:
+        json.dump({"seed": seed, "state_dir": os.path.join(
+            out_dir, "chaos_state"), "events": [event]}, f)
+    return path
+
+
+def start_stamped(cmd: list, out_dir: str, env_extra: dict):
+    """Start a launch in a session of its own, its stdout to
+    ``DIR/launcher.out``, its stderr read line by line and stamped with
+    the host clock on arrival (``proc.stamped``: ``(time, line)``), also
+    kept in ``DIR/launcher.err``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), **env_extra)
+    for name in ("HOROVOD_POSTMORTEM_DIR", "HOROVOD_ALERTS",
+                 "HOROVOD_CHAOS_SPEC"):
+        env.pop(name, None)
+    proc = subprocess.Popen(
+        cmd, cwd=here, env=env, start_new_session=True,
+        stdout=open(os.path.join(out_dir, "launcher.out"), "wb"),
+        stderr=subprocess.PIPE)
+    proc.stamped = []
+
+    def pump():
+        with open(os.path.join(out_dir, "launcher.err"), "wb") as f:
+            for raw in iter(proc.stderr.readline, b""):
+                proc.stamped.append((time.time(), raw.decode(
+                    errors="replace").rstrip("\n")))
+                f.write(raw)
+                f.flush()
+    proc.pump = threading.Thread(target=pump, daemon=True)
+    proc.pump.start()
+    return proc
+
+
+def end_stamped(label: str, proc, t0: float, out_dir: str, n: int,
+                deadline: float = ELASTIC_DEADLINE, kill: bool = False):
+    """Wait for a stamped launch, at most ``deadline`` seconds from
+    ``t0``; past it, on an error, or at once with ``kill``, its session is
+    killed (workers too) and the launcher's and the ranks' tails are
+    printed."""
+    ok = False
+    try:
+        if kill:
+            return "killed"
+        rc = proc.wait(timeout=max(10.0, deadline - (time.time() - t0)))
+        ok = True
+        return rc
+    except subprocess.TimeoutExpired:
+        return f"killed at {deadline:.0f} s"
+    finally:
+        if not ok and proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+        proc.pump.join(timeout=10)
+        if not ok:
+            print(f"{label}: launcher stderr tail:\n" + "\n".join(
+                ln for _, ln in proc.stamped)[-3000:], flush=True)
+            worker_tails(label, os.path.join(out_dir, "logs"), n)
+
+
+def run_elastic(label: str, out_dir: str, n: int, event=None,
+                device_type: str = "cuda", cfg_name: str = "1b",
+                batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                steps: int = ELASTIC_STEPS) -> dict:
+    """One elastic launch of ``n`` ranks over ``chip_smoke.py --elastic
+    DIR``: ``python -m horovod_tpu_torch.runner.launch --min-np n --max-np
+    n --host-discovery-script S [--chaos SPEC]`` with free ports, the
+    ranks' output under ``DIR/logs``, the store under ``DIR/store``; with
+    ``event``, the chaos spec holds that one event and a ``state_dir``, so
+    it fires once.  Returns the launcher's exit code, its stamped stderr,
+    each rank's records and the launch's seconds."""
+    from horovod_tpu_torch.models import llama
+    os.makedirs(out_dir, exist_ok=True)
+    per_rank = commit_room(label, out_dir, n, llama.CONFIGS[cfg_name]) \
+        if device_type == "cuda" else 0
+    with open(os.path.join(out_dir, "elastic.json"), "w") as f:
+        json.dump({"store": os.path.join(out_dir, "store"),
+                   "device": device_type,
+                   "cfg": cfg_name, "batch": batch, "seq": seq,
+                   "steps": steps}, f)
+    ports = [free_port(), free_port()]
+    cmd = ([sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+            "--min-np", str(n), "--max-np", str(n),
+            "--host-discovery-script", write_discovery(out_dir, n),
+            "--elastic-timeout", "60", "--coordinator-port", str(ports[0]),
+            "--controller-port", str(ports[1]), "--output-filename",
+            os.path.join(out_dir, "logs")]
+           + (["--chaos", write_chaos(out_dir, event, 18)] if event else [])
+           + [sys.executable, os.path.abspath(__file__), "--elastic",
+              out_dir])
+    env = {} if device_type == "cuda" else {"CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.time()
+    proc = start_stamped(cmd, out_dir, env)
+    rc = end_stamped(label, proc, t0, out_dir, n)
+    wall = time.time() - t0
+    recs = {}
+    for r in range(n):
+        fp = os.path.join(out_dir, f"elastic.rank{r}.jsonl")
+        if os.path.exists(fp):
+            with open(fp) as f:
+                recs[r] = [json.loads(ln) for ln in f]
+    if isinstance(rc, int) and rc != 0:
+        worker_tails(label, os.path.join(out_dir, "logs"), n)
+        print(f"{label}: launcher stderr:\n" + "\n".join(
+            ln for _, ln in proc.stamped)[-3000:], flush=True)
+    require(rc == 0, f"{label}: the launcher returned {rc}")
+    require(sorted(recs) == list(range(n)), f"{label}: records of ranks "
+            f"{sorted(recs)}")
+    # the chaos injector writes its fired marker right before the fault
+    fired = [os.path.join(dp, f) for dp, _, fs in os.walk(os.path.join(
+        out_dir, "chaos_state")) for f in fs if f.startswith("chaos_fired")]
+    return {"rc": rc, "lines": proc.stamped, "recs": recs, "wall": wall,
+            "per_rank": per_rank,
+            "t_fault": os.path.getmtime(fired[0]) if fired else None}
+
+
+def round_lines(r: dict) -> list:
+    return [(t, ln) for t, ln in r["lines"] if "elastic round " in ln]
+
+
+def elastic_losses(recs: list, rnd: int) -> dict:
+    return {x["step"]: x["loss"] for x in recs
+            if x["kind"] == "step" and x["round"] == rnd}
+
+
+def elastic_report(label: str, r: dict, n: int, rounds: int,
+                   fault_rank: int, card: str) -> dict:
+    """The numbers of one elastic launch: commit ms and bytes per rank,
+    the restore's ms, the seconds from the fault to the launcher's reset
+    and from the reset to round 1's first finished step; requires one
+    reset round (``rounds`` = 2) or none, every rank's end and the
+    parameters bitwise equal across ranks."""
+    lines = round_lines(r)
+    require(len(lines) == rounds, f"{label}: rounds {[ln for _, ln in lines]}")
+    for rank in range(n):
+        end = r["recs"][rank][-1]
+        require(end["kind"] == "end" and end["round"] == rounds - 1,
+                f"{label}: rank {rank} did not end round {rounds - 1}")
+        require(end["same_params"], f"{label}: parameters differ across "
+                "ranks at the end")
+    commits = {rank: [(x["ms"], x["bytes"]) for x in r["recs"][rank]
+                      if x["kind"] == "commit"] for rank in range(n)}
+    out = {"commits": commits}
+    msg = (f"{label} [{card}]: launcher exit 0 after {rounds - 1} reset(s), "
+           f"{r['wall']:.1f} s; commits per rank (ms / bytes): "
+           + "; ".join(f"rank {k}: " + ", ".join(f"{ms:.0f} / {b}"
+                                                 for ms, b in v)
+                       for k, v in commits.items()))
+    if rounds == 2:
+        t_fault = r["t_fault"]
+        t_reset = lines[1][0]
+        firsts = [next(x["t"] for x in r["recs"][k] if x["round"] == 1
+                       and x["kind"] == "step") for k in range(n)]
+        restores = [next(x["restore_ms"] for x in r["recs"][k]
+                         if x["round"] == 1 and x["kind"] == "start")
+                    for k in range(n)]
+        out.update(kill_to_reset=t_reset - t_fault,
+                   reset_to_step=max(firsts) - t_reset,
+                   restore_ms=restores)
+        st = next(x for x in r["recs"][0] if x["round"] == 1
+                  and x["kind"] == "start")
+        msg += (f"; restore ms " + ", ".join(f"{x:.0f}" for x in restores)
+                + f"; fault (rank {fault_rank}) to the launcher's reset "
+                f"{t_reset - t_fault:.2f} s; reset to round 1's first "
+                f"finished step {max(firsts) - t_reset:.2f} s (rank 0: "
+                f"python up {st['t_main'] - t_reset:.2f} s after the reset, "
+                f"imports {st['t_import'] - st['t_main']:.2f} s, hvd.init "
+                f"{st['t_init'] - st['t_import']:.2f} s, model "
+                f"{st['t_model'] - st['t_init']:.2f} s, optimizer, step and "
+                f"batches {st['t_batches'] - st['t_model']:.2f} s, store "
+                f"{st['t_ready'] - st['t_batches']:.2f} s, restore "
+                f"{st['restore_ms'] / 1e3:.2f} s, first step done "
+                f"{firsts[0] - st['t'] :.2f} s later)")
+    print(msg, flush=True)
+    return out
+
+
+def kernel_launches(recs: list, rnd: int) -> dict:
+    steps = [x for x in recs if x["kind"] == "step" and x["round"] == rnd]
+    return steps[-1]["launches"], len(steps)
+
+
+def check_round_launches(label: str, recs: list, rnd: int, layers: int,
+                         device_type: str) -> dict:
+    launches, n_steps = kernel_launches(recs, rnd)
+    if device_type == "cuda":
+        for name in REPLACES:
+            require(launches.get(name) == layers * n_steps,
+                    f"{label}: {name} launched {launches.get(name)} times in "
+                    f"round {rnd}'s {n_steps} steps, expected {layers} a step")
+    return launches
+
+
+def phase_elastic(torch, card: str, ref_losses, device_type: str = "cuda",
+                  cfg_name: str = "1b", batch: int = TRAIN_BATCH,
+                  seq: int = TRAIN_SEQ) -> dict:
+    """Phase 18: elastic training on one card.  ``launch --min-np 1
+    --max-np 1 --host-discovery-script S --chaos SPEC`` over ``chip_smoke.py
+    --elastic DIR`` (S prints ``localhost:1`` and ``127.0.0.1:1``), phase
+    5's step for its first ``ELASTIC_PHASE_STEPS`` steps, committing to
+    the fast store after every second step, the chaos kill after step 4
+    (two steps after the commit of step 2, once: the spec has a
+    ``state_dir``).  The driver blacklists the first alias and resets;
+    round 1 runs on the other, restores the commit of step 2 and trains to
+    step 6.  Every loss of both rounds must be bitwise phase
+    5's at its step, the kernels launched 16 times a step in each round,
+    the rank's and the launcher's exits 0 after one reset.  Returns the
+    kernels' launches of both rounds."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.models import llama
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+    label = f"elastic [{cfg_name} -np 1, kill after step {ELASTIC_PHASE_KILL}]"
+    layers = llama.CONFIGS[cfg_name].n_layers
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    t0 = time.time()
+    try:
+        r = run_elastic(label, out_dir, 1, {"kill": {
+            "rank": 0, "step": ELASTIC_PHASE_KILL}}, device_type, cfg_name,
+            batch, seq, ELASTIC_PHASE_STEPS)
+        require(os.path.exists(os.path.join(
+            out_dir, "chaos_state", "chaos_fired_0_rank0")),
+            f"{label}: the chaos kill never fired")
+        recs = r["recs"][0]
+        start = [x for x in recs if x["kind"] == "start"]
+        require([s["round"] for s in start] == [0, 1],
+                f"{label}: starts {start}")
+        last = ELASTIC_PHASE_KILL - 2  # the last commit before the kill
+        require(start[1]["restored"] == {"format": "fast",
+                                         "step": last // 2 - 1}
+                and start[1]["step"] == last,
+                f"{label}: round 1 restored {start[1]['restored']} at step "
+                f"{start[1]['step']}, expected the commit of step {last}")
+        got = {}
+        for rnd, want in ((0, range(ELASTIC_PHASE_KILL)),
+                          (1, range(last, ELASTIC_PHASE_STEPS))):
+            losses = elastic_losses(recs, rnd)
+            require(sorted(losses) == list(want),
+                    f"{label}: round {rnd} ran steps {sorted(losses)}")
+            got[rnd] = losses
+        same = all(got[k][i] == ref_losses[i] for k in got for i in got[k])
+        print(f"{label}: round 0 losses " + " ".join(
+            f"{got[0][i]:.5f}" for i in sorted(got[0])) + "; round 1 "
+            + " ".join(f"{got[1][i]:.5f}" for i in sorted(got[1]))
+            + f"; bitwise phase 5's at every step: {same}", flush=True)
+        require(same, f"{label}: a loss differs from phase 5's")
+        launches = {}
+        for rnd in (0, 1):
+            lr = check_round_launches(label, recs, rnd, layers, device_type)
+            for k, v in lr.items():
+                launches[k] = launches.get(k, 0) + v
+        rep = elastic_report(label, r, 1, 2, 0, card)
+        print(f"{label}: commit bytes {rep['commits'][0][0][1]} "
+              f"({rep['commits'][0][0][1] / 1e9:.3f} GB: bf16 parameters "
+              "and AdamW's two bf16 moments, with the step counts); "
+              f"launches {json.dumps(launches)}; phase "
+              f"{time.time() - t0:.1f} s", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def rank_elastic(torch, np, n: int, card: str, device_type: str = "cuda",
+                 cfg_name: str = "1b", batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ) -> None:
+    """``--ranks N --parts elastic``: the parent starts one elastic launch
+    an experiment, ``1b`` at ``TRAIN_BATCH`` x ``TRAIN_SEQ`` a card, S
+    printing ``localhost:N`` and ``127.0.0.1:N``, ``--min-np N --max-np
+    N``: (a) an unfaulted launch, then a chaos kill of rank 2 after step 6
+    (two after the commit of step 4): round 1's losses bitwise the
+    unfaulted launch's, the parameters bitwise equal across ranks and to
+    the unfaulted run's; (b) rank 0 crashing between the data and the
+    marker of its second commit (``crash_commit``, ``pre_marker``): every
+    rank restores the first, none reads the torn one, commits go on past
+    it, the losses from there bitwise (a)'s unfaulted ones; (c) elastic
+    serving (``rank_elastic_serve``)."""
+    import shutil
+    import tempfile
+    from horovod_tpu_torch.models import llama
+    layers = llama.CONFIGS[cfg_name].n_layers
+    root = tempfile.mkdtemp(prefix="chip_smoke_ranks_elastic_")
+    kw = dict(device_type=device_type, cfg_name=cfg_name, batch=batch,
+              seq=seq)
+    try:
+        lbl = f"elastic [{cfg_name} -np {n}]"
+        clean = run_elastic(f"{lbl} (a) unfaulted", os.path.join(
+            root, "clean"), n, **kw)
+        elastic_report(f"{lbl} (a) unfaulted", clean, n, 1, 0, card)
+        check_round_launches(f"{lbl} (a) unfaulted", clean["recs"][0], 0,
+                             layers, device_type)
+        ref = elastic_losses(clean["recs"][0], 0)
+        require(sorted(ref) == list(range(ELASTIC_STEPS)),
+                f"{lbl} (a): unfaulted steps {sorted(ref)}")
+        shutil.rmtree(os.path.join(root, "clean", "store"),
+                      ignore_errors=True)
+
+        for tag, event, fault_rank, restored_step, from_step in (
+                (f"(a) kill of rank {2 % n}", {"kill": {
+                    "rank": 2 % n, "step": ELASTIC_KILL_STEP}}, 2 % n, 1, 4),
+                ("(b) torn commit of rank 0", {"crash_commit": {
+                    "rank": 0, "step": ELASTIC_TORN_COMMIT,
+                    "point": "pre_marker"}}, 0, ELASTIC_TORN_COMMIT - 1, 2)):
+            label = f"{lbl} {tag}"
+            d = os.path.join(root, tag.split()[0].strip("()"))
+            r = run_elastic(label, d, n, event, **kw)
+            fired = os.path.join(d, "chaos_state",
+                                 f"chaos_fired_0_rank{fault_rank}")
+            require(os.path.exists(fired), f"{label}: the fault never fired")
+            rep = elastic_report(label, r, n, 2, fault_rank, card)
+            for rank in range(n):
+                recs = r["recs"][rank]
+                start = [x for x in recs if x["kind"] == "start"
+                         and x["round"] == 1][0]
+                require(start["restored"] == {"format": "fast",
+                                              "step": restored_step}
+                        and start["step"] == from_step,
+                        f"{label}: rank {rank} restored {start['restored']} "
+                        f"at step {start['step']}")
+                if event.get("crash_commit") and rank == 0:
+                    # the torn step never became durable on rank 0
+                    require(ELASTIC_TORN_COMMIT not in start["own_steps"],
+                            f"{label}: rank 0 holds the torn step: "
+                            f"{start['own_steps']}")
+                after = elastic_losses(recs, 1)
+                require(sorted(after) == list(range(from_step,
+                                                    ELASTIC_STEPS))
+                        and all(after[i] == ref[i] for i in after),
+                        f"{label}: rank {rank} round 1 losses {after} vs "
+                        f"unfaulted {ref}")
+                check_round_launches(label, recs, 1, layers, device_type)
+                end = recs[-1]
+                require(end["checksums"] == clean["recs"][rank][-1][
+                    "checksums"], f"{label}: rank {rank}'s final parameters "
+                    "differ from the unfaulted run's")
+                if event.get("crash_commit"):
+                    require(max(end["commits"]) > ELASTIC_TORN_COMMIT,
+                            f"{label}: commits stopped at {end['commits']}")
+            print(f"{label}: round 1 restored store step {restored_step} "
+                  f"(step {from_step}) on every rank; losses from step "
+                  f"{from_step} bitwise the unfaulted launch's; final "
+                  f"parameters bitwise equal across ranks and to the "
+                  f"unfaulted run's; kill to reset "
+                  f"{rep['kill_to_reset']:.2f} s", flush=True)
+            shutil.rmtree(os.path.join(d, "store"), ignore_errors=True)
+        rank_elastic_serve(torch, np, min(n, 2), card, device_type)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def rank_elastic_serve(torch, np, n: int, card: str,
+                       device_type: str = "cuda", cfg_name: str = "1b",
+                       new_tokens: int = SERVE_NEW_TOKENS,
+                       prompts=None, kill_tick=None) -> None:
+    """``--parts elastic`` (c): ``launch --serve DIR --min-np n --max-np n
+    --host-discovery-script S --chaos SPEC`` (S printing ``localhost:n``
+    and ``127.0.0.1:n``) over phase 14's fp32 ``1b`` servable, the parent
+    the client of phase 14's requests; the chaos kill of rank 1 lands at
+    the engine work tick a quarter of the way through the one-card
+    engine's run of the same requests, while tokens stream (rank 0 leads
+    the plan stream and runs ahead of rank 1 by a few ticks).  The driver
+    resets the fleet, whose rank 0 redrives the journaled requests past
+    their streamed prefix; every stream must equal one card's in-process
+    engine's tokens byte for byte, the redrives be counted, and ``POST
+    /admin/drain`` end the launcher with exit 0."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from horovod_tpu_torch import serve
+    from horovod_tpu_torch.models import llama
+    dev = torch.device(device_type, 0)
+    cfg = dataclasses.replace(llama.CONFIGS[cfg_name], dtype=torch.float32)
+    if prompts is None:
+        prompts = serve_traffic(np.random.RandomState(0), cfg.vocab)
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    scfg = serve.ServeConfig()
+    scfg = dataclasses.replace(scfg, max_seq_len=min(scfg.max_seq_len,
+                                                     cfg.max_seq))
+    engine = serve.ServeEngine(model, scfg, device=dev)
+    reqs = [engine.submit(p, new_tokens, req_id=f"r{i}")
+            for i, p in enumerate(prompts)]
+    engine.flush()
+    if kill_tick is None:
+        kill_tick = max(2, engine.tick // 4)
+    engine.close()
+    ref = [r.out_tokens for r in reqs]
+    label = f"elastic serve [{cfg_name} fp32 --min-np {n} --max-np {n}]"
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_serve_")
+    proc = None
+    try:
+        d = os.path.join(root, "servable")
+        serve.save_servable(d, "llama", cfg, model)
+        del model, engine
+        if device_type == "cuda":
+            torch.cuda.empty_cache()
+        port = free_port()
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+               "--min-np", str(n), "--max-np", str(n),
+               "--host-discovery-script", write_discovery(root, n),
+               "--elastic-timeout", "60", "--chaos", write_chaos(
+                   root, {"kill": {"rank": 1, "step": kill_tick}}, 23),
+               "--serve", d, "--serve-port", str(port), "--serve-ttl",
+               str(FLEET_TTL), "--coordinator-port", str(free_port()),
+               "--controller-port", str(free_port()), "--output-filename",
+               os.path.join(root, "logs")]
+        if device_type != "cuda":
+            cmd += ["--serve-device", device_type]
+        env = {} if device_type == "cuda" else {"CUDA_VISIBLE_DEVICES": ""}
+        t0 = time.time()
+        proc = start_stamped(cmd, root, env)
+        while True:
+            require(proc.poll() is None and time.time() - t0 < FLEET_DEADLINE,
+                    f"{label}: the fleet never came up")
+            try:
+                _, st = http_json(port, "GET", "/serve/stats", timeout=5)
+                if "engine" in (st or {}):
+                    break
+            except OSError:
+                pass
+            time.sleep(0.2)
+        ready_s = time.time() - t0
+        offset = time.time() - time.perf_counter()
+        out = fleet_clients(port, prompts, new_tokens)
+        _, st = http_json(port, "GET", "/serve/stats")
+        code, ack = http_json(port, "POST", "/admin/drain", {}, timeout=120)
+        rc = end_stamped(label, proc, t0, root, n, FLEET_DEADLINE)
+    except BaseException:
+        if proc is not None:
+            end_stamped(label, proc, t0, root, n, kill=True)
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    try:
+        fired = os.path.join(root, "chaos_state", "chaos_fired_0_rank1")
+        require(os.path.exists(fired), f"{label}: the chaos kill never fired")
+        require(rc == 0, f"{label}: the launcher returned {rc}")
+        require(code == 200 and (ack or {}).get("drained") is True,
+                f"{label}: drain {code} {ack}")
+        lines = round_lines({"lines": proc.stamped})
+        require(len(lines) == 2, f"{label}: rounds {lines}")
+        outs = []
+        for i, rec in enumerate(out):
+            require(rec.get("status") == 200 and rec["error"] is None
+                    and rec["done"] is not None,
+                    f"{label}: request {i}: {str(rec)[:300]}")
+            streamed = [t for _, toks in rec["parts"] for t in toks]
+            require(streamed == rec["done"]["tokens"],
+                    f"{label}: request {i}'s stream differs from its done "
+                    "record")
+            outs.append(streamed)
+        same = sum(a == b for a, b in zip(outs, ref))
+        with open(os.path.join(root, "logs", "rank.0", "stdout"),
+                  errors="replace") as f:
+            log0 = f.read()
+        redriven = [int(x) for x in re.findall(
+            r"redriving (\d+) journaled request", log0)]
+        t_kill = os.path.getmtime(fired)
+        t_reset = lines[1][0]
+        after = [t + offset for rec in out for t, _ in rec["parts"]
+                 if t + offset > t_reset]
+        print(f"{label} [{card}]: ready {ready_s:.2f} s; rank 1 killed at "
+              f"its engine tick {kill_tick}; the driver's reset "
+              f"{t_reset - t_kill:.2f} s after the kill; journal redrives "
+              f"{sum(redriven)} ({redriven}); first redriven token "
+              + (f"{min(after) - t_kill:.2f} s" if after else "none")
+              + f" after the kill; {same} of {len(ref)} streams "
+              "byte-identical to one card's tokens; drained, launcher exit "
+              f"{rc}", flush=True)
+        require(same == len(ref), f"{label}: tokens differ from one card's")
+        require(sum(redriven) >= 1 and after,
+                f"{label}: no journal redrive after the reset")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     if len(args) == 2 and args[0] in ("--rank-worker", "--launched",
                                       "--measured", "--perfed",
-                                      "--watched", "--abort-sync"):
+                                      "--watched", "--abort-sync",
+                                      "--elastic"):
         # a worker the port's launcher started (--ranks N, phases 13, 15)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         if args[0] == "--launched":
@@ -5844,6 +6532,8 @@ def main() -> int:
             return watched_worker(args[1])
         if args[0] == "--abort-sync":
             return abort_sync_worker(args[1])
+        if args[0] == "--elastic":
+            return elastic_worker(args[1])
         rank_worker(json.loads(args[1]))
         return 0
     import torch
@@ -5928,6 +6618,7 @@ def main() -> int:
     measure = phase_measure(torch, card, losses, step_ms, eager_ms)
     perf = phase_perf(torch, np, hvd, llama, F, card, losses, step_ms)
     watch = phase_forensics(torch, card, losses, step_ms)
+    elastic = phase_elastic(torch, card, losses)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -5941,6 +6632,7 @@ def main() -> int:
         row["launches_measure"] = measure[row["name"]]
         row["launches_perf"] = perf[row["name"]]
         row["launches_watch"] = watch[row["name"]]
+        row["launches_elastic"] = elastic[row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -39,7 +39,9 @@ heartbeats; the launcher's ``--postmortem DIR`` writes postmortem.json,
 ``--chaos`` spec's faults), ``hvd.watch`` (alert rules and the fleet
 series behind ``--alerts``, ``GET /alerts`` and ``GET /series``) and
 ``hvd.sentinel`` (``wrap(step)`` watches the gradient norm, nonfinite
-values and the loss).
+values and the loss).  Elastic training: ``hvd.elastic`` (``TreeState``,
+``run``, the driver behind the launcher's ``--min-np``/``--max-np``/
+``--host-discovery-script``).
 
 The package imports neither JAX nor ``horovod_tpu``; the pieces it shares
 with the JAX package (reduce ops, knobs, exceptions, the native core's
@@ -49,7 +51,7 @@ sources) are its own copies.
 from __future__ import annotations
 
 from . import runtime as _rt
-from . import chaos, perf, postmortem, serve, watch
+from . import chaos, elastic, perf, postmortem, serve, watch
 from .watch import sentinel
 from .utils import profiler
 from .data.loader import prefetch
@@ -159,5 +161,5 @@ __all__ = [
     "adasum_allreduce", "adasum_hierarchical", "ring_attention",
     "ulysses_attention", "make_ring_attn_fn", "make_ulysses_attn_fn",
     "make_moe_fn", "run", "perf", "perf_report", "profiler",
-    "postmortem", "chaos", "watch", "sentinel",
+    "postmortem", "chaos", "watch", "sentinel", "elastic",
 ]

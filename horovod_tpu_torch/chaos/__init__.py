@@ -3,8 +3,8 @@ the port of ``horovod_tpu/chaos/``, whose specs, seeds and schedules it
 keeps.  The port's hook points: ``maybe_stall("negotiate")`` in
 ``ops/negotiated.py``, ``maybe_stall("complete")`` in ``utils/stall.py``,
 the KV blackout in ``runner/http_client.py``, ``step`` and
-``maybe_stall("serve_tick")`` in ``serve/worker.py``.  ``crash_point``
-has no caller until the elastic plane's fastcommit is ported.
+``maybe_stall("serve_tick")`` in ``serve/worker.py``, and ``crash_point``
+between the data and the marker of ``elastic/fastcommit.py``.
 
 The repo has the recovery machinery — elastic driver reset rounds,
 fastcommit durability, the native controller, the straggler report — but
@@ -22,10 +22,10 @@ package turns every resilience claim into a repeatable experiment:
     the rendezvous KV; every worker's runtime installs its injector from
     that one plan (:func:`ensure_installed`).
 
-Proof lives in ``tests/integration/test_chaos.py`` (elastic kill
-recovery, transport disconnect ride-through, torn-commit impossibility,
-straggler attribution) and the fast tier in ``tests/test_chaos.py``.
-See docs/chaos.md.
+The port's tests: ``tests/torch_port/test_torch_chaos.py`` (specs,
+schedules, the injector), ``test_torch_forensics_gloo.py`` (a kill, a
+stall, a straggler under the launcher) and ``test_torch_elastic_gloo.py``
+(elastic kill recovery, the torn commit never restored).
 """
 
 from __future__ import annotations

@@ -18,9 +18,9 @@ restored tensor takes its template tensor's device and dtype, and only the
 items both requested and saved come back, with ``meta`` (any picklable
 value) whenever it was saved.  A step is written into a temporary
 directory and renamed into place, so a crash mid-save leaves no partial
-step behind.  The elastic state that commits through this module in the
-JAX package (``elastic/``, ``torch/elastic.py``) is ROADMAP queue 1 item
-4.4.
+step behind.  ``elastic.TreeState(commit_format="portable")`` commits
+through this module (``latest_step`` and ``step_mtime`` order its commits
+against the fast store's).
 """
 
 from __future__ import annotations

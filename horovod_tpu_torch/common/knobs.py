@@ -391,6 +391,11 @@ _knob("HOROVOD_SERVE_AFFINITY", True, _parse_bool,
       "Prefix-affinity routing over the replicas' advertised radix-tree "
       "fingerprints; misses fall back to least-loaded. 0 = least-loaded "
       "only.")
+# --- elastic (elastic/; reference: elastic/constants.py, driver.py:69-93) ---
+_knob("HOROVOD_ELASTIC_TIMEOUT", 600, int,
+      "Seconds to wait for the required number of slots in elastic mode.")
+_knob("HOROVOD_ELASTIC_RESET_LIMIT", 0, int,
+      "Max elastic reset rounds before giving up (0 = unlimited).")
 _knob("HOROVOD_ELASTIC_ROUND", 0, int,
       "Reset-round number (0 on the first round and under the static "
       "launcher). The serving fleet uses it as the plan-stream epoch: "

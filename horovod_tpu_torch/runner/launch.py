@@ -70,9 +70,17 @@ renders a postmortem, the perf plane's ``GET /perf``, the fleet's
 and ``/series`` (``runner/doctor.py``); ``HOROVOD_PERF`` in a worker's environment starts
 its perf-report publisher.
 
-The JAX launcher also drives planes the port does not have yet.  Their
-flags are refused with exit code 2 and the ROADMAP item that brings them
-(:data:`REFUSED`), so no flag is ever silently ignored; the few flags that
+Elastic training: ``--min-np``, ``--max-np``, ``--host-discovery-script``,
+``--elastic-timeout`` and ``--reset-limit`` hand the job to the elastic
+driver (``elastic/driver.py``), which needs no ``-np``: it polls the
+discovery script, runs reset rounds after a failure or a membership
+change, and keeps its rendezvous server (with ``--serve``, the router, its
+journal and the in-flight client streams) across them.
+
+The JAX launcher also drives a plane the port does not have yet, the
+scenario plane: ``--scenario`` is refused with exit code 2 and the ROADMAP
+item that brings it (:data:`REFUSED`), so no flag is ever silently
+ignored; the few flags that
 have no meaning on a PyTorch stack (:data:`NO_EFFECT`) are accepted with a
 warning, as the JAX launcher accepts its CPU-affinity flags.  ``--mpi``,
 ``--gloo`` and ``--jsrun`` exit 2: the transport is ``torch.distributed``'s.
@@ -100,12 +108,6 @@ PROG = "python -m horovod_tpu_torch.runner.launch"
 
 # dest -> (flag, what it needs, the ROADMAP queue 1 item that brings it)
 REFUSED: Dict[str, tuple] = {
-    "min_np": ("--min-np", "elastic training", "4.4"),
-    "max_np": ("--max-np", "elastic training", "4.4"),
-    "host_discovery_script": ("--host-discovery-script",
-                              "elastic training", "4.4"),
-    "elastic_timeout": ("--elastic-timeout", "elastic training", "4.4"),
-    "reset_limit": ("--reset-limit", "elastic training", "4.4"),
     "scenario": ("--scenario", "the scenario plane", "4.5"),
 }
 # flags with no meaning on this stack: accepted, with a warning
@@ -319,19 +321,25 @@ def make_parser() -> argparse.ArgumentParser:
                         "native core")
     p.add_argument("--scenario", default=None, help=argparse.SUPPRESS)
     p.add_argument("--min-np", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="elastic: the fewest workers a round runs with "
+                        "(default -np, else 1)")
     p.add_argument("--max-np", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="elastic: the most workers a round runs with "
+                        "(default -np, else unbounded)")
     p.add_argument("--host-discovery-script", default=None,
-                   help=argparse.SUPPRESS)
+                   help="elastic: an executable printing the available "
+                        "hosts, one host[:slots] a line; the driver polls "
+                        "it and resets the round when the set changes")
     p.add_argument("--slots", "--slots-per-host", dest="slots", type=int,
                    default=None,
                    help="with --gpu: slots on this host (at most its "
                         "visible cards)")
     p.add_argument("--elastic-timeout", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="elastic: seconds to wait for --min-np slots "
+                        "(HOROVOD_ELASTIC_TIMEOUT)")
     p.add_argument("--reset-limit", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="elastic: reset rounds before the job gives up "
+                        "(HOROVOD_ELASTIC_RESET_LIMIT; 0 = unlimited)")
     # --- ports ---
     p.add_argument("--coordinator-port", type=int, default=29500)
     p.add_argument("--controller-port", type=int, default=29499)
@@ -470,6 +478,10 @@ def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
     if args.autotune_gaussian_process_noise is not None:
         env["HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE"] = \
             str(args.autotune_gaussian_process_noise)
+    if args.elastic_timeout is not None:
+        env["HOROVOD_ELASTIC_TIMEOUT"] = str(args.elastic_timeout)
+    if args.reset_limit is not None:
+        env["HOROVOD_ELASTIC_RESET_LIMIT"] = str(args.reset_limit)
     chaos_spec = load_chaos_spec(args)
     if chaos_spec is not None:
         env["HOROVOD_CHAOS"] = "1"
@@ -1247,18 +1259,27 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
               "native TCP controller (see --check-build); drop the flag — "
               "--tcp is the default and only transport", file=sys.stderr)
         return 2
+    elastic = args.host_discovery_script or args.min_np or args.max_np
     if args.num_proc is None and not (args.hosts or args.hostfile
-                                      or args.gpu):
+                                      or args.gpu or elastic):
         # --gpu discovers the slots, so np defaults to their total in
         # launch_static exactly like an explicit -H
         print(f"{PROG}: -np required when no hosts are given",
               file=sys.stderr)
         return 2
     try:
+        if elastic:
+            from ..elastic.driver import run_elastic
+            return run_elastic(args, command)
         return launch_static(args, command)
     except ValueError as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 2
+    except (TimeoutError, RuntimeError) as e:
+        if not elastic:
+            raise
+        print(f"{PROG}: elastic: {e}", file=sys.stderr)
+        return 1
 
 
 def main() -> None:  # console entry point

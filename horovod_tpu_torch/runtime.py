@@ -6,7 +6,13 @@ and gloo on the CPU.  With ``HOROVOD_SIZE > 1`` (what the launcher,
 ``python -m horovod_tpu_torch.runner.launch``, stamps) the group
 rendezvouses at ``HOROVOD_COORDINATOR_ADDR`` with rank ``HOROVOD_RANK``,
 waiting at most ``HOROVOD_START_TIMEOUT`` seconds for its peers; a single
-process uses an in-process store and opens no port.  The device is
+process uses an in-process store and opens no port.  ``shutdown`` then
+``init`` in one process (an elastic hard reset, ``elastic/worker.py``)
+comes back whole: the TCP store is kept for the process and each init
+rendezvouses in a namespace of its own, ``shutdown`` destroys every
+process group (freeing its communicators) and folds the native core's
+counters into the metrics registry before it closes the core, and the
+``atexit`` hook is registered once.  The device is
 ``cuda:<local_rank>`` unless the caller passes ``device="cpu"``; with no
 CUDA device and no ``device="cpu"``, ``init`` raises.
 
@@ -60,6 +66,8 @@ from .ops.wire import validate_policy_name
 
 _runtime: Optional["Runtime"] = None
 _lock = threading.Lock()
+_atexit_registered = False
+_stores: Dict[tuple, list] = {}  # (host, port, size, rank) -> [store, inits]
 
 
 def _pick_device(device: Union[str, torch.device, None],
@@ -71,6 +79,26 @@ def _pick_device(device: Union[str, torch.device, None],
             "horovod_tpu_torch: no CUDA device; pass device='cpu' to run on "
             "the CPU")
     return torch.device("cuda", local_rank)
+
+
+def _coordinator_store(host: str, port: int, size: int, rank: int,
+                       timeout_s: float):
+    """The rendezvous store of the process group at ``host:port``: the
+    TCP store is made once a process (rank 0 serves it) and kept, and
+    each ``init`` on it takes a namespace of its own.  An elastic hard
+    reset shuts down and initializes again in the same process; a new
+    server on the same port would race the peers' reconnects (a peer could
+    reach the closing server), and ranks that reset together count their
+    inits alike.  The store's timeout bounds the bring-up only; the
+    group's collectives keep the backend's own timeout."""
+    key = (host, port, size, rank)
+    entry = _stores.get(key)
+    if entry is None:
+        entry = _stores[key] = [dist.TCPStore(
+            host, port, size, is_master=rank == 0,
+            timeout=datetime.timedelta(seconds=timeout_s)), 0]
+    entry[1] += 1
+    return dist.PrefixStore(f"hvd.init.{entry[1]}", entry[0])
 
 
 def validate_kv_knobs(knobs) -> None:
@@ -160,13 +188,10 @@ class Runtime:
                     raise RuntimeError(
                         "HOROVOD_SIZE > 1 needs HOROVOD_COORDINATOR_ADDR "
                         "(host:port) for the rendezvous")
-                # the store's timeout bounds the bring-up only; the
-                # group's collectives keep the backend's own timeout
                 host, _, port = coord.rpartition(":")
-                store = dist.TCPStore(
-                    host, int(port), self._size, is_master=self._rank == 0,
-                    timeout=datetime.timedelta(
-                        seconds=knobs["HOROVOD_START_TIMEOUT"]))
+                store = _coordinator_store(
+                    host, int(port), self._size, self._rank,
+                    knobs["HOROVOD_START_TIMEOUT"])
                 dist.init_process_group(backend, store=store,
                                         rank=self._rank,
                                         world_size=self._size)
@@ -405,7 +430,7 @@ class Runtime:
             M.STALL_PENDING.set(self.stall_inspector.pending_count())
         core = self.core
         if core is not None and getattr(core, "_h", None):
-            M.import_core_metrics(core.metrics())
+            M.import_core_metrics(M.core_totals(core.metrics()))
             M.import_window_rates(core.metrics_window())
             from .perf.ledger import import_op_stats
             import_op_stats(core)
@@ -486,10 +511,18 @@ class Runtime:
         if self.stall_inspector is not None:
             self.stall_inspector.close()
         if self.core is not None:
+            from .utils import metrics as M
+            try:
+                M.retire_core_metrics(self.core.metrics())
+            except Exception:  # a failed core: nothing to fold in
+                pass
             self.core.shutdown()
             self.core.close()
             self.core = None
         if self._owns_group and dist.is_initialized():
+            # every group of this runtime (the world, the two-level and
+            # layout subgroups) and its communicators; a stale NCCL
+            # communicator holds device memory into the next runtime
             dist.destroy_process_group()
 
 
@@ -497,11 +530,15 @@ def init(device: Union[str, torch.device, None] = None,
          **overrides: Any) -> Runtime:
     """Initialize the process-global runtime (idempotent).  ``overrides``
     set knobs that the environment does not."""
-    global _runtime
+    global _runtime, _atexit_registered
     with _lock:
         if _runtime is None:
             _runtime = Runtime(Knobs(overrides or None), device=device)
-            atexit.register(shutdown)
+            if not _atexit_registered:
+                # once a process: an elastic hard reset shuts down and
+                # initializes again in the same process
+                atexit.register(shutdown)
+                _atexit_registered = True
         return _runtime
 
 

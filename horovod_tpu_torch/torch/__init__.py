@@ -11,8 +11,8 @@ Collectives are negotiated through the port's own native controller
 (``ops/negotiated.py``) and run on the runtime's device; a rank is a
 process.  ``op=Adasum`` runs the XOR-partner recursion of
 ``parallel/adasum.py`` per tensor, and ``DistributedOptimizer(op=Adasum)``
-combines each step's local update.  Left out for now: ``elastic``
-(ROADMAP queue 1 item 8).
+combines each step's local update.  ``elastic`` holds ``TorchState``,
+``ElasticSampler`` and ``run`` (``torch/elastic.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from .optimizer import DistributedOptimizer
 from .functions import (broadcast_parameters, broadcast_optimizer_state,
                         broadcast_object, allgather_object)
 from .sync_batch_norm import SyncBatchNorm
+from . import elastic
 
 
 def process_rank() -> int:
@@ -142,7 +143,7 @@ __all__ = [
     "sparse_allreduce_async", "synchronize", "poll", "join", "barrier",
     "DistributedOptimizer",
     "broadcast_parameters", "broadcast_optimizer_state", "broadcast_object",
-    "allgather_object", "SyncBatchNorm",
+    "allgather_object", "SyncBatchNorm", "elastic",
     "HorovodInternalError", "HostsUpdatedInterrupt",
     "tpu_built", "xla_built", "mpi_built", "nccl_built", "gloo_built",
     "ccl_built", "ddl_built", "cuda_built", "rocm_built", "mpi_enabled",

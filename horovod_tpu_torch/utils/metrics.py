@@ -793,37 +793,42 @@ ELASTIC_RESTORES = REGISTRY.counter(
     "hvd_elastic_restores_total", "Elastic state restores after reset.")
 
 
+_CORE_COUNTERS = (
+    (CONTROLLER_CYCLES, "cycles"), (CONTROLLER_CACHE_HITS, "cache_hits"),
+    (CONTROLLER_CACHE_MISSES, "cache_misses"),
+    (CONTROLLER_STALL_WARNINGS, "stall_warnings"),
+    (CONTROLLER_RESPONSES, "responses"),
+    (CONTROLLER_CACHED_RESPONSES, "cached_responses"),
+    (CONTROLLER_BYTES_GATHERED, "bytes_gathered"),
+    (CONTROLLER_BYTES_BROADCAST, "bytes_broadcast"),
+    (CONTROLLER_BYTES_REDUCED, "bytes_reduced"),
+    (CONTROLLER_TENSORS, "tensors_negotiated"),
+    (CONTROLLER_FUSED_BATCHES, "fused_batches"),
+    (CONTROLLER_FUSED_BYTES, "fused_batch_bytes"),
+    (CONTROLLER_BYPASS_CYCLES, "bypass_cycles"),
+    (CONTROLLER_EPOCH_LOCKS, "epoch_locks"),
+    (CONTROLLER_EPOCH_INVALIDATIONS, "epoch_invalidations"),
+    (TRANSPORT_RECONNECTS, "transport_reconnects"),
+    (TRANSPORT_RECONNECT_FAILURES, "transport_reconnect_failures"),
+    (TRANSPORT_FRAMES_RESENT, "transport_frames_resent"),
+    (TRANSPORT_FRAMES_DROPPED, "transport_frames_dropped"),
+    (TRANSPORT_FRAMES_COALESCED, "transport_frames_coalesced"),
+    (TRANSPORT_COALESCED_BYTES, "transport_coalesced_bytes"),
+    (CHAOS_FAULTS_NATIVE, "chaos_faults_injected"),
+)
+# the totals of native cores this process has closed (an elastic hard
+# reset brings up a new core, whose counters start again from 0), added
+# by core_totals
+_core_base: Dict[str, float] = {}
+
+
 def import_core_metrics(native: Dict[str, Any]) -> None:
     """Map one native-core metrics dict (CoordinationCore.metrics()) onto
     the controller families.  Native values are cumulative, so they are
     imported with set_total/set_native rather than re-counted."""
     c = native.get("counters", {})
-    CONTROLLER_CYCLES.set_total(c.get("cycles", 0))
-    CONTROLLER_CACHE_HITS.set_total(c.get("cache_hits", 0))
-    CONTROLLER_CACHE_MISSES.set_total(c.get("cache_misses", 0))
-    CONTROLLER_STALL_WARNINGS.set_total(c.get("stall_warnings", 0))
-    CONTROLLER_RESPONSES.set_total(c.get("responses", 0))
-    CONTROLLER_CACHED_RESPONSES.set_total(c.get("cached_responses", 0))
-    CONTROLLER_BYTES_GATHERED.set_total(c.get("bytes_gathered", 0))
-    CONTROLLER_BYTES_BROADCAST.set_total(c.get("bytes_broadcast", 0))
-    CONTROLLER_BYTES_REDUCED.set_total(c.get("bytes_reduced", 0))
-    CONTROLLER_TENSORS.set_total(c.get("tensors_negotiated", 0))
-    CONTROLLER_FUSED_BATCHES.set_total(c.get("fused_batches", 0))
-    CONTROLLER_FUSED_BYTES.set_total(c.get("fused_batch_bytes", 0))
-    CONTROLLER_BYPASS_CYCLES.set_total(c.get("bypass_cycles", 0))
-    CONTROLLER_EPOCH_LOCKS.set_total(c.get("epoch_locks", 0))
-    CONTROLLER_EPOCH_INVALIDATIONS.set_total(
-        c.get("epoch_invalidations", 0))
-    TRANSPORT_RECONNECTS.set_total(c.get("transport_reconnects", 0))
-    TRANSPORT_RECONNECT_FAILURES.set_total(
-        c.get("transport_reconnect_failures", 0))
-    TRANSPORT_FRAMES_RESENT.set_total(c.get("transport_frames_resent", 0))
-    TRANSPORT_FRAMES_DROPPED.set_total(c.get("transport_frames_dropped", 0))
-    TRANSPORT_FRAMES_COALESCED.set_total(
-        c.get("transport_frames_coalesced", 0))
-    TRANSPORT_COALESCED_BYTES.set_total(
-        c.get("transport_coalesced_bytes", 0))
-    CHAOS_FAULTS_NATIVE.set_total(c.get("chaos_faults_injected", 0))
+    for metric, key in _CORE_COUNTERS:
+        metric.set_total(c.get(key, 0))
     batches = c.get("fused_batches", 0)
     threshold = c.get("fusion_threshold_bytes", 0)
     if batches and threshold:
@@ -834,6 +839,30 @@ def import_core_metrics(native: Dict[str, Any]) -> None:
         h = native.get("histograms", {}).get(hname)
         if h:
             metric.set_native(h["buckets"], h["sum"] * 1e-6, h["count"])
+
+
+def core_totals(native: Dict[str, Any]) -> Dict[str, Any]:
+    """``native`` with the counters of the cores this process retired
+    (:func:`retire_core_metrics`) added, so a counter imported from it
+    never goes back across an in-process reset."""
+    if not _core_base:
+        return native
+    c = dict(native.get("counters", {}))
+    for key, base in _core_base.items():
+        c[key] = c.get(key, 0) + base
+    return dict(native, counters=c)
+
+
+def retire_core_metrics(native: Dict[str, Any]) -> None:
+    """Fold a closing native core's final counters into the base that
+    :func:`core_totals` adds to the next core's, and zero the windowed
+    rates it fed (the runtime calls this at shutdown, before it closes the
+    core)."""
+    import_core_metrics(core_totals(native))
+    c = native.get("counters", {})
+    for _, key in _CORE_COUNTERS:
+        _core_base[key] = _core_base.get(key, 0.0) + c.get(key, 0)
+    import_window_rates({})
 
 
 def import_window_rates(window: Dict[str, Any]) -> None:

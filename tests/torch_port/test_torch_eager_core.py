@@ -3,8 +3,9 @@ the same submissions on a four-rank loopback hub give the same responses
 in the same order, with the same fused names; plus the port's builder,
 binding, knobs and the signature dialect."""
 
+import gc
 import os
-import socket
+import time
 
 import numpy as np
 import pytest
@@ -19,19 +20,25 @@ from horovod_tpu_torch.common import basics as TB
 from horovod_tpu_torch.common.exceptions import DuplicateTensorNameError
 from horovod_tpu_torch.ops import _native, negotiated as TN
 
+from torch_port_ports import hold_ports
+
 RANKS = 4
-# long cycles make a round that a cycle boundary splits rare; such a round
-# is detected (``_cycles_taken``) and the whole drive is run again on both
-# libraries, so the batching compared does not depend on timing
-CYCLE_MS = 250.0
+# each round is released right after a controller cycle ended on every
+# rank (``_after_cycle_boundary``): the ranks then wait out most of a
+# cycle before they would cycle idle, and a submission wakes each rank for
+# a last cycle/5 before it takes its batch, so a round lands in one cycle
+# unless the submitting thread stalls for cycle/5 inside a rank's burst;
+# a round split all the same is detected (``_cycles_taken``) and the whole
+# drive is run again on both libraries, so the batching compared does not
+# depend on timing
+CYCLE_MS = 500.0
 FUSION_BYTES = 256
 ATTEMPTS = 10
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port for a native core's listener started right away."""
+    return hold_ports(1).release()[0]
 
 
 def _round(rng, names_sigs):
@@ -72,6 +79,18 @@ def _cycles_taken(core):
                                             "cycle.bypass"))
 
 
+def _after_cycle_boundary(cores) -> None:
+    """Return right after a controller cycle began on every rank, since
+    the call: the cycles run in lock step, so it has ended too, and every
+    rank is at the start of its idle wait."""
+    start = [c.metrics()["counters"]["cycles"] for c in cores]
+    deadline = time.monotonic() + 30
+    while any(c.metrics()["counters"]["cycles"] <= s
+              for c, s in zip(cores, start)):
+        assert time.monotonic() < deadline, "no controller cycle in 30 s"
+        time.sleep(0.002)
+
+
 def _drive(basics):
     """Run the script on ``basics``' library; every rank's responses as
     ``(type, op, total_bytes, names, sigs)``, and whether every round landed
@@ -87,10 +106,13 @@ def _drive(basics):
         c.trace_enable()
     logs = [[] for _ in range(RANKS)]
     one_cycle = True
+    gc_was_on = gc.isenabled()
+    gc.disable()  # a collection inside a rank's burst would split it
     try:
         for rnd in _script():
             expected = {item[0] for items in rnd.values() for item in items
                         if item != "JOIN"}
+            _after_cycle_boundary(cores)
             for r in range(RANKS):
                 for item in rnd.get(r, []):
                     if item == "JOIN":
@@ -110,6 +132,8 @@ def _drive(basics):
                         break
             one_cycle &= all(_cycles_taken(c) == 1 for c in cores)
     finally:
+        if gc_was_on:
+            gc.enable()
         for c in cores:
             c.shutdown()
         for c in cores:

@@ -13,7 +13,6 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import re  # noqa: E402
 import signal  # noqa: E402
-import socket  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import time  # noqa: E402
@@ -24,6 +23,7 @@ import pytest  # noqa: E402
 import horovod_tpu_torch as hvd  # noqa: E402
 
 import torch_port_launch_worker as W  # noqa: E402
+from torch_port_ports import hold_ports  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -31,9 +31,8 @@ OPT_KW = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-3, weight_decay=0.01)
 
 
 def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port for a listener started right away (``run``'s store)."""
+    return hold_ports(1).release()[0]
 
 
 def _launch(argv, deadline=100):
@@ -44,10 +43,12 @@ def _launch(argv, deadline=100):
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
+    held = hold_ports(2)
+    coord, ctrl = held.release()  # held until the spawn that binds them
     p = subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
-         "--coordinator-port", str(_free_port()),
-         "--controller-port", str(_free_port())] + argv,
+         "--coordinator-port", str(coord),
+         "--controller-port", str(ctrl)] + argv,
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         start_new_session=True)
     try:
