@@ -17,8 +17,9 @@ Phases, in order; any failure exits non-zero before the result line:
    edges (non-causal, GQA groups 1 and 8, S not a multiple of 128, fp32,
    D=32: the MoE Llama's head dim),
    dq's and dk/dv's bitwise determinism, with kernel, plain and library
-   times at the training shape, the 8b shape and MoE ``mini``'s (the
-   library backward, SDPA's, covers dq and dk/dv together);
+   times at the training shape, the 8b shape, MoE ``mini``'s and
+   BERT-Large's (q/k/v ``[8, 512, 16, 64]``, non-causal; the library
+   backward, SDPA's, covers dq and dk/dv together);
 4. model: the ``mini`` Llama loss in bf16 with the kernels as ``attn_fn``
    against the same loss with the plain ``causal_attention``;
 5. train: the ``1b`` Llama at full width and depth, data-parallel through
@@ -204,15 +205,35 @@ Phases, in order; any failure exits non-zero before the result line:
    bytes a commit writes, each commit's ms, the restore's ms, the seconds
    from the kill to the launcher's reset and from the reset to round 1's
    first finished step (with the new process's start-up split);
-9. printed last, after phase 18: a ``{"kernels": [...]}`` JSON line (the
-   rows at the training shape, each with its 8b-shape ``d128`` and MoE
-   ``mini``-shape ``d32`` numbers, D=128 resources, its ring-shape
-   ``ring`` numbers and the launches of each phase, ``launches_fleet``
-   the fleets', ``launches_measure`` phase 15's, ``launches_perf`` phase
-   16's, ``launches_watch`` phase 17's, ``launches_elastic`` phase 18's
-   two rounds'), then the ``{"ok": true, "device": {...}}`` JSON line.
+19. zoo (``phase_zoo``): the model zoo on one rank, each run through
+   ``DistributedOptimizer`` on a one-rank NCCL group: (a) ResNet-50,
+   ResNet-101, VGG-16 and Inception V3 at the CNN recipe
+   (``models/zoo.py``: SGD with momentum 0.9 at lr 0.1, VGG 0.01; 224 px,
+   Inception 299; 64 images, VGG 32; weights bf16, BN fp32), 2 warm-up
+   and 3 timed steps each (ResNet-50: 2 more timed and 1 profiled, its
+   device time split into convolutions, BN and elementwise, and SGD):
+   images/s per card, step ms, peak GiB, finite losses that move; (b)
+   ResNet-50 in fp32 at 64 px, 8 images, TF32 off: the card's first step
+   against the port's on the CPU from the same weights (loss within 1e-4
+   relative, BN statistics within 1e-4 of each tensor's largest magnitude,
+   each parameter's update within 0.1 of its norm; ``ZOO_UPDATE_TOL``
+   says why); (c) BERT-Large, 8 x 512, bf16, Adam, with
+   ``flash_attention(causal=False)`` as ``attn_fn``: its loss against the
+   plain attention's on one batch (2e-2), then 2 warm-up, 3 timed and 1
+   profiled step, tokens/s per card, 24 launches of each kernel a step;
+   (d) ``examples/torch_port/pytorch_mnist.py`` launched with ``-np 1
+   --gpu`` must exit 0 having learned;
+9. printed last, after phase 19: a ``{"kernels": [...]}`` JSON line (the
+   rows at the training shape, each with its 8b-shape ``d128``, MoE
+   ``mini``-shape ``d32`` and BERT-Large ``bert_large`` numbers, D=128
+   resources, its ring-shape ``ring`` numbers and the launches of each
+   phase, ``launches_fleet`` the fleets', ``launches_measure`` phase
+   15's, ``launches_perf`` phase 16's, ``launches_watch`` phase 17's,
+   ``launches_elastic`` phase 18's two rounds', ``launches_zoo`` phase
+   19's BERT-Large steps), then the ``{"ok": true, "device": {...}}`` JSON
+   line.
 
-    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic]
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic,zoo]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, started by the port's launcher as
@@ -342,8 +363,20 @@ tick while tokens stream: every stream byte-identical to one card's
 tokens, the journal's redrives counted, ``POST /admin/drain`` ending the
 launcher with exit 0.  Printed: commit ms and bytes per rank, restore ms,
 the seconds from the fault to the reset and from the reset to the first
-step, and from the kill to the first redriven token.  ``--parts`` runs a
-subset (default: all).
+step, and from the kill to the first redriven token.  The ``zoo`` part
+(``rank_zoo``, on a flat group of its own, after the parent has run
+phase 19 (a)'s ResNet-50 on one card as the reference): (a) ResNet-50 at
+the recipe, 64 images a card with sync-BN: images/s per card, the
+scaling efficiency against the one card, NCCL ms of rank 0's profiled
+step, weights and BN statistics bitwise equal on every rank; (b)
+ResNet-50 in fp32 at 64 px, 8 a card with sync-BN, TF32 off and cuDNN
+deterministic, against one card's plain step over the 8N images on rank
+0 (phase 19 (b)'s limits; the BN statistics are the global batch's, so
+the ranks' local variances would miss them); (c) BERT-Large under
+Ulysses over the 512 positions: the fp32 loss of 2 layers against one
+card's over the whole sequence (atol 2e-4, rtol 1e-3), then bf16 at
+full depth with Adam, gradients summed: tokens/s per card, parameters
+bitwise equal on every rank.  ``--parts`` runs a subset (default: all).
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -357,6 +390,7 @@ import http.client
 import json
 import math
 import os
+import random
 import re
 import signal
 import socket
@@ -583,8 +617,10 @@ def check_case(heading: str, label: str, outputs, dtype) -> dict:
 
 # the cases of phase 3 that are timed, and the key of the kernels line's
 # rows their numbers go under ("train" is the rows' own): D=128 at the 8b
-# shape, D=32 at the shape phase 12 runs the MoE mini loss at
-TIMED_CASES = {"train": None, "8b D=128": "d128", "MoE mini D=32": "d32"}
+# shape, D=32 at the shape phase 12 runs the MoE mini loss at, and phase
+# 19's BERT-Large (non-causal, MHA, S=512, D=64)
+TIMED_CASES = {"train": None, "8b D=128": "d128", "MoE mini D=32": "d32",
+               "BERT-Large": "bert_large"}
 
 
 def phase_kernels(F, torch, card: str):
@@ -606,6 +642,8 @@ def phase_kernels(F, torch, card: str):
         ("MoE mini D=32", 2, 256, 8, 4, 32, torch.bfloat16, True),
         ("D=32 non-causal", 1, 512, 8, 2, 32, torch.bfloat16, False),
         ("fp32 D=32", 1, 256, 8, 4, 32, torch.float32, True),
+        ("BERT-Large", BERT_BATCH, BERT_SEQ, 16, 16, 64, torch.bfloat16,
+         False),
     ]
     rows = {}
     for label, B, S, H, HK, D, dtype, causal in cases:
@@ -634,7 +672,7 @@ def phase_kernels(F, torch, card: str):
         shape = dict(B=B, S=S, H=H, HK=HK, D=D)
         timed = kernel_rows(F, torch, card, label, q, k, v, do, lse, delta,
                             causal, errs, shape, dtype)
-        if label != "train":  # the 8b path's and the MoE Llama's heads
+        if label != "train":  # the 8b path's, the MoE Llama's, BERT's
             for name, r in timed.items():
                 rows[name][TIMED_CASES[label]] = {key: r[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1066,9 +1104,23 @@ def phase_serve(torch, np, hvd, llama, serve, F, card: str) -> dict:
 
 
 def free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    """A free port below the kernel's ephemeral range, which it hands to
+    outgoing connections: released here, a probed port stays free until
+    the listener it is meant for binds it."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            high = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        high = 32768
+    rng = random.SystemRandom()
+    while True:
+        port = rng.randrange(20000, max(high, 21000))
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
 
 
 def eager_op_checks(torch, ht, dev) -> None:
@@ -3117,7 +3169,7 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 # --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
 # path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
 RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve", "measure",
-              "perf", "postmortem", "elastic")
+              "perf", "postmortem", "elastic", "zoo")
 
 
 def rank_worker(spec: dict) -> None:
@@ -3139,7 +3191,7 @@ def rank_worker(spec: dict) -> None:
         rank_run(int(os.environ["HOROVOD_RANK"]),
                  int(os.environ["HOROVOD_SIZE"]), spec["ports"], spec["cfg"],
                  spec["device"], spec["batch"], spec["seq"],
-                 tuple(spec["parts"]))
+                 tuple(spec["parts"]), spec.get("zoo_ref"))
     except BaseException:
         import traceback
         traceback.print_exc()
@@ -3156,7 +3208,7 @@ def rank_env(rank: int, local: int, port: int, **extra) -> None:
 
 
 def rank_run(rank, n, ports, cfg_name, device_type, batch, seq,
-             parts) -> None:
+             parts, zoo_ref=None) -> None:
     os.environ["HOROVOD_SIZE"] = str(n)
     rank_env(rank, n, ports["store"],
              HOROVOD_CONTROLLER_PORT=str(ports["ctrl"]))
@@ -3168,6 +3220,7 @@ def rank_run(rank, n, ports, cfg_name, device_type, batch, seq,
     from horovod_tpu_torch.ops import flash_attention as F
     from horovod_tpu_torch.torch import mpi_ops
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cuda = device_type == "cuda"
     if not cuda:  # a rehearsal on gloo ranks
         torch.set_num_threads(1)
@@ -3177,6 +3230,12 @@ def rank_run(rank, n, ports, cfg_name, device_type, batch, seq,
         rank_dp(torch, np, hvd, ht, llama, F, mpi_ops, rank, n, dev, cfg_name,
                 device_type, batch, seq, big_name, ports)
     ht.shutdown()
+    if "zoo" in parts:
+        # the model zoo on a flat group of its own
+        rank_env(rank, n, ports["zoo"], HOROVOD_CONTROLLER="none")
+        hvd.init(device=dev)
+        rank_zoo(torch, np, hvd, rank, n, dev, device_type, zoo_ref)
+        hvd.shutdown()
     if not {"sequence", "expert", "adasum"} & set(parts):
         return
     # a flat group of their own, after the layouts have released theirs;
@@ -3284,18 +3343,21 @@ def rank_dp(torch, np, hvd, ht, llama, F, mpi_ops, rank, n, dev, cfg_name,
     hvd.shutdown()
 
 
-RANK_PORTS = ("store", "ctrl", "wire", "layout", "seq", "ctrl2", "hier")
+RANK_PORTS = ("store", "ctrl", "wire", "layout", "seq", "ctrl2", "hier",
+              "zoo")
 
 
 def ranks_argv(n: int, parts, cfg_name: str = "1b",
                device_type: str = "cuda", batch: int = TRAIN_BATCH,
-               seq: int = TRAIN_SEQ) -> list:
+               seq: int = TRAIN_SEQ, zoo_ref=None) -> list:
     """The port launcher's arguments for ``--ranks N``: ``-np N`` (with
     ``--gpu`` on the card) and free coordinator and controller ports, each
-    rank ``chip_smoke.py --rank-worker <json>``."""
+    rank ``chip_smoke.py --rank-worker <json>``; ``zoo_ref`` is one card's
+    ResNet-50 images/s, which ``--parts zoo`` scales against."""
     ports = {name: free_port() for name in RANK_PORTS}
     spec = {"ports": ports, "cfg": cfg_name, "device": device_type,
-            "batch": batch, "seq": seq, "parts": list(parts)}
+            "batch": batch, "seq": seq, "parts": list(parts),
+            "zoo_ref": zoo_ref}
     return (["-np", str(n)] + (["--gpu"] if device_type == "cuda" else [])
             + ["--coordinator-port", str(ports["store"]),
                "--controller-port", str(ports["ctrl"]), sys.executable,
@@ -3312,8 +3374,21 @@ def phase_ranks(torch, n: int, parts) -> None:
     worker_parts = [p for p in parts
                     if p not in ("serve", "measure", "perf", "postmortem",
                                  "elastic")]
+    zoo_ref = None
+    if "zoo" in parts:
+        # one card's ResNet-50 at the recipe, the ranks' scaling reference
+        import horovod_tpu_torch as hvd
+        from horovod_tpu_torch.models import zoo
+        dev = hvd.init().device
+        zoo_ref = zoo_cnn_run(torch, hvd, zoo, "resnet50", dev,
+                              more=ZOO_R50_MORE,
+                              label="ranks [1] zoo")["img_s_card"]
+        hvd.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
     if worker_parts:
-        rc = launch.run_commandline(ranks_argv(n, worker_parts))
+        rc = launch.run_commandline(ranks_argv(n, worker_parts,
+                                               zoo_ref=zoo_ref))
         require(rc == 0, f"--ranks {n}: the launcher returned {rc}")
     if "serve" in parts:
         # the serving fleet: the parent starts the launcher in --serve
@@ -6514,6 +6589,493 @@ def rank_elastic_serve(torch, np, n: int, card: str,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ the zoo
+ZOO_STEPS = (2, 3)       # phase 19 (a): warm-up and timed steps a family
+ZOO_R50_MORE = 2         # ResNet-50: more timed steps, then 1 profiled
+ZOO_FP32 = (64, 8)       # (b): image size, images (a card in --parts zoo)
+ZOO_LOSS_RTOL = 1e-4     # (b): the first step's loss, relative
+ZOO_STATS_TOL = 1e-4     # (b): BN running statistics, of each tensor's max
+# (b): each parameter's update |u - u_ref| / |u_ref| (Frobenius).  A ReLU
+# CNN at initialization with BN in training mode is chaotic in fp32: a
+# 1e-6 relative change of the input moves a ResNet-50 update by up to 3.3%
+# of its norm (and a weight by 2% of the largest weight) on the CPU, so
+# the card's convolutions against the CPU's cannot meet 1e-4 there; a
+# missing, doubled or half-rate update reads 0.5 or more
+ZOO_UPDATE_TOL = 0.1
+BERT_BATCH, BERT_SEQ = 8, 512  # (c): BERT-Large's batch
+BERT_LR = 1e-4
+ZOO_BERT_LOSS_TOL = 2e-2  # (c): kernels against the plain attention (phase 4's)
+ZOO_SEQ_TOL = dict(atol=2e-4, rtol=1e-3)  # --parts zoo (c), fp32 2 layers
+ZOO_MNIST_DEADLINE = 300  # (d): seconds the MNIST launch may take
+ZOO_CPU = dict(batch=2, fp32=(32, 2), bert="tiny", bert_batch=2,
+               bert_seq=64, steps=(1, 1), more=0)  # the CPU rehearsals
+
+
+def zoo_kind(key: str) -> str:
+    """The kind a profiled CNN step's CUDA kernel books its time under."""
+    low = key.lower()
+    if "nccl" in low:
+        return "nccl"
+    if any(k in low for k in ("multi_tensor_apply", "sgd", "foreach")):
+        return "sgd"
+    if any(k in low for k in ("conv", "xmma", "implicit", "dgrad", "wgrad",
+                              "fprop", "cudnn", "gemm", "nvjet", "cutlass",
+                              "winograd", "nhwc", "nchw")):
+        return "convolutions"
+    return "bn and elementwise"
+
+
+def zoo_profile(prof, label: str, step_ms: float) -> dict:
+    """A profiled CNN step's device time by kind (convolutions with the
+    head's matrix product and their layout transforms, BN and other
+    elementwise kernels, the SGD update, NCCL), printed with the idle share
+    against the timed step."""
+    from torch.autograd import DeviceType
+    kinds = dict.fromkeys(("convolutions", "bn and elementwise", "sgd",
+                           "nccl"), 0.0)
+    top = []
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        kinds[zoo_kind(evt.key)] += evt.self_device_time_total / 1e3
+        top.append((evt.self_device_time_total / 1e3, evt.count, evt.key))
+    busy = sum(kinds.values())
+    require(busy > 0, f"{label}: the profiled step shows no device time")
+    idle = max(0.0, 1 - busy / step_ms)
+    print(f"{label} profiled step: device busy {busy:.2f} ms (timed step "
+          f"{step_ms:.2f} ms, idle share {idle:.3f}); "
+          + ", ".join(f"{k} {v:.2f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in kinds.items()), flush=True)
+    for ms, count, key in sorted(top, reverse=True)[:6]:
+        print(f"  {ms:8.2f} ms x{count:<4} {key[:90]}", flush=True)
+    return dict(kinds, busy_ms=busy, idle=idle)
+
+
+def zoo_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def zoo_cnn_run(torch, hvd, zoo, family: str, dev, size=None, batch=None,
+                steps=ZOO_STEPS, more: int = 0, profile: bool = False,
+                label: str = "zoo") -> dict:
+    """One family at its recipe (bf16 on the card; fp32 on the CPU), batch
+    a card ``batch`` (default the recipe's) of ``size`` px (default the
+    canonical), through ``DistributedOptimizer(SGD(lr, momentum=0.9))``
+    and the recipe's step (sync-BN over every rank): warm-up and timed
+    steps, ``more`` timed steps after them, and a profiled step.  The
+    batch is made once on the device (bench.py's protocol); every rank
+    makes the same global batch and trains on its rows."""
+    fam = zoo.CNN_FAMILIES[family]
+    size, batch = size or fam.size, batch or fam.batch
+    n = hvd.size()
+    cuda = dev.type == "cuda"
+    dtype = torch.bfloat16 if cuda else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = zoo.cnn_init(family, 1000, dtype, gen, dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=fam.lr, momentum=0.9),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    step = zoo.make_cnn_train_step(family, model, opt)
+    x = torch.randn(batch * n, size, size, 3, generator=gen,
+                    device=dev).to(dtype)
+    y = torch.randint(0, 1000, (batch * n,), generator=gen, device=dev)
+    zoo_sync(torch, dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    warm, timed = steps
+    losses = [step(x, y) for _ in range(warm)]
+    zoo_sync(torch, dev)
+    t0 = time.perf_counter()
+    losses += [step(x, y) for _ in range(timed + more)]
+    zoo_sync(torch, dev)
+    dt = time.perf_counter() - t0
+    step_ms = dt / (timed + more) * 1e3
+    out = {"family": family, "size": size, "batch": batch, "ranks": n,
+           "step_ms": step_ms, "img_s_card": batch * (timed + more) / dt,
+           "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                        if cuda else None), "model": model}
+    if profile:  # every rank steps; rank 0 reports
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            losses.append(step(x, y))
+            zoo_sync(torch, dev)
+        if hvd.rank() == 0:
+            out["profile"] = zoo_profile(prof, f"{label} [{family}]",
+                                         step_ms)
+    out["losses"] = [float(v) for v in losses]
+    require(all(math.isfinite(v) for v in out["losses"]),
+            f"{family}: non-finite loss {out['losses']}")
+    require(max(out["losses"]) - min(out["losses"]) > 0.0,
+            f"{family}: loss constant across steps, parameters not updating")
+    if hvd.rank() == 0:
+        gflop = 3 * fam.fwd_flops * (size / fam.size) ** 2 * batch / 1e9
+        print(f"{label} [{family}] {size} px, {batch} a card x {n}: step "
+              f"{step_ms:.2f} ms, {out['img_s_card']:.1f} images/s per card, "
+              f"{gflop / step_ms:.1f} TFLOP/s a card (3 x forward FLOPs), "
+              f"peak {out['peak_gib'] or 0:.2f} GiB; losses "
+              + " ".join(f"{v:.4f}" for v in out["losses"]), flush=True)
+    return out
+
+
+def zoo_state_diff(torch, got: dict, ref: dict, before: dict) -> dict:
+    """The first-step checks of (b): BN statistics against each tensor's
+    largest magnitude, every parameter's update against its norm
+    (Frobenius), and the updated weights against the largest weight."""
+    stats = upd = wmax = werr = 0.0
+    for name, r in ref.items():
+        g = got[name].detach().to("cpu", torch.float64)
+        r = r.detach().to("cpu", torch.float64)
+        if name.endswith((".mean", ".var")):
+            stats = max(stats, ((g - r).abs().max()
+                                / r.abs().max().clamp_min(1e-30)).item())
+            continue
+        b = before[name].to(torch.float64)
+        upd = max(upd, ((g - b) - (r - b)).norm().item()
+                  / max((r - b).norm().item(), 1e-30))
+        werr = max(werr, (g - r).abs().max().item())
+        wmax = max(wmax, r.abs().max().item())
+    return {"stats": stats, "update": upd, "weights": werr / wmax}
+
+
+def zoo_check_first_step(label: str, loss: float, ref_loss: float,
+                         diff: dict) -> None:
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    print(f"{label}: loss {loss:.6f} against {ref_loss:.6f} (rel "
+          f"{rel:.2e}, limit {ZOO_LOSS_RTOL}); BN statistics max err "
+          f"{diff['stats']:.2e} of each tensor's max (limit "
+          f"{ZOO_STATS_TOL}); updates max rel err {diff['update']:.2e} "
+          f"(Frobenius, limit {ZOO_UPDATE_TOL}); updated weights max err "
+          f"{diff['weights']:.2e} of the largest weight (recorded)",
+          flush=True)
+    require(rel <= ZOO_LOSS_RTOL, f"{label}: loss {loss} vs {ref_loss}")
+    require(diff["stats"] <= ZOO_STATS_TOL,
+            f"{label}: BN statistics differ by {diff['stats']:.3g}")
+    require(diff["update"] <= ZOO_UPDATE_TOL,
+            f"{label}: updates differ by {diff['update']:.3g}")
+
+
+def zoo_fp32_step(torch, resnet, model, x, y, group=None) -> float:
+    """One plain SGD step (lr 0.1, momentum 0.9) in training mode."""
+    opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+    loss = resnet.loss_fn(model, x, y, training=True, group=group)
+    loss.backward()
+    opt.step()
+    return loss.item()
+
+
+def zoo_bert_batch(np, torch, vocab: int, batch: int, seq: int, dev,
+                   seed: int = 0):
+    """examples/jax/bert_ulysses_sp.py's batch: repeated tokens, 15%
+    masked."""
+    rng = np.random.RandomState(seed)
+    base = rng.randint(1, vocab, (batch, seq // 2))
+    ids = np.repeat(base, 2, axis=1)[:, :seq]
+    labels = ids.copy()
+    mask = rng.rand(batch, seq) < 0.15
+    ids = np.where(mask, 0, ids)
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev),
+            torch.from_numpy(mask.astype(np.float32)).to(dev))
+
+
+def phase_zoo(torch, np, hvd, F, L, card: str, device_type: str = "cuda",
+              sizes=None) -> dict:
+    """Phase 19: the model zoo on one rank.  (a) ResNet-50, ResNet-101,
+    VGG-16 and Inception V3 at their recipes, bf16; (b) ResNet-50 in fp32
+    on the card against the port on the CPU; (c) BERT-Large with Adam and
+    the flash kernels; (d) examples/torch_port/pytorch_mnist.py launched
+    with ``-np 1 --gpu``.  ``device_type="cpu"`` with ``ZOO_CPU`` sizes is
+    the rehearsal.  Returns the kernels' launches in (c) and the numbers
+    the kernels line and PERF.md carry."""
+    from horovod_tpu_torch.models import bert, resnet, zoo
+    t_phase = time.perf_counter()
+    cuda = device_type == "cuda"
+    sz = sizes or {}
+    dev = hvd.init(device=None if cuda else device_type).device
+    out = {"families": {}}
+    # (a)
+    for family in zoo.CNN_FAMILIES:
+        fam = zoo.CNN_FAMILIES[family]
+        r50 = family == "resnet50"
+        r = zoo_cnn_run(torch, hvd, zoo, family, dev,
+                        size=None if cuda else fam.cpu_size,
+                        batch=sz.get("batch"), steps=sz.get("steps",
+                                                           ZOO_STEPS),
+                        more=sz.get("more", ZOO_R50_MORE) if r50 else 0,
+                        profile=r50 and cuda, label=f"zoo [{card}]")
+        del r["model"]
+        out["families"][family] = r
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    # (b)
+    size, batch = sz.get("fp32", ZOO_FP32)
+    gen = torch.Generator().manual_seed(1)
+    ref = resnet.init(50, 1000, torch.float32, gen, "cpu")
+    before = {k: v.clone() for k, v in ref.state_dict().items()}
+    got = resnet.ResNet(50, 1000, torch.float32, dev)
+    got.load_state_dict(before)
+    x = torch.randn(batch, size, size, 3, generator=gen)
+    y = torch.randint(0, 1000, (batch,), generator=gen)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(got.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=got.named_parameters())
+    loss = float(zoo.make_cnn_train_step("resnet50", got, opt)(x, y))
+    ref_loss = zoo_fp32_step(torch, resnet, ref, x, y)
+    zoo_check_first_step(
+        f"zoo fp32 [resnet50 {size} px x {batch}, card against CPU, TF32 "
+        "off]", loss, ref_loss,
+        zoo_state_diff(torch, got.state_dict(), ref.state_dict(), before))
+    del ref, got, opt
+    # (c)
+    cfg = bert.CONFIGS[sz.get("bert", "large")]
+    B, S = sz.get("bert_batch", BERT_BATCH), sz.get("bert_seq", BERT_SEQ)
+    model = bert.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    flash = lambda q, k, v: hvd.flash_attention(q, k, v, causal=False)
+    plain = lambda q, k, v: L.causal_attention(q, k, v, causal=False)
+    batches = [zoo_bert_batch(np, torch, cfg.vocab, B, S, dev, seed)
+               for seed in range(sum(sz.get("steps", ZOO_STEPS)) + 1)]
+    with torch.no_grad():
+        with_kernels = bert.loss_fn(model, *batches[0][:2],
+                                    mask=batches[0][2], attn_fn=flash).item()
+        with_plain = bert.loss_fn(model, *batches[0][:2],
+                                  mask=batches[0][2], attn_fn=plain).item()
+    print(f"zoo [bert {sz.get('bert', 'large')}] loss with kernels "
+          f"{with_kernels:.6f}, with plain attention {with_plain:.6f} (tol "
+          f"{ZOO_BERT_LOSS_TOL})", flush=True)
+    require(math.isfinite(with_kernels)
+            and abs(with_kernels - with_plain) <= ZOO_BERT_LOSS_TOL,
+            f"BERT loss with kernels {with_kernels} vs plain {with_plain}")
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=BERT_LR),
+        named_parameters=model.named_parameters())
+    step = hvd.make_train_step(
+        model, lambda m, ids, labels, mask: bert.loss_fn(
+            m, ids, labels, mask=mask, attn_fn=flash), opt)
+    warm, timed = sz.get("steps", ZOO_STEPS)
+    zoo_sync(torch, dev)
+    F.reset_launches()
+    losses = [step(*b) for b in batches[:warm]]
+    zoo_sync(torch, dev)
+    t0 = time.perf_counter()
+    losses += [step(*b) for b in batches[warm:warm + timed]]
+    zoo_sync(torch, dev)
+    dt = time.perf_counter() - t0
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            losses.append(step(*batches[-1]))
+            zoo_sync(torch, dev)
+    launches = dict(F.LAUNCHES)
+    losses = [float(v) for v in losses]
+    n_steps = len(losses)
+    step_ms = dt / timed * 1e3
+    n_params = sum(p.numel() for p in model.parameters())
+    tok_s = B * S * timed / dt
+    print(f"zoo [bert {sz.get('bert', 'large')} {B} x {S}, {card}] step "
+          f"{step_ms:.2f} ms, {tok_s:.0f} tokens/s per card, MFU(6N) "
+          f"{6 * n_params * tok_s / PEAK_BF16_FLOPS:.4f}; losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f"; launches {json.dumps(launches)}", flush=True)
+    require(all(math.isfinite(v) for v in losses), "BERT: non-finite loss")
+    require(max(losses) - min(losses) > 0.0, "BERT: loss constant")
+    if cuda:
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            require(launches[name] == cfg.n_layers * n_steps,
+                    f"{name} launched {launches[name]} times in {n_steps} "
+                    f"BERT steps, expected {cfg.n_layers} a step")
+        report_profile(prof, "zoo [bert large]", step_ms)
+    out.update(bert_step_ms=step_ms, bert_tok_s=tok_s, launches=launches)
+    del model, opt, step, batches
+    gc.collect()
+    hvd.shutdown()
+    if cuda:
+        torch.cuda.empty_cache()
+    # (d)
+    out["mnist"] = zoo_mnist(cuda)
+    print(f"zoo: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def zoo_mnist(cuda: bool, epochs: int = 3) -> float:
+    """examples/torch_port/pytorch_mnist.py as a user launches it (``-np 1
+    --gpu``; ``--cpu`` without a card); returns its seconds."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = ([sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+                "-np", "1"] + (["--gpu"] if cuda else [])
+               + ["--coordinator-port", str(free_port()),
+                  "--controller-port", str(free_port()), sys.executable,
+                  os.path.join(root, "examples", "torch_port",
+                               "pytorch_mnist.py"), "--epochs", str(epochs),
+                  "--ckpt", os.path.join(tmp, "mnist.pt")]
+               + ([] if cuda else ["--cpu"]))
+        res = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                             text=True, timeout=ZOO_MNIST_DEADLINE)
+    dt = time.perf_counter() - t0
+    tail = [l for l in res.stdout.splitlines() if "epoch" in l or
+            "done" in l]
+    print(f"zoo [mnist example] exit {res.returncode} in {dt:.1f} s: "
+          + "; ".join(tail[-2:]), flush=True)
+    require(res.returncode == 0 and "done" in res.stdout,
+            f"the MNIST example exited {res.returncode}: "
+            f"{res.stderr[-2000:]}")
+    return dt
+
+
+def zoo_checksums(torch, model):
+    """Two int64 sums of the bits of every parameter and buffer (plain and
+    position weighted), 16-bit dtypes as int16."""
+    rows = []
+    for t in model.state_dict().values():
+        it = torch.int16 if t.element_size() == 2 else torch.int32
+        bits = t.detach().reshape(-1).contiguous().view(it).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        rows.append(torch.stack([bits.sum(), (bits * w).sum()]))
+    return torch.stack(rows)
+
+
+def zoo_bitwise(torch, dist, model, label: str, rank: int,
+                what: str = "weights and BN statistics") -> None:
+    sums = zoo_checksums(torch, model)
+    every = [torch.empty_like(sums) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, sums)
+    require(all(torch.equal(every[0], s) for s in every),
+            f"{label}: {what} differ across ranks")
+    if rank == 0:
+        print(f"{label}: {what} bitwise equal on every rank", flush=True)
+
+
+def rank_zoo(torch, np, hvd, rank: int, n: int, dev, device_type: str,
+             ref_img_s=None) -> None:
+    """``--parts zoo`` on one of N ranks: (a) ResNet-50 at its recipe with
+    sync-BN (images/s per card, scaling efficiency against the one card's
+    ``ref_img_s``, NCCL ms of rank 0's profiled step, weights and BN
+    statistics bitwise equal across ranks); (b) ResNet-50 in fp32 at 64
+    px, 8 a card with sync-BN, against one card's plain step over the
+    global batch of 8N on rank 0 (TF32 off, cuDNN deterministic): the
+    loss, BN statistics (the global batch's) and updates; (c) BERT-Large
+    under Ulysses over the N ranks: the fp32 loss of 2 layers against one
+    card's over the whole sequence, then bf16 at full depth with Adam
+    (tokens/s per card)."""
+    import dataclasses
+    import torch.distributed as dist
+    from horovod_tpu_torch.models import bert, resnet, zoo
+    cuda = device_type == "cuda"
+    sz = {} if cuda else ZOO_CPU
+    # (a)
+    r = zoo_cnn_run(torch, hvd, zoo, "resnet50", dev,
+                    size=None if cuda else 32, batch=sz.get("batch"),
+                    steps=sz.get("steps", ZOO_STEPS),
+                    more=sz.get("more", ZOO_R50_MORE), profile=cuda,
+                    label=f"ranks [{n}] zoo")
+    zoo_bitwise(torch, dist, r.pop("model"), f"ranks [{n}] zoo [resnet50]",
+                rank)
+    if rank == 0:
+        eff = (f"{r['img_s_card'] / ref_img_s:.3f} of one card's "
+               f"{ref_img_s:.1f} images/s" if ref_img_s else "no one-card "
+               "reference")
+        nccl = (f"; NCCL {r['profile']['nccl']:.2f} ms of the profiled step"
+                if "profile" in r else "")
+        print(f"ranks [{n}] zoo [resnet50] scaling efficiency {eff}{nccl}",
+              flush=True)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    # (b)
+    size, batch = sz.get("fp32", ZOO_FP32)
+    torch.backends.cudnn.deterministic = True
+    gen = torch.Generator().manual_seed(1)
+    cpu_model = resnet.init(50, 1000, torch.float32, gen, "cpu")
+    before = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    x = torch.randn(batch * n, size, size, 3, generator=gen)
+    y = torch.randint(0, 1000, (batch * n,), generator=gen)
+    model = resnet.ResNet(50, 1000, torch.float32, dev)
+    model.load_state_dict(before)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters())
+    loss = float(zoo.make_cnn_train_step("resnet50", model, opt)(x, y))
+    if rank == 0:
+        one = resnet.ResNet(50, 1000, torch.float32, dev)
+        one.load_state_dict(before)
+        ref_loss = zoo_fp32_step(torch, resnet, one, x.to(dev), y.to(dev))
+        zoo_check_first_step(
+            f"ranks [{n}] zoo fp32 [resnet50 {size} px, {batch} a card "
+            f"with sync-BN against one card's {batch * n}]", loss, ref_loss,
+            zoo_state_diff(torch, model.state_dict(), one.state_dict(),
+                           before))
+        del one
+    zoo_bitwise(torch, dist, model, f"ranks [{n}] zoo fp32 [resnet50]", rank)
+    torch.backends.cudnn.deterministic = False
+    del model, opt, cpu_model
+    gc.collect()
+    # (c)
+    name = sz.get("bert", "large")
+    S, B = sz.get("bert_seq", BERT_SEQ), sz.get("bert_batch", BERT_BATCH)
+    cut = slice(rank * (S // n), (rank + 1) * (S // n))
+    cfg = dataclasses.replace(bert.CONFIGS[name], n_layers=2,
+                              dtype=torch.float32)
+    model = bert.init(cfg, torch.Generator().manual_seed(0), "cpu").to(dev)
+    ids, labels, mask = zoo_bert_batch(np, torch, cfg.vocab, B, S, dev)
+    with torch.no_grad():
+        share = bert.sp_loss_fn(model, ids[:, cut], labels[:, cut],
+                                mask[:, cut])
+        total = hvd.spmd.allreduce(share.clone(), op=hvd.Sum).item()
+        if rank == 0:
+            one = bert.loss_fn(model, ids, labels, mask=mask).item()
+            print(f"ranks [{n}] zoo [bert {name} 2 layers fp32, Ulysses over "
+                  f"{S} positions]: loss {total:.6f} against one card's "
+                  f"{one:.6f}", flush=True)
+            require(abs(total - one) <= ZOO_SEQ_TOL["atol"]
+                    + ZOO_SEQ_TOL["rtol"] * abs(one),
+                    f"Ulysses loss {total} vs one card's {one}")
+    del model
+    cfg = bert.CONFIGS[name]
+    model = bert.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.Adam(model.parameters(), lr=BERT_LR),
+        named_parameters=model.named_parameters(), op=hvd.Sum)
+    warm, timed = sz.get("steps", ZOO_STEPS)
+    batches = [zoo_bert_batch(np, torch, cfg.vocab, B, S, dev, seed)
+               for seed in range(warm + timed)]
+
+    def step(ids, labels, mask):
+        opt.zero_grad(set_to_none=True)
+        share = bert.sp_loss_fn(model, ids[:, cut], labels[:, cut],
+                                mask[:, cut])
+        share.backward()
+        opt.step()
+        return hvd.spmd.allreduce(share.detach().float().clone(), op=hvd.Sum)
+
+    losses = [step(*b) for b in batches[:warm]]
+    zoo_sync(torch, dev)
+    t0 = time.perf_counter()
+    losses += [step(*b) for b in batches[warm:]]
+    zoo_sync(torch, dev)
+    dt = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    require(all(math.isfinite(v) for v in losses), "BERT: non-finite loss")
+    zoo_bitwise(torch, dist, model, f"ranks [{n}] zoo [bert {name}]", rank,
+                "parameters")
+    if rank == 0:
+        print(f"ranks [{n}] zoo [bert {name} {B} x {S}, Ulysses, "
+              f"{str(cfg.dtype)[6:]}]: "
+              f"step {dt / timed * 1e3:.2f} ms, "
+              f"{B * (S // n) * timed / dt:.0f} tokens/s per card; losses "
+              + " ".join(f"{v:.4f}" for v in losses), flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     if len(args) == 2 and args[0] in ("--rank-worker", "--launched",
@@ -6619,6 +7181,7 @@ def main() -> int:
     perf = phase_perf(torch, np, hvd, llama, F, card, losses, step_ms)
     watch = phase_forensics(torch, card, losses, step_ms)
     elastic = phase_elastic(torch, card, losses)
+    zoo = phase_zoo(torch, np, hvd, F, L, card)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -6633,6 +7196,7 @@ def main() -> int:
         row["launches_perf"] = perf[row["name"]]
         row["launches_watch"] = watch[row["name"]]
         row["launches_elastic"] = elastic[row["name"]]
+        row["launches_zoo"] = zoo["launches"][row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

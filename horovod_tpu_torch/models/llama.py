@@ -352,10 +352,7 @@ def param_count(cfg: LlamaConfig) -> int:
 
 def _to_tensor(a: Any, transpose: bool) -> Tensor:
     a = np.asarray(a)
-    a = np.array(a.T if transpose else a, order="C")  # a writable copy
-    if a.dtype.name == "bfloat16":  # ml_dtypes.bfloat16: torch cannot read it
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
+    return L.to_tensor(a.T if transpose else a)
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: LlamaConfig,

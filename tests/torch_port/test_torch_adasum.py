@@ -20,7 +20,6 @@ bitwise equal to rank 0 (the pair combine is symmetric, so both partners
 hold the same vector after every round)."""
 
 import os
-import socket
 import time
 
 import jax
@@ -36,14 +35,14 @@ from horovod_tpu.optimizer import sync_gradients
 from horovod_tpu.parallel.adasum import adasum_allreduce, adasum_hierarchical
 
 import torch_port_adasum_worker as W
+from torch_port_ports import hold_ports
 
 RTOL = 1e-4
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 @pytest.fixture(scope="module")

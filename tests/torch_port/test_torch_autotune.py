@@ -14,7 +14,6 @@ skips a ``record()``; the launcher's ``--timeline-merge`` and
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -33,15 +32,15 @@ from horovod_tpu_torch.common import basics as TB  # noqa: E402
 from horovod_tpu_torch.utils import autotune as TA  # noqa: E402
 
 import torch_port_measure_worker as W  # noqa: E402
+from torch_port_ports import hold_ports  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 # ------------------------------------------------- the native optimizers

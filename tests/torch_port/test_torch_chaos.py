@@ -13,7 +13,6 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import dataclasses  # noqa: E402
 import json  # noqa: E402
-import socket  # noqa: E402
 import urllib.error  # noqa: E402
 
 import pytest  # noqa: E402
@@ -27,6 +26,7 @@ from horovod_tpu_torch.common.knobs import KNOBS  # noqa: E402
 from horovod_tpu_torch.runner import http_client as THC  # noqa: E402
 from horovod_tpu_torch.runner.http_server import \
     RendezvousServer as TServer  # noqa: E402
+from torch_port_ports import hold_ports  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -231,10 +231,9 @@ def test_hook_points_stall_on_the_port(monkeypatch):
     assert slept == [0.005, 0.005]
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def test_negotiated_ops_stall_at_negotiate(monkeypatch):

@@ -5,7 +5,6 @@ accumulation, the runtime's refusals, and that the port imports no JAX."""
 
 import ast
 import os
-import socket
 import time
 
 import numpy as np
@@ -28,6 +27,7 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch.ops import fusion as TFU
 
 import torch_port_dp_worker
+from torch_port_ports import hold_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -90,10 +90,9 @@ def test_pack_unpack_round_trip():
 
 
 # -------------------------------------------------------- two gloo ranks
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 @pytest.fixture(scope="module")

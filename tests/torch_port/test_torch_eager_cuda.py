@@ -9,7 +9,6 @@ JAX, so on a machine without it run
 """
 
 import os
-import socket
 
 import pytest
 import torch
@@ -18,6 +17,8 @@ import horovod_tpu_torch.torch as hvd
 from horovod_tpu_torch import runtime
 from horovod_tpu_torch.ops import collectives as C, negotiated as N
 from horovod_tpu_torch.torch import mpi_ops
+
+from torch_port_ports import hold_ports
 
 SPIN = int(2e8)  # GPU clock cycles of torch.cuda._sleep: tens of ms
 
@@ -37,9 +38,7 @@ def _warm(fn):
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = hold_ports(1).release()[0]
     os.environ.update(HOROVOD_CONTROLLER="tcp",
                       HOROVOD_CONTROLLER_PORT=str(port))
     try:

@@ -6,7 +6,6 @@ same process, and the root rank's optimizer state."""
 
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -16,15 +15,15 @@ import pytest
 import torch.multiprocessing as tmp
 
 import torch_port_eager_worker
+from torch_port_ports import hold_ports
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 @pytest.fixture(scope="module")

@@ -11,7 +11,6 @@ that is the per-process value, which is what these tests compare."""
 
 import dataclasses
 import os
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +30,7 @@ import horovod_tpu_torch as hvd
 import horovod_tpu_torch.torch as TT
 from horovod_tpu_torch.models import llama as TL
 from horovod_tpu_torch.torch import mpi_ops
+from torch_port_ports import hold_ports
 
 # AdamW's eps 1e-3 keeps updates of near-zero gradient entries well
 # conditioned (see test_torch_data_parallel.py); the reference's own
@@ -39,10 +39,9 @@ OPT_KW = dict(lr=1e-2, betas=(0.9, 0.999), eps=1e-3, weight_decay=0.01)
 RTOL = ATOL = 1e-5
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 @pytest.fixture(scope="module")

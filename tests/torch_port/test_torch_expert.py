@@ -21,7 +21,6 @@ rtol 5e-4, atol 5e-5; the router's tensors atol 1e-6."""
 
 import dataclasses
 import os
-import socket
 import time
 
 import jax
@@ -38,15 +37,15 @@ from horovod_tpu_torch.models import moe_llama as M
 from horovod_tpu_torch.parallel import expert as X
 
 import torch_port_expert_worker as W
+from torch_port_ports import hold_ports
 
 MOE = dict(rtol=2e-4, atol=2e-5)
 LLAMA = dict(rtol=5e-4, atol=5e-5)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def _np_tree(tree):

@@ -32,11 +32,11 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import json  # noqa: E402
 import math  # noqa: E402
 import signal  # noqa: E402
-import socket  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 
 import pytest  # noqa: E402
+from torch_port_ports import hold_ports  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -49,10 +49,9 @@ USER_RULES = {"rules": [{"name": "forensics-test-user-rule",
                          "severity": "info"}]}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def _env(extra):

@@ -10,7 +10,6 @@ Tolerances are tests/test_fsdp.py's: the loss rtol 1e-5, parameters atol
 1e-5; each rank holds a quarter of a 2-D kernel."""
 
 import os
-import socket
 import time
 
 import jax
@@ -27,12 +26,12 @@ from horovod_tpu_torch.models import llama as TL
 from horovod_tpu_torch.parallel import fsdp as F
 
 import torch_port_fsdp_worker as W
+from torch_port_ports import hold_ports
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def _tiny():

@@ -10,7 +10,6 @@ import os
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import json  # noqa: E402
-import socket  # noqa: E402
 import time  # noqa: E402
 import urllib.request  # noqa: E402
 
@@ -26,6 +25,7 @@ from horovod_tpu_torch.perf import memstats as TMS  # noqa: E402
 from horovod_tpu_torch.runner.http_server import \
     RendezvousServer as TServer  # noqa: E402
 from horovod_tpu_torch.utils import health as TH  # noqa: E402
+from torch_port_ports import hold_ports  # noqa: E402
 
 _TIME_FIELDS = ("time", "step_time")
 
@@ -197,10 +197,9 @@ def test_health_route_matches_jax(fresh, query):
             s.stop()
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def test_runtime_publishes_heartbeats_under_the_knob(fresh, monkeypatch):

@@ -18,13 +18,13 @@ Two ranks, one card and one process each, over NCCL:
 """
 
 import os
-import socket
 import time
 import traceback
 
 import numpy as np
 import pytest
 import torch
+from torch_port_ports import hold_ports
 
 pytestmark = pytest.mark.cuda
 
@@ -32,10 +32,9 @@ DIM, ROWS = 16, 8
 MICRO = (1, 2, 4)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def _stages():

@@ -26,7 +26,6 @@ same tolerances.  Parameters compare per parameter: the port's weights are
 differ from the JAX package's."""
 
 import os
-import socket
 import time
 
 import jax
@@ -42,14 +41,14 @@ from horovod_tpu.parallel import layout as JLay
 from horovod_tpu_torch.models import llama as TL
 
 import torch_port_layout_worker as W
+from torch_port_ports import hold_ports
 
 LOSS_ATOL, PARAM_ATOL, LOSSY_ATOL, TOY_ATOL = 2e-5, 1e-4, 5e-3, 1e-5
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 @pytest.fixture(scope="module")

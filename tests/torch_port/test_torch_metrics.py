@@ -11,7 +11,6 @@ import dataclasses
 import json
 import logging
 import os
-import socket
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -32,6 +31,7 @@ from horovod_tpu_torch.runner.http_server import \
     RendezvousServer  # noqa: E402
 from horovod_tpu_torch.utils import metrics as TM  # noqa: E402
 from horovod_tpu_torch.utils import stall as TS  # noqa: E402
+from torch_port_ports import hold_ports  # noqa: E402
 
 
 def _families(mod):
@@ -400,9 +400,8 @@ def test_serve_families_equal_the_jax_engine_on_the_same_plan():
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def test_kv_shard_unavailable_counts_per_attempt():

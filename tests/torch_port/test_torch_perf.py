@@ -29,7 +29,6 @@ otherwise; a report's ``time`` stamps are dropped before comparing.
 import json
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
@@ -58,6 +57,7 @@ from horovod_tpu_torch.perf import gate as TG  # noqa: E402
 from horovod_tpu_torch.perf import ledger as TLed  # noqa: E402
 from horovod_tpu_torch.perf import memstats as TMS  # noqa: E402
 from horovod_tpu_torch.runner import doctor as TD  # noqa: E402
+from torch_port_ports import hold_ports  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -871,10 +871,9 @@ def test_op_stats_distinct_names_and_the_snapshot_import():
 
 
 # ---------------------------------------------------------------- launch
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def test_two_rank_launch_serves_the_merged_perf_view(tmp_path):

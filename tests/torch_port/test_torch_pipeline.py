@@ -17,7 +17,6 @@ and its gradients rtol 5e-4, atol 1e-5."""
 
 import dataclasses
 import os
-import socket
 import time
 
 import jax
@@ -32,6 +31,7 @@ from horovod_tpu.parallel import pipeline as JP
 from horovod_tpu_torch.parallel.pipeline import pipeline_bubble_fraction
 
 import torch_port_pipeline_worker as W
+from torch_port_ports import hold_ports
 
 FWD = dict(rtol=2e-5, atol=2e-6)
 GRAD = dict(rtol=5e-5, atol=1e-5)
@@ -39,10 +39,9 @@ LLAMA_FWD = dict(rtol=2e-4, atol=2e-5)
 LLAMA_GRAD = dict(rtol=5e-4, atol=1e-5)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def _llama_cfg(n_layers):

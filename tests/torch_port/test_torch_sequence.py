@@ -20,7 +20,6 @@ Tolerances are tests/test_sequence_parallel.py's: outputs atol 2e-4, rtol
 
 import dataclasses
 import os
-import socket
 import time
 
 import jax
@@ -36,15 +35,15 @@ from horovod_tpu.ops._compat import shard_map
 from horovod_tpu.parallel.sequence import ring_attention, ulysses_attention
 
 import torch_port_sequence_worker as W
+from torch_port_ports import hold_ports
 
 OUT = dict(atol=2e-4, rtol=1e-3)
 GRAD = dict(atol=5e-4, rtol=2e-3)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def _llama_cfg():

@@ -16,7 +16,6 @@ import dataclasses  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import random  # noqa: E402
-import socket  # noqa: E402
 import threading  # noqa: E402
 import time  # noqa: E402
 import types  # noqa: E402
@@ -51,6 +50,7 @@ from horovod_tpu_torch.serve.router import (  # noqa: E402
     DRAIN_KEY, DRAINED_KEY, OUT_SCOPE, PLAN_SCOPE, REQ_SCOPE, STATS_SCOPE,
     RouterState, req_key)
 from horovod_tpu_torch.serve.worker import FleetFrontend, plan_key  # noqa
+from torch_port_ports import hold_ports  # noqa: E402
 
 
 # ----------------------------------------------------------- replica.py
@@ -944,10 +944,9 @@ def test_direct_stream_mirrors_records_and_handoffs(rendezvous):
     assert dead.fallbacks == 1
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 # ------------------------------------------- the wire format, JAX against port

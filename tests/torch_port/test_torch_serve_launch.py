@@ -24,7 +24,6 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import dataclasses  # noqa: E402
 import json  # noqa: E402
 import signal  # noqa: E402
-import socket  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import threading  # noqa: E402
@@ -41,15 +40,15 @@ from horovod_tpu_torch.runner import launch as TLN  # noqa: E402
 from horovod_tpu_torch.serve import engine as TE  # noqa: E402
 
 import torch_port_serve_worker as W  # noqa: E402
+from torch_port_ports import hold_ports  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def _env(**extra):

@@ -10,7 +10,6 @@ negotiated path's NEGOTIATE, QUEUE and EXEC lifecycle on the CPU."""
 import json
 import math
 import os
-import socket
 import time
 import urllib.request
 
@@ -29,6 +28,7 @@ from horovod_tpu_torch.runner.http_server import \
     RendezvousServer  # noqa: E402
 from horovod_tpu_torch.utils import clocksync as TCS  # noqa: E402
 from horovod_tpu_torch.utils import timeline as TT  # noqa: E402
+from torch_port_ports import hold_ports  # noqa: E402
 
 
 def _drive(mod, path, mark_cycles=True):
@@ -259,9 +259,8 @@ def test_clock_sync_and_routes_on_the_port_server(tmp_path):
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 def test_native_drainer_over_the_port_core(tmp_path):

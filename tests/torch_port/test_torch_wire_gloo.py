@@ -22,7 +22,6 @@ of the gradients times the learning rate: XLA's CPU psum of a bf16 buffer
 adds in fp32 and rounds once, gloo rounds every partial sum."""
 
 import os
-import socket
 import time
 
 import jax
@@ -42,6 +41,7 @@ from horovod_tpu.parallel.hierarchical import (hierarchical_allgather,
                                                hierarchical_allreduce)
 
 import torch_port_wire_worker as W
+from torch_port_ports import hold_ports
 
 DCN, ICI = "dcn.data", "ici.data"
 # The references are compiled without excess precision: XLA otherwise
@@ -51,10 +51,9 @@ STRICT = {"xla_allow_excess_precision": False}
 EPS = {"float32": 2.0 ** -23, "bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 @pytest.fixture(scope="module")

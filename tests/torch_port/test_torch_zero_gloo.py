@@ -24,7 +24,6 @@ parameter.  The JAX references are compiled without excess precision, so
 the bf16 wire format rounds on both sides."""
 
 import os
-import socket
 import time
 
 import jax
@@ -43,6 +42,7 @@ from horovod_tpu_torch.models import llama as TL
 from horovod_tpu_torch.parallel import zero as TZ
 
 import torch_port_zero_worker as W
+from torch_port_ports import hold_ports
 
 STRICT = {"xla_allow_excess_precision": False}
 P_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -54,10 +54,9 @@ S_TOL = dict(rtol=1e-4, atol=2e-6)
 WIRE_ULP = {"bf16": 2.0 ** -7, "int8_ring": 1e-6}
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _free_port() -> int:
+    """A port below the ephemeral range, free when taken (``hold_ports``)."""
+    return hold_ports(1).release()[0]
 
 
 @pytest.fixture(scope="module")
