@@ -92,12 +92,17 @@ Phases, in order; any failure exits non-zero before the result line:
    against the plain attention; Adasum at one rank the identity;
 13. launch: phase 5's step started through the port's launcher, ``python
    -m horovod_tpu_torch.runner.launch -np 1 --gpu --coordinator-port P
-   --controller-port Q --output-filename DIR python3 chip_smoke.py
-   --launched DIR`` (free ports, the parent's cached memory released and
-   ``check_build()`` printed first): the worker trains ``1b`` for 3 steps
-   on phase 5's weights and batches, each loss within 1e-4 of phase 5's
-   (bitwise equality printed), each kernel launched 16 x 3 times, its
-   step ms beside phase 5's and its start-up on the launch's clock; then
+   --controller-port Q --output-filename DIR --scenario SPEC python3
+   chip_smoke.py --launched DIR`` (free ports, the parent's cached memory
+   released and ``check_build()`` printed first): the worker trains
+   ``1b`` for 3 steps on phase 5's weights and batches, each loss within
+   1e-4 of phase 5's (bitwise equality printed), each kernel launched 16
+   x 3 times, its step ms beside phase 5's and its start-up on the
+   launch's clock; SPEC (``LAUNCH_SCENARIO``) is a scenario whose storm
+   lies past the 3 steps: the worker reads it at KV scope ``scenario``
+   and regenerates the parent's event digest, its chaos injector holds
+   the storm's events as ``to_chaos_spec`` makes them, and the spec's
+   rule is in the set at KV scope ``alerts``; then
    ``horovod_tpu_torch.run`` of a one-rank NCCL allreduce of a CUDA
    tensor;
 14. fleet: the serving fleet as a user starts it, ``python -m
@@ -223,15 +228,41 @@ Phases, in order; any failure exits non-zero before the result line:
    profiled step, tokens/s per card, 24 launches of each kernel a step;
    (d) ``examples/torch_port/pytorch_mnist.py`` launched with ``-np 1
    --gpu`` must exit 0 having learned;
-9. printed last, after phase 19: a ``{"kernels": [...]}`` JSON line (the
+20. scenario and tune (``phase_scenario``): (a) the committed
+   ``scenarios/storm-under-load.yaml`` (a preemption race of two kills
+   merged into one outage, an admission blackout, a completion stall)
+   replayed twice by ``ScenarioHarness`` with an ``engine_factory`` that
+   builds ``ServeEngine`` over ``1b`` at full width and depth in bf16
+   (phase 6's weights, made once and kept on the card, so a kill
+   window's rebuild is an engine, not a load) with the spec's
+   ``engine_config`` mapped as ``make_engine_factory`` maps it: the
+   event digest equal to the CPU's virtual replay's, the two runs'
+   ``rows_jsonl`` byte-identical, ``scenario-engine-down`` fired, every
+   request finished with its tokens, each redriven request's regenerated
+   stream holding the tokens delivered before the kill (printed), the
+   memory after the rebuild within the pool's size of the first build's,
+   and no attention kernel launched; printed: the rows, TTFT/TPOT
+   percentiles in ticks, the storms' recovery, each replay's wall seconds,
+   ms a tick and peak memory; (b) ``tune.run`` with ``grid_search`` over
+   ``TUNE_LRS``, each trial 3 steps of phase 5's step from phase 5's
+   weights and batches: the 3e-4 trial's losses bitwise phase 5's first
+   three, ``best_config`` the lower loss, 16 launches a kernel a step,
+   the memory back to its level after each trial; a ``loguniform`` run of
+   3 trials on ``mini`` through the native GP; one
+   ``distributed_trainable(num_proc=1)`` trial on ``mini`` over NCCL whose
+   ``tune.report`` reaches the driver; (c) ``probe_backend()`` returns
+   ``''``, and a reason with the cards hidden from its child; the
+   phase's seconds;
+9. printed last, after phase 20: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128``, MoE
    ``mini``-shape ``d32`` and BERT-Large ``bert_large`` numbers, D=128
    resources, its ring-shape ``ring`` numbers and the launches of each
    phase, ``launches_fleet`` the fleets', ``launches_measure`` phase
    15's, ``launches_perf`` phase 16's, ``launches_watch`` phase 17's,
    ``launches_elastic`` phase 18's two rounds', ``launches_zoo`` phase
-   19's BERT-Large steps), then the ``{"ok": true, "device": {...}}`` JSON
-   line.
+   19's BERT-Large steps, ``launches_tune`` phase 20's grid trials,
+   ``launches_scenario`` its replays, which must be 0), then the ``{"ok":
+   true, "device": {...}}`` JSON line.
 
     python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic,zoo]
 
@@ -3483,11 +3514,36 @@ def launched_worker(out_dir: str) -> int:
               "launches": dict(F.LAUNCHES), "device": str(dev),
               "rank": hvd.rank(), "size": hvd.size(), "t_main": t_main,
               "t_init": t_init, "t_ready": t_ready,
-              "peak_bytes": torch.cuda.max_memory_allocated()}
+              "peak_bytes": torch.cuda.max_memory_allocated(),
+              "scenario": launched_scenario(hvd)}
     hvd.shutdown()
     with open(os.path.join(out_dir, "launched.json"), "w") as f:
         json.dump(report, f)
     return 0
+
+
+def launched_scenario(hvd) -> dict:
+    """What phase 13's worker finds of the launch's ``--scenario``: the
+    spec at KV scope ``scenario`` and the digest of the trace regenerated
+    from it, the events of the merged chaos plan its injector holds, and
+    the rules published at KV scope ``alerts``."""
+    from horovod_tpu_torch.runner.http_client import get_kv
+    from horovod_tpu_torch.scenario import (KV_KEY, KV_SCOPE, events_digest,
+                                            generate_events, loads_scenario)
+    addr = os.environ["HOROVOD_RENDEZVOUS_ADDR"]
+    port = int(os.environ["HOROVOD_RENDEZVOUS_PORT"])
+    raw = get_kv(addr, port, KV_SCOPE, KV_KEY, timeout=30)
+    require(raw is not None, "no scenario spec at KV scope 'scenario'")
+    spec = loads_scenario(raw.decode())
+    injector = hvd.chaos.active()
+    require(injector is not None, "no chaos injector from the storm")
+    rules = json.loads(get_kv(addr, port, "alerts", "rules", timeout=30))
+    return {"name": spec.name,
+            "digest": events_digest(generate_events(spec.seed, spec.phases,
+                                                    spec.vocab)),
+            "chaos": [[e.kind, e.rank, e.step] for e in
+                      injector.spec.events],
+            "rules": sorted(r["name"] for r in rules["rules"])}
 
 
 def launched_allreduce(n: int) -> dict:
@@ -3524,9 +3580,13 @@ def phase_launch(torch, card: str, ref_losses, ref_step_ms: float) -> dict:
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_launch_")
     ports = [free_port(), free_port()]
     require(not {29500, 29499} & set(ports), f"ports {ports}")
+    scen_path = os.path.join(out_dir, "scenario.json")
+    with open(scen_path, "w") as f:
+        json.dump(LAUNCH_SCENARIO, f)
     cmd = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
            "1", "--gpu", "--coordinator-port", str(ports[0]),
            "--controller-port", str(ports[1]), "--output-filename", out_dir,
+           "--scenario", scen_path,
            sys.executable, os.path.abspath(__file__), "--launched", out_dir]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [here] + [p for p in os.environ.get("PYTHONPATH", "").split(
@@ -3580,6 +3640,22 @@ def phase_launch(torch, card: str, ref_losses, ref_step_ms: float) -> dict:
         require(r["launches"].get(name) == layers * LAUNCH_STEPS,
                 f"{name} launched {r['launches'].get(name)} times in the "
                 f"launched worker, expected {layers * LAUNCH_STEPS}")
+
+    from horovod_tpu_torch import scenario
+    spec = scenario.parse_scenario(LAUNCH_SCENARIO)
+    want = {"name": spec.name,
+            "digest": scenario.events_digest(scenario.generate_events(
+                spec.seed, spec.phases, spec.vocab)),
+            "chaos": [[e.kind, e.rank, e.step] for e in scenario.to_chaos_spec(
+                spec.storm, spec.tick_s, seed=spec.seed).events]}
+    got = r["scenario"]
+    print(f"launch [--scenario {spec.name}]: the worker's digest "
+          f"{got['digest']}, chaos events {got['chaos']}, rules "
+          f"{got['rules']}", flush=True)
+    require({k: got[k] for k in want} == want,
+            f"launch --scenario: the worker found {got}, want {want}")
+    require({"chip-smoke-scenario-rule", "straggler-suspect"}
+            <= set(got["rules"]), f"launch --scenario: rules {got['rules']}")
 
     import chip_smoke as this  # importable by name in the run() workers
     n = 1 << 20
@@ -5352,7 +5428,12 @@ def watched_worker(out_dir: str) -> int:
                 if verdict is None:
                     hvd.postmortem.record_step(len(batches) - 1)
                     time.sleep(0.5)
-            out.update(straggler=verdict, straggler_firing=hits)
+            from horovod_tpu_torch.utils import metrics as M
+            fam = M.NEGOTIATION_AGE.to_family()
+            ages = {b: c for b, c in zip(fam["bounds"], fam["samples"][0][
+                "counts"]) if c} if fam["samples"] else {}
+            out.update(straggler=verdict, straggler_firing=hits,
+                       age_p99=M.NEGOTIATION_AGE.quantile(0.99), ages=ages)
     with open(os.path.join(out_dir, f"watched.{rank}.json"), "w") as f:
         json.dump(out, f)
     deadline = time.time() + 300
@@ -5788,7 +5869,8 @@ def rank_postmortem(torch, n: int, card: str, device_type: str = "cuda",
                     seq: int = TRAIN_SEQ, timeout_s: str = POSTMORTEM_TIMEOUT,
                     tick_s: float = STRAGGLER_TICK_S,
                     stall_ms: int = STRAGGLER_STALL_MS,
-                    tags: str = "abcdef") -> None:
+                    tags: str = "abcdef",
+                    ticks: int = STRAGGLER_TICKS) -> None:
     """``--ranks N --parts postmortem``: ``launch -np N --gpu --postmortem
     DIR --alerts RULES --chaos SPEC`` over ``chip_smoke.py --watched DIR``
     (mode ``fault``), ``1b`` at 4 x 2048 a card, one launch an experiment:
@@ -5803,7 +5885,8 @@ def rank_postmortem(torch, n: int, card: str, device_type: str = "cuda",
     whose verdicts are printed, not required.  Printed for each: the
     seconds from the fault to the launcher's exit and each survivor's
     seconds from the first failure's exit to its own (``tags`` picks the
-    experiments; ``stall_ms`` and ``tick_s`` set (c)'s pace).  Then phase
+    experiments; ``stall_ms``, ``tick_s`` and ``ticks`` set (c)'s pace;
+    each rank prints its own negotiation-age p99 and histogram).  Then phase
     17's
     sentinel launch across the N ranks, (e) on the direct step (the
     scalars take one NCCL all_reduce) and (f) on the hook-driven one
@@ -5820,7 +5903,7 @@ def rank_postmortem(torch, n: int, card: str, device_type: str = "cuda",
                                  "duration_ms": 3600000}}, 1, 5, {}),
         ("c", "direct", {"stall": {"rank": 1, "point": "complete",
                                    "duration_ms": stall_ms}},
-         None, 6, {"ticks": STRAGGLER_TICKS, "tick_s": tick_s}),
+         None, 6, {"ticks": ticks, "tick_s": tick_s}),
         ("d", "direct", {"stall": {"rank": 1, "step": 3,
                                    "duration_ms": 3600000}}, 1, 5, {}),
     )
@@ -5865,8 +5948,9 @@ def rank_postmortem(torch, n: int, card: str, device_type: str = "cuda",
                 v = r["straggler"]
                 print(f"{label}: rank {r['rank']} read GET /alerts: "
                       f"{json.dumps(v)}; straggler-suspect firing on ranks "
-                      f"{[f['rank'] for f in r['straggler_firing']]}",
-                      flush=True)
+                      f"{[f['rank'] for f in r['straggler_firing']]}; its "
+                      f"negotiation-age p99 {r['age_p99']} s (ops by "
+                      f"bucket bound: {json.dumps(r['ages'])})", flush=True)
                 require(v is not None and v["rank"] == 1
                         and v["value"] >= 4.0,
                         f"{label}: rank {r['rank']} saw {v}")
@@ -7076,6 +7160,407 @@ def rank_zoo(torch, np, hvd, rank: int, n: int, dev, device_type: str,
               + " ".join(f"{v:.4f}" for v in losses), flush=True)
 
 
+SCENARIO_SPEC = "scenarios/storm-under-load.yaml"  # phase 20 (a): replayed
+SCENARIO_ALERT = "scenario-engine-down"  # (a): the rule the kill must fire
+TUNE_STEPS = 3           # phase 20 (b): phase 5's first steps a trial
+TUNE_LRS = (3e-4, 1e-4)  # (b): the grid; 3e-4 is phase 5's rate
+TUNE_BAYES_TRIALS = 3    # (b): the loguniform run's trials
+TUNE_MINI_STEPS = 2      # (b): steps of a ``mini`` trial
+TUNE_MINI_SHAPE = (2, 128)  # (b): a ``mini`` trial's rows and positions
+TUNE_CPU = dict(cfg="tiny", mini="tiny", batch=2, seq=64,
+                mini_shape=(2, 32))  # the rehearsal's sizes
+# phase 13's --scenario: its storm lies far past the launched 3 steps
+# (ticks of 10 ms: the kill at step 90, the stall at 80), so it only
+# travels: the spec, the merged chaos plan and the rule are checked
+LAUNCH_SCENARIO = {
+    "name": "chip-smoke-launch", "seed": 23, "tick_ms": 10,
+    "phases": [{"name": "steady", "kind": "serve", "duration_s": 1.0,
+                "arrivals": {"process": "poisson", "rate": 15},
+                "shapes": {"prompt_mean": 8, "prompt_max": 24,
+                           "output_mean": 4}}],
+    "storm": [{"kill": {"at_s": 0.9, "rank": 0}},
+              {"stall": {"at_s": 0.8, "duration_s": 0.05}}],
+    "alert_rules": [{"name": "chip-smoke-scenario-rule",
+                     "family": "hvd_scenario_queue_depth",
+                     "kind": "threshold", "op": ">=", "value": 1e18,
+                     "severity": "info"}]}
+
+
+class RecordedEngine:
+    """Phase 20's engine as the replay harness sees it: the serving
+    engine, with every token it emits kept by request (``log``), so a
+    redriven request's regenerated prefix can be held to what the killed
+    engine delivered."""
+
+    def __init__(self, engine, log: dict):
+        self.engine, self.log = engine, log
+
+    def submit(self, tokens, max_new_tokens, req_id=None, eos_id=None):
+        return self.engine.submit(tokens, max_new_tokens, req_id=req_id,
+                                  eos_id=eos_id)
+
+    def has_work(self) -> bool:
+        return self.engine.has_work()
+
+    def step(self) -> dict:
+        rep = self.engine.step()
+        for rid, toks in rep["emitted"].items():
+            self.log.setdefault(rid, []).extend(toks)
+        return rep
+
+    def stats(self) -> dict:
+        return self.engine.stats()
+
+    def close(self) -> None:
+        self.engine.close()
+
+
+def scenario_replay(torch, serve, scenario, spec, model, dev, label: str
+                    ) -> dict:
+    """One replay of ``spec`` on ``ServeEngine`` over ``model`` (kept on
+    the device across the storm's rebuilds), the spec's ``engine_config``
+    mapped onto ``ServeConfig`` as ``make_engine_factory`` maps it.
+    Returns the report, its rows' bytes, each incarnation's emitted
+    tokens and the memory after each build, the wall seconds."""
+    ec = spec.engine_config
+    scfg = serve.ServeConfig(
+        max_slots=ec.get("max_slots", 4),
+        block_size=ec.get("block_size", 4),
+        cache_blocks=ec.get("cache_blocks", 64),
+        max_seq_len=ec.get("max_seq_len", 96),
+        max_batch_tokens=ec.get("max_batch_tokens", 32),
+        prefill_chunk=ec.get("prefill_chunk", 16))
+    cuda = dev.type == "cuda"
+    builds = []
+
+    def factory():
+        log: dict = {}
+        engine = serve.ServeEngine(model, scfg, device=dev)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        builds.append({"log": log, "pool": engine.kv_pool()["pool_bytes"],
+                       "mem": torch.cuda.memory_allocated(dev)
+                       if cuda else 0})
+        return RecordedEngine(engine, log)
+
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    report = scenario.ScenarioHarness(spec, engine_factory=factory).run()
+    if cuda:
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    rows = scenario.rows_jsonl(scenario.canonical_rows(report))
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    print(f"{label}: {report['ticks']} ticks in {wall:.2f} s "
+          f"({wall / report['ticks'] * 1e3:.2f} ms a tick), "
+          f"{len(builds)} engines built, peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    return {"report": report, "rows": rows, "builds": builds,
+            "wall": wall, "peak": peak}
+
+
+def scenario_checks(scenario, spec, r: dict, virtual: dict, label: str
+                    ) -> dict:
+    """Phase 20 (a)'s checks of one replay: the CPU's digest, the expected
+    alert, every request finished, and each redriven request's tokens
+    neither lost nor repeated: the new engine's first ``k`` tokens (``k``
+    delivered before the kill, which the harness suppresses) against the
+    ``k`` the killed engine delivered.  Returns the redrive's counts."""
+    rep = r["report"]
+    req = rep["requests"]
+    require(rep["digest"] == virtual["digest"],
+            f"{label}: event digest {rep['digest']} is not the CPU's "
+            f"{virtual['digest']}")
+    require(rep["alerts"]["ok"] and SCENARIO_ALERT in rep["alerts"]["fired"],
+            f"{label}: alerts {rep['alerts']}")
+    require(req["completed"] == req["arrived"] - req["shed"]
+            and req["backlog"] == 0 and rep["restarts"] == 1,
+            f"{label}: requests {req}, restarts {rep['restarts']}")
+    first, second = r["builds"][0]["log"], r["builds"][1]["log"]
+    redriven = sorted(set(first) & set(second))
+    same = [rid for rid in redriven
+            if second[rid][:len(first[rid])] == first[rid]]
+    want = {e["req"]: e["max_new"] for e in scenario.generate_events(
+        spec.seed, spec.phases, spec.vocab) if e["kind"] == "arrive"}
+    require(req["delivered_tokens"] == sum(want.values()),
+            f"{label}: {req['delivered_tokens']} tokens delivered, the "
+            f"requests asked for {sum(want.values())}")
+    for rid in redriven:
+        require(len(second[rid]) == want[rid],
+                f"{label}: redriven {rid} regenerated {len(second[rid])} "
+                f"of its {want[rid]} tokens")
+    return {"redriven": len(redriven), "prefix_equal": len(same),
+            "prefix_tokens": sum(len(first[rid]) for rid in redriven)}
+
+
+def tune_mini_trial(config: dict) -> None:
+    """Phase 20 (b)'s ``distributed_trainable`` trial, one rank over NCCL
+    (or gloo in the rehearsal): ``mini`` (``config["cfg"]``) for
+    ``TUNE_MINI_STEPS`` AdamW steps at ``config["lr"]``; reports its last
+    loss through ``tune.report`` from the worker process."""
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import tune
+    from horovod_tpu_torch.models import llama
+    cuda = config["device"] == "cuda"
+    dev = hvd.init(device=None if cuda else "cpu").device
+    losses = tune_steps(torch, np, hvd, llama, dev, config["cfg"],
+                        config["lr"], config["batch"], config["seq"],
+                        TUNE_MINI_STEPS)
+    tune.report(loss=losses[-1], device=float(dev.type == "cuda"),
+                backend=float(torch.distributed.get_backend() == "nccl"))
+    hvd.shutdown()
+
+
+def tune_steps(torch, np, hvd, llama, dev, cfg_name: str, lr: float,
+               batch: int, seq: int, steps: int, times=None) -> list:
+    """Phase 5's step (its seeded weights, AdamW through
+    ``DistributedOptimizer``, the flash kernels, ``ce_chunks=8``) at
+    learning rate ``lr`` over phase 5's first ``steps`` batches; the
+    model and optimizer are dropped before it returns.  With a ``times``
+    list, each step's ms (host clock, the device synchronized) is
+    appended to it."""
+    cfg = llama.CONFIGS[cfg_name]
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=lr, weight_decay=0.01),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    step = hvd.make_train_step(model, lambda m, ids: llama.loss_fn(
+        m, ids, attn_fn=hvd.flash_attention, ce_chunks=8), opt)
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, (batch * hvd.size(), seq + 1),
+        dtype=np.int32)).to(dev) for _ in range(steps)]
+    losses = []
+    for b in batches:
+        t0 = time.perf_counter()
+        losses.append(float(step(b)))
+        if times is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+    del step, opt, model, batches
+    gc.collect()
+    return losses
+
+
+def phase_scenario(torch, np, hvd, llama, serve, F, card: str, ref_losses,
+                   ref_step_ms: float, device_type: str = "cuda",
+                   sizes=None) -> dict:
+    """Phase 20: the scenario plane and the tuner on the card.  (a) the
+    committed ``storm-under-load`` spec replayed twice by
+    ``ScenarioHarness`` on ``ServeEngine`` over ``1b`` in bf16 (phase 6's
+    weights, built once and kept on the card; each storm rebuild is an
+    engine); (b) ``tune.run`` over phase 5's step (a ``grid_search`` of
+    ``TUNE_LRS``, 3 steps a trial), a ``loguniform`` run of 3 trials on
+    ``mini`` through the native GP, and one ``distributed_trainable``
+    trial on ``mini`` over NCCL; (c) ``probe_backend``.
+    ``device_type="cpu"`` with ``TUNE_CPU`` sizes is the rehearsal.
+    Returns the kernels' launches in the replays and in the tuner's
+    trials, and the numbers PERF.md carries."""
+    import horovod_tpu_torch.scenario as scenario
+    from horovod_tpu_torch import tune
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    cuda = device_type == "cuda"
+    sz = dict(dict(cfg="1b", mini="mini", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   mini_shape=TUNE_MINI_SHAPE), **(sizes or {}))
+    dev = hvd.init(device=None if cuda else device_type).device
+    out = {}
+
+    # (a) the storm on the real engine, twice
+    spec = scenario.load_scenario(os.path.join(here, SCENARIO_SPEC))
+    virtual = scenario.ScenarioHarness(spec).run()
+    print(f"scenario [{spec.name}] on the CPU's virtual engine: digest "
+          f"{virtual['digest']}, {virtual['events']} events, rows:\n"
+          + scenario.rows_jsonl(scenario.canonical_rows(virtual)).strip(),
+          flush=True)
+    cfg = llama.CONFIGS[sz["cfg"]]
+    require(spec.vocab <= cfg.vocab, f"spec vocab {spec.vocab}")
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    F.reset_launches()
+    runs = [scenario_replay(torch, serve, scenario, spec, model, dev,
+                            f"scenario [{spec.name}] [{sz['cfg']} "
+                            f"{str(cfg.dtype).split('.')[-1]}] run {i}")
+            for i in (1, 2)]
+    launches = dict(F.LAUNCHES)
+    out["launches_scenario"] = launches
+    require(not any(launches.values()),
+            f"the replay launched an attention kernel: {launches}")
+    rep = runs[0]["report"]
+    tick_s = spec.tick_s
+    slo = rep["slo"]
+    print(card, flush=True)
+    print(f"scenario [{spec.name}] on ServeEngine: digest {rep['digest']} "
+          f"(the CPU's: {rep['digest'] == virtual['digest']}); requests "
+          f"{json.dumps(rep['requests'])}; restarts {rep['restarts']}; "
+          f"TTFT p50 {slo['ttft_p50_s'] / tick_s:.1f} ticks, p99 "
+          f"{slo['ttft_p99_s'] / tick_s:.1f}; TPOT p50 "
+          f"{slo['tpot_p50_s'] / tick_s:.2f} ticks, p99 "
+          f"{slo['tpot_p99_s'] / tick_s:.2f}; storms "
+          + json.dumps([{k: s[k] for k in ("kind", "window", "at_s",
+                                           "down_s", "recovery_s")}
+                        for s in rep["storms"]])
+          + f"; alerts fired {rep['alerts']['fired']}", flush=True)
+    print(f"scenario [{spec.name}] rows:\n" + runs[0]["rows"].strip(),
+          flush=True)
+    same_rows = runs[0]["rows"] == runs[1]["rows"]
+    print(f"scenario [{spec.name}]: rows of the two runs byte-identical: "
+          f"{same_rows}; reports equal: "
+          f"{runs[0]['report'] == runs[1]['report']}", flush=True)
+    require(same_rows, "the two replays' rows differ:\n" + runs[0]["rows"]
+            + "\n" + runs[1]["rows"])
+    for i, r in enumerate(runs, 1):
+        red = scenario_checks(scenario, spec, r, virtual,
+                              f"scenario run {i}")
+        mems = [b["mem"] for b in r["builds"]]
+        pool = r["builds"][0]["pool"]
+        print(f"scenario run {i}: {red['redriven']} requests redriven "
+              f"across the kill, {red['prefix_tokens']} tokens delivered "
+              f"before it; {red['prefix_equal']} regenerated their "
+              f"delivered prefix token for token; memory after each build "
+              f"{mems} bytes (pool {pool} bytes)", flush=True)
+        require(abs(mems[-1] - mems[0]) <= pool,
+                f"scenario run {i}: memory after the last build {mems[-1]} "
+                f"against the first's {mems[0]}, pool {pool}")
+    out.update(ticks=rep["ticks"], wall=[r["wall"] for r in runs],
+               ms_tick=[r["wall"] / rep["ticks"] * 1e3 for r in runs],
+               peak=max(r["peak"] for r in runs),
+               recovery=[s["recovery_s"] for s in rep["storms"]])
+    del model, runs
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the tuner: a grid over phase 5's step, in process
+    trials_losses, trial_ms, trial_launches, mem = {}, {}, {}, []
+
+    def trainable(config):
+        if cuda:
+            torch.cuda.synchronize(dev)
+            mem.append(torch.cuda.memory_allocated(dev))
+        F.reset_launches()
+        t0 = time.perf_counter()
+        step_ms = []
+        losses = tune_steps(torch, np, hvd, llama, dev, sz["cfg"],
+                            config["lr"], sz["batch"], sz["seq"], TUNE_STEPS,
+                            step_ms)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+            mem.append(torch.cuda.memory_allocated(dev))
+        trial_ms[config["lr"]] = {"wall_s": time.perf_counter() - t0,
+                                  "step_ms": step_ms}
+        trials_losses[config["lr"]] = losses
+        trial_launches[config["lr"]] = dict(F.LAUNCHES)
+        tune.report(loss=losses[-1])
+
+    res = tune.run(trainable, config={"lr": tune.grid_search(
+        list(TUNE_LRS))}, metric="loss", mode="min")
+    for t in res.trials:
+        require(t.error is None, f"tune trial {t.config}: {t.error}")
+        tm = trial_ms[t.config["lr"]]
+        print(f"tune [{sz['cfg']}] lr {t.config['lr']:g}: losses "
+              + " ".join(f"{x:.5f}" for x in trials_losses[t.config["lr"]])
+              + "; steps " + ", ".join(f"{x:.1f}" for x in tm["step_ms"])
+              + f" ms (phase 5: {ref_step_ms:.1f} ms a step); the trial "
+              f"{tm['wall_s']:.2f} s with its model and optimizer",
+              flush=True)
+    ref = [float(x) for x in ref_losses[:TUNE_STEPS]]
+    bitwise = trials_losses[TUNE_LRS[0]] == ref
+    print(f"tune [{sz['cfg']}]: lr {TUNE_LRS[0]:g} losses bitwise phase "
+          f"5's: {bitwise}; best {res.best_config} at {res.best_metric:.5f};"
+          f" memory before and after each trial {mem} bytes", flush=True)
+    require(bitwise, f"tune lr {TUNE_LRS[0]}: {trials_losses[TUNE_LRS[0]]}"
+            f" against phase 5's {ref}")
+    lowest = min(TUNE_LRS, key=lambda lr: trials_losses[lr][-1])
+    require(res.best_config == {"lr": lowest}
+            and res.best_metric == trials_losses[lowest][-1],
+            f"tune best {res.best_config}, the lowest loss is lr {lowest}")
+    per_step = cfg.n_layers if cuda else 0  # the CPU runs the plain versions
+    for lr, got in trial_launches.items():
+        for name in REPLACES:
+            require(got.get(name, 0) == per_step * TUNE_STEPS,
+                    f"tune lr {lr}: {name} launched {got.get(name)} times, "
+                    f"expected {per_step} a step")
+    require(mem[0::2] == mem[1::2],
+            f"the memory does not return between trials: {mem}")
+    out["launches_tune"] = {name: sum(t.get(name, 0) for t in
+                                      trial_launches.values())
+                            for name in REPLACES}
+    out["trial_ms"] = trial_ms
+
+    # a loguniform run through the native GP, on mini
+    proposals = []
+
+    def mini(config):
+        proposals.append(config["lr"])
+        return tune_steps(torch, np, hvd, llama, dev, sz["mini"],
+                          config["lr"], *sz["mini_shape"],
+                          TUNE_MINI_STEPS)[-1]
+
+    bayes = tune.run(mini, config={"lr": tune.loguniform(1e-4, 1e-2)},
+                     metric="loss", mode="min",
+                     num_trials=TUNE_BAYES_TRIALS, seed=0)
+    print(f"tune [{sz['mini']} loguniform, native GP]: lr proposed "
+          + ", ".join(f"{x:.3g}" for x in proposals) + " -> losses "
+          + ", ".join(f"{t.metrics.get('loss', float('nan')):.5f}"
+                      for t in bayes.trials)
+          + f"; best {bayes.best_config}", flush=True)
+    require(len(bayes.trials) == TUNE_BAYES_TRIALS
+            and all(t.error is None for t in bayes.trials)
+            and len(set(proposals)) == TUNE_BAYES_TRIALS,
+            "the loguniform run: "
+            f"{[(t.config, t.error) for t in bayes.trials]}")
+    hvd.shutdown()
+
+    # one distributed trial, its worker started by the launcher
+    import chip_smoke as this  # importable by name in the workers
+    t0 = time.perf_counter()
+    trial = tune.distributed_trainable(this.tune_mini_trial, num_proc=1,
+                                       coordinator_port=free_port())
+    dist_res = tune.run(trial, config={
+        "lr": tune.grid_search([1e-3]), "cfg": sz["mini"],
+        "device": device_type, "batch": sz["mini_shape"][0],
+        "seq": sz["mini_shape"][1]}, metric="loss", mode="min")
+    t = dist_res.trials[0]
+    print(f"tune [{sz['mini']} distributed_trainable(num_proc=1)]: "
+          f"{json.dumps(t.metrics)}, error {t.error}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    require(t.error is None and math.isfinite(t.metrics.get("loss", math.nan))
+            and t.metrics.get("device") == float(cuda)
+            and t.metrics.get("backend") == float(cuda),
+            f"the distributed trial: {t}")
+
+    # (c) the probe, and the probe with the cards hidden, side by side
+    from horovod_tpu_torch.utils.probe import probe_backend
+    t0 = time.perf_counter()
+    probes = {}
+    hider = threading.Thread(target=lambda: probes.update(
+        hidden=probe_backend(env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))))
+    hider.start()
+    why = hvd.probe_backend()
+    hider.join()
+    hidden = probes["hidden"]
+    print(f"probe_backend(): {why!r}; with CUDA_VISIBLE_DEVICES='': "
+          f"{hidden!r} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    require(why == "" if cuda else why.startswith("CUDA expected"),
+            f"probe_backend() on {device_type}: {why!r}")
+    require(hidden.startswith("CUDA expected but torch sees no device"),
+            f"probe_backend() with the cards hidden: {hidden!r}")
+    out["s"] = time.perf_counter() - t_phase
+    print(f"scenario and tune [{card}]: phase 20 took {out['s']:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     args = sys.argv[1:]
     if len(args) == 2 and args[0] in ("--rank-worker", "--launched",
@@ -7182,6 +7667,8 @@ def main() -> int:
     watch = phase_forensics(torch, card, losses, step_ms)
     elastic = phase_elastic(torch, card, losses)
     zoo = phase_zoo(torch, np, hvd, F, L, card)
+    scen = phase_scenario(torch, np, hvd, llama, serve, F, card, losses,
+                          step_ms)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -7197,6 +7684,8 @@ def main() -> int:
         row["launches_watch"] = watch[row["name"]]
         row["launches_elastic"] = elastic[row["name"]]
         row["launches_zoo"] = zoo["launches"][row["name"]]
+        row["launches_tune"] = scen["launches_tune"][row["name"]]
+        row["launches_scenario"] = scen["launches_scenario"][row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

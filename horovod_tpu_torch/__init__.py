@@ -41,7 +41,11 @@ series behind ``--alerts``, ``GET /alerts`` and ``GET /series``) and
 ``hvd.sentinel`` (``wrap(step)`` watches the gradient norm, nonfinite
 values and the loss).  Elastic training: ``hvd.elastic`` (``TreeState``,
 ``run``, the driver behind the launcher's ``--min-np``/``--max-np``/
-``--host-discovery-script``).
+``--host-discovery-script``).  The scenario plane: ``hvd.scenario``
+(seeded workload traces, fault storms, the deterministic replay harness
+behind the launcher's ``--scenario``); ``hvd.tune`` searches
+hyperparameters over the native Gaussian process; ``hvd.probe_backend()``
+asks a child process whether a card answers.
 
 The package imports neither JAX nor ``horovod_tpu``; the pieces it shares
 with the JAX package (reduce ops, knobs, exceptions, the native core's
@@ -72,6 +76,8 @@ from .parallel.sequence import (make_ring_attn_fn, make_ulysses_attn_fn,
                                 ring_attention, ulysses_attention)
 from .runner.api import run
 from .runtime import init, shutdown, is_initialized
+from .utils.probe import probe_backend
+from . import scenario, tune
 
 __version__ = "0.3.0"
 
@@ -161,5 +167,6 @@ __all__ = [
     "adasum_allreduce", "adasum_hierarchical", "ring_attention",
     "ulysses_attention", "make_ring_attn_fn", "make_ulysses_attn_fn",
     "make_moe_fn", "run", "perf", "perf_report", "profiler",
-    "postmortem", "chaos", "watch", "sentinel", "elastic",
+    "postmortem", "chaos", "watch", "sentinel", "elastic", "scenario",
+    "tune", "probe_backend",
 ]

@@ -267,6 +267,27 @@ _knob("HOROVOD_SENTINEL_INTERVAL", 1, int,
       "step).  Nonfinite detection always runs every recorded step — a "
       "NaN must never slip between samples.  Must be >= 1; rejected at "
       "init() otherwise.")
+# --- the scenario plane (scenario/; docs/scenarios.md) ---
+_knob("HOROVOD_SCENARIO", "", str,
+      "Path of a scenario spec (horovod_tpu_torch/scenario; "
+      "docs/scenarios.md): a declarative YAML composing a workload "
+      "trace (arrival processes, heavy-tailed request shapes, mixed "
+      "train+serve phases) with a fault storm, an SLO expectation and "
+      "an alert expectation.  Equivalent to launch --scenario: "
+      "validated at launch, published to rendezvous-KV scope "
+      "'scenario', its storm merged with any --chaos spec and its "
+      "alert rules installed.  When set, the file must exist and "
+      "parse; rejected at init() otherwise.  Empty = none.")
+_knob("HOROVOD_SCENARIO_RANKS", 0, int,
+      "Virtual-rank-count override for scenario replay (scenario/"
+      "harness.py): 0 = the spec's virtual_ranks.  The generated event "
+      "stream is byte-identical at any rank count (rank attribution is "
+      "a pure replay-time function); this only re-scatters request "
+      "sources.  Must be >= 0; rejected at init() otherwise.")
+_knob("HOROVOD_SCENARIO_TICK_MS", 0.0, float,
+      "Logical-tick-length override in ms for scenario replay (one "
+      "tick = one engine step on the virtual clock): 0 = the spec's "
+      "tick_ms.  Must be >= 0; rejected at init() otherwise.")
 # --- the postmortem plane (postmortem.py, utils/health.py) ---
 _knob("HOROVOD_HEARTBEAT", False, _parse_bool,
       "Enable per-rank heartbeats: a background thread PUTs a liveness "

@@ -451,8 +451,8 @@ def run_elastic(args, command: List[str]) -> int:
     min_np = args.min_np or args.num_proc or 1
     max_np = args.max_np or args.num_proc or (1 << 30)
     from ..runner.launch import (args_to_env, install_alert_rules,
-                                 publish_chaos_spec, resolve_kv_shards,
-                                 resolve_serve_port)
+                                 publish_chaos_spec, publish_scenario_spec,
+                                 resolve_kv_shards, resolve_serve_port)
     # --serve pins the rendezvous (= router) port as the static path does;
     # the driver's server survives reset rounds, so the journal, the
     # in-flight client streams and /generate ride across fleet restarts
@@ -478,10 +478,11 @@ def run_elastic(args, command: List[str]) -> int:
               f"{socket.gethostname()}:{driver.rdv_port}/generate  "
               "(stats: GET /serve/stats, drain: POST /admin/drain, "
               "metrics: GET /metrics)", file=sys.stderr, flush=True)
-    # the chaos spec rides the driver's rendezvous KV, so every
-    # incarnation of every worker (reset rounds included) installs the
-    # same seeded plan; the alert engine and series store live in the same
-    # server, so fleet history and rule state span reset rounds
+    # the chaos and scenario specs ride the driver's rendezvous KV, so
+    # every incarnation of every worker (reset rounds included) installs
+    # the same seeded plan; the alert engine and series store live in the
+    # same server, so fleet history and rule state span reset rounds
     publish_chaos_spec(args, driver.rendezvous)
+    publish_scenario_spec(args, driver.rendezvous)
     install_alert_rules(args, driver.rendezvous)
     return driver.run()

@@ -2,9 +2,9 @@
 ``apply`` as ``Inception.forward``, ``loss_fn``), with the same stem and
 block specs (the canonical V3 channel counts, no auxiliary head).
 
-NHWC batches in, NCHW in ``channels_last`` memory inside, so the
-branches concatenate along dim 1.  The average pool of the ``pool``
-branches divides by the count of cells inside the image
+NHWC batches in, NCHW inside (``layers.nchw``: ``channels_last`` memory
+on a card), so the branches concatenate along dim 1.  The average pool of
+the ``pool`` branches divides by the count of cells inside the image
 (``layers.avgpool``), the max pools are ``VALID``.
 """
 
@@ -144,7 +144,7 @@ class Inception(nn.Module):
                 ) -> Tensor:
         """``x`` ``[N, H, W, 3]`` (299 canonical; any size that survives
         the stem's VALID stages) -> logits."""
-        y = x.permute(0, 3, 1, 2)
+        y = L.nchw(x)
         for (name, _kh, _kw, _c, stride, padding, pool_after) in STEM:
             y = getattr(self, name)(y, stride, padding, training, group)
             if pool_after:

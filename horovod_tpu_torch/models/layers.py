@@ -10,10 +10,10 @@ BERT and the MLP are built of (``Dense``, ``Embedding``,
 Layouts.  Dense weights follow PyTorch's ``nn.Linear`` layout ``[out,
 in]``: ``dense(w, x) = x @ w.T`` (the JAX kernels are ``[in, out]``).
 Convolutions take NCHW activations and OIHW weights (the JAX package's are
-NHWC and HWIO); a model that takes an NHWC batch permutes it once, which
-leaves the activations in ``channels_last`` memory, the layout cuDNN runs
-fastest.  ``state_from_jax`` carries a JAX parameter tree over into these
-layouts.
+NHWC and HWIO); a model that takes an NHWC batch permutes it once
+(``nchw``), which on a card leaves the activations in ``channels_last``
+memory, the layout cuDNN runs fastest.  ``state_from_jax`` carries a JAX
+parameter tree over into these layouts.
 
 TF ``SAME`` padding is asymmetric where the total is odd (more after than
 before, e.g. (0, 1) for a 3x3 at stride 2 on an even size), so ``conv``,
@@ -148,6 +148,17 @@ def causal_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = True,
 
 
 # ----------------------------------------------------------------------- conv
+def nchw(x: Tensor) -> Tensor:
+    """An NHWC batch as NCHW: in ``channels_last`` memory on a card, where
+    cuDNN runs it fastest, and contiguous on the CPU.  There PyTorch's
+    one-thread ``channels_last`` convolutions round 2.4x more (median over
+    Inception's convs, relative to the sum of |w||x|), enough to flip a
+    ReLU whose float64 input is 7e-6 and lose its gradient upstream
+    (tests/torch_port/torch_port_inception_rounding.py)."""
+    y = x.permute(0, 3, 1, 2)
+    return y.contiguous() if y.device.type == "cpu" else y
+
+
 def same_pads(size: int, window: int, stride: int) -> Tuple[int, int]:
     """TF ``SAME`` padding of one spatial dim: (before, after), the odd
     cell after."""

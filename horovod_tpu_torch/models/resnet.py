@@ -4,12 +4,12 @@
 
 Bottleneck blocks with the stride in the 3x3 (v1.5), BatchNorm after each
 conv.  The model takes the JAX package's NHWC batch ``[N, H, W, 3]`` and
-runs NCHW in ``channels_last`` memory.  Where the JAX model stacks the
-shape-identical blocks of a stage for one ``lax.scan`` (``s{i}rest``),
-the port keeps one module a block, ``s{i}b{j}``; ``params_from_jax``
-unstacks them.  BN running statistics are buffers the training forward
-moves in place (the JAX ``new_params``); conv and dense weights take the
-model's dtype, BN stays fp32.
+runs NCHW (``layers.nchw``: ``channels_last`` memory on a card).  Where
+the JAX model stacks the shape-identical blocks of a stage for one
+``lax.scan`` (``s{i}rest``), the port keeps one module a block,
+``s{i}b{j}``; ``params_from_jax`` unstacks them.  BN running statistics
+are buffers the training forward moves in place (the JAX ``new_params``);
+conv and dense weights take the model's dtype, BN stays fp32.
 """
 
 from __future__ import annotations
@@ -88,7 +88,7 @@ class ResNet(nn.Module):
         """``x`` ``[N, H, W, 3]`` -> logits; ``training`` uses the batch
         statistics and moves the running ones, over ``group`` when it has
         more than one rank."""
-        y = self.stem(x.permute(0, 3, 1, 2), 2)
+        y = self.stem(L.nchw(x), 2)
         y = F.relu(self.bn_stem(y, training, group))
         y = L.maxpool(y, 3, 2, "SAME")
         for name in self.blocks:

@@ -2,12 +2,13 @@
 (``init``, ``apply`` as ``VGG.forward``, ``features``, ``loss_fn``).
 
 Stages of 3x3 conv -> BN -> relu, each closed by a 2x2 max pool, then the
-4096-wide classifier.  NHWC batches in, NCHW in ``channels_last`` memory
-inside.  A trunk output other than 7x7 is resized to 7x7 as
-``jax.image.resize(..., "linear")`` does (``layers.resize_linear``), and
-flattened in the JAX model's (h, w, c) order, so ``fc1`` takes the JAX
-kernel's rows as they are.  The stacked ``s{i}rest`` convs of the JAX tree
-are the port's ``s{i}c1``, ``s{i}c2``, ...
+4096-wide classifier.  NHWC batches in, NCHW inside (``layers.nchw``:
+``channels_last`` memory on a card).  A trunk output other than 7x7 is
+resized to 7x7 as ``jax.image.resize(..., "linear")`` does
+(``layers.resize_linear``), and flattened in the JAX model's (h, w, c)
+order, so ``fc1`` takes the JAX kernel's rows as they are.  The stacked
+``s{i}rest`` convs of the JAX tree are the port's ``s{i}c1``, ``s{i}c2``,
+...
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ class VGG(nn.Module):
               ) -> Tensor:
         """``x`` ``[N, H, W, 3]`` -> the last stage's ``[N, 512, H/32,
         W/32]``."""
-        y = x.permute(0, 3, 1, 2)
+        y = L.nchw(x)
         for names in self.stages:
             for name in names:
                 y = getattr(self, name)(y, training=training, group=group)

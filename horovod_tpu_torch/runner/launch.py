@@ -61,7 +61,12 @@ a rules file over the watch plane's defaults in the rendezvous's alert
 engine (``GET /alerts``, ``GET /series``) and publishes the merged set at
 KV scope ``alerts``; ``--chaos SPEC`` checks a fault-injection spec at
 launch, publishes it at KV scope ``chaos`` for every rank's injector and
-exports its transport faults as ``HOROVOD_CHAOS_*``.
+exports its transport faults as ``HOROVOD_CHAOS_*``.  ``--scenario SPEC``
+checks a scenario spec (``horovod_tpu_torch/scenario``) at launch,
+publishes it at KV scope ``scenario`` as JSON, merges its storm with the
+``--chaos`` spec into the one chaos plan the ranks install (a conflict
+fails the launch) and installs its embedded alert rules under the
+operator's ``--alerts``.
 
 ``doctor`` (``python -m horovod_tpu_torch.runner.launch doctor DIR``,
 ``--perf URL``, ``--serve URL``, ``--request RID URL``, ``--watch URL``)
@@ -77,12 +82,9 @@ discovery script, runs reset rounds after a failure or a membership
 change, and keeps its rendezvous server (with ``--serve``, the router, its
 journal and the in-flight client streams) across them.
 
-The JAX launcher also drives a plane the port does not have yet, the
-scenario plane: ``--scenario`` is refused with exit code 2 and the ROADMAP
-item that brings it (:data:`REFUSED`), so no flag is ever silently
-ignored; the few flags that
-have no meaning on a PyTorch stack (:data:`NO_EFFECT`) are accepted with a
-warning, as the JAX launcher accepts its CPU-affinity flags.  ``--mpi``,
+The few flags that have no meaning on a PyTorch stack
+(:data:`NO_EFFECT`) are accepted with a warning, as the JAX launcher
+accepts its CPU-affinity flags.  ``--mpi``,
 ``--gloo`` and ``--jsrun`` exit 2: the transport is ``torch.distributed``'s.
 """
 
@@ -106,10 +108,6 @@ from .http_server import RendezvousServer
 LOCAL_HOSTNAMES = {"localhost", "127.0.0.1", socket.gethostname()}
 PROG = "python -m horovod_tpu_torch.runner.launch"
 
-# dest -> (flag, what it needs, the ROADMAP queue 1 item that brings it)
-REFUSED: Dict[str, tuple] = {
-    "scenario": ("--scenario", "the scenario plane", "4.5"),
-}
 # flags with no meaning on this stack: accepted, with a warning
 NO_EFFECT = {
     "binding_args": "--binding-args",
@@ -319,7 +317,13 @@ def make_parser() -> argparse.ArgumentParser:
                         "rank injects from one seeded plan; transport "
                         "faults export as HOROVOD_CHAOS_* env for the "
                         "native core")
-    p.add_argument("--scenario", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--scenario", default=None, metavar="SPEC_YAML",
+                   help="declarative workload scenario "
+                        "(horovod_tpu_torch/scenario): checked at launch, "
+                        "published at KV scope 'scenario'; its fault "
+                        "storm merges with --chaos (a conflict fails the "
+                        "launch) and its alert rules install under any "
+                        "--alerts rules")
     p.add_argument("--min-np", type=int, default=None,
                    help="elastic: the fewest workers a round runs with "
                         "(default -np, else 1)")
@@ -348,18 +352,9 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refusal(flag: str, what: str, item: str) -> str:
-    return (f"{PROG}: {flag} needs {what}, which the PyTorch port does not "
-            f"have yet (ROADMAP queue 1 item {item})")
-
-
 def refused_flag(args: argparse.Namespace) -> Optional[str]:
-    """The refusal message of the first flag given whose plane the port
-    does not have yet (:data:`REFUSED`), else None."""
-    for dest, (flag, what, item) in REFUSED.items():
-        val = getattr(args, dest, None)
-        if val is not None and val is not False:
-            return _refusal(flag, what, item)
+    """The refusal message of a flag that names the JAX package's devices
+    (``--mesh``, ``--tpu``), else None."""
     if getattr(args, "mesh", None):
         return (f"{PROG}: --mesh names the JAX package's device mesh; the "
                 "port lays out its ranks with HOROVOD_LAYOUT "
@@ -415,9 +410,7 @@ def config_file_to_env(path: str, env: Dict[str, str]) -> None:
 
 def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
     """CLI flags win over config file, which wins over ambient env
-    (reference: launch.py + config_parser layering).  Covers the knobs of
-    the planes the port has; the others are refused before this runs
-    (:func:`refused_flag`)."""
+    (reference: launch.py + config_parser layering)."""
     env: Dict[str, str] = {}
     if args.config_file:
         config_file_to_env(args.config_file, env)
@@ -482,7 +475,7 @@ def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
         env["HOROVOD_ELASTIC_TIMEOUT"] = str(args.elastic_timeout)
     if args.reset_limit is not None:
         env["HOROVOD_ELASTIC_RESET_LIMIT"] = str(args.reset_limit)
-    chaos_spec = load_chaos_spec(args)
+    chaos_spec = merged_chaos_spec(args)
     if chaos_spec is not None:
         env["HOROVOD_CHAOS"] = "1"
         env.update(chaos_spec.transport_env())
@@ -508,9 +501,7 @@ def args_to_env(args: argparse.Namespace) -> Dict[str, str]:
 def load_chaos_spec(args: argparse.Namespace):
     """The ``--chaos`` spec, parsed and checked once per launch (cached on
     the namespace, so the env and the KV publish share one parse: a typo'd
-    spec fails the launch, not a worker mid-run), or None.  The JAX
-    launcher merges it with a ``--scenario`` storm (``chaos.merge_specs``);
-    ``--scenario`` is refused here (ROADMAP queue 1 item 4.5)."""
+    spec fails the launch, not a worker mid-run), or None."""
     if not getattr(args, "chaos", None):
         return None
     if getattr(args, "_chaos_spec", None) is None:
@@ -519,15 +510,61 @@ def load_chaos_spec(args: argparse.Namespace):
     return args._chaos_spec
 
 
+def load_scenario_spec(args: argparse.Namespace):
+    """The ``--scenario`` spec, parsed and checked once per launch (cached
+    on the namespace, as :func:`load_chaos_spec`: a typo'd scenario fails
+    the launch, not a worker mid-replay), or None."""
+    if not getattr(args, "scenario", None):
+        return None
+    if getattr(args, "_scenario_spec", None) is None:
+        from ..scenario import load_scenario
+        args._scenario_spec = load_scenario(args.scenario)
+    return args._scenario_spec
+
+
+def merged_chaos_spec(args: argparse.Namespace):
+    """The one chaos plan this launch distributes: the ``--chaos`` spec
+    merged with the ``--scenario`` storm, whose logical-clock events land
+    as step-scheduled events (``scenario.to_chaos_spec``) after the
+    ``--chaos`` ones (``chaos.merge_specs``).  Conflicting scalars fail
+    the launch (ValueError); None when neither side brings a plan."""
+    if getattr(args, "_merged_chaos", None) is None:
+        base = load_chaos_spec(args)
+        scen = load_scenario_spec(args)
+        storm_spec = None
+        if scen is not None and scen.storm:
+            from ..scenario import to_chaos_spec
+            storm_spec = to_chaos_spec(scen.storm, scen.tick_s,
+                                       seed=scen.seed)
+        if base is not None and storm_spec is not None:
+            from ..chaos import merge_specs
+            args._merged_chaos = merge_specs(base, storm_spec)
+        else:
+            args._merged_chaos = base or storm_spec
+    return args._merged_chaos
+
+
 def publish_chaos_spec(args: argparse.Namespace,
                        rendezvous: RendezvousServer) -> None:
-    """Put the chaos spec on the rendezvous KV (scope ``chaos``), so
-    every rank, local or ssh-remote, installs its injector from one
+    """Put the (merged) chaos spec on the rendezvous KV (scope ``chaos``),
+    so every rank, local or ssh-remote, installs its injector from one
     plan."""
-    spec = load_chaos_spec(args)
+    spec = merged_chaos_spec(args)
     if spec is None:
         return
     from ..chaos import KV_KEY, KV_SCOPE
+    rendezvous.put(KV_SCOPE, KV_KEY, spec.to_json().encode())
+
+
+def publish_scenario_spec(args: argparse.Namespace,
+                          rendezvous: RendezvousServer) -> None:
+    """Put the scenario spec on the rendezvous KV (scope ``scenario``) as
+    JSON, so every rank (and any replay pointed at the fleet) reads one
+    plan with no YAML parser."""
+    spec = load_scenario_spec(args)
+    if spec is None:
+        return
+    from ..scenario import KV_KEY, KV_SCOPE
     rendezvous.put(KV_SCOPE, KV_KEY, spec.to_json().encode())
 
 
@@ -535,9 +572,10 @@ def install_alert_rules(args: argparse.Namespace,
                         rendezvous: RendezvousServer) -> None:
     """Resolve the user ruleset (``--alerts`` > HOROVOD_ALERTS > none),
     merge it over the defaults in the rendezvous's alert engine and
-    publish the merged set at KV scope ``alerts``.  A malformed rules file
-    fails the launch (the parse raises ValueError), never a detector
-    mid-run."""
+    publish the merged set at KV scope ``alerts``; a ``--scenario`` spec's
+    embedded rules join under the operator's (an operator rule of the same
+    name wins).  A malformed rules file fails the launch (the parse raises
+    ValueError), never a detector mid-run."""
     path = getattr(args, "alerts", None) \
         or os.environ.get("HOROVOD_ALERTS") or None
     rules = None
@@ -546,6 +584,13 @@ def install_alert_rules(args: argparse.Namespace,
             from ..watch import load_rules
             args._alert_rules = load_rules(path)
         rules = args._alert_rules
+    scen = load_scenario_spec(args)
+    if scen is not None and scen.alert_rules:
+        from ..watch import parse_rules
+        operator_names = {r.name for r in (rules or [])}
+        scen_rules = [r for r in parse_rules(scen.alert_rules)
+                      if r.name not in operator_names]
+        rules = scen_rules + (rules or []) if scen_rules else rules
     rendezvous.install_alert_rules(rules)
 
 
@@ -1020,6 +1065,7 @@ def launch_static(args: argparse.Namespace, command: List[str],
               "/serve/stats, drain: POST /admin/drain, metrics: GET "
               "/metrics)", file=sys.stderr, flush=True)
     publish_chaos_spec(args, rendezvous)
+    publish_scenario_spec(args, rendezvous)
     install_alert_rules(args, rendezvous)
     for slot in slots:
         rendezvous.put("rank", str(slot.rank),

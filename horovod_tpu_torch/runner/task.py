@@ -24,6 +24,10 @@ def main() -> int:
         if raw is None:
             raise RuntimeError("no function at the rendezvous (scope "
                                f"{SCOPE!r}, key 'fn')")
+        # a worker handed no card resolves to the CPU before the user's
+        # module (imported by the unpickling) can touch CUDA
+        from ..utils.platform import apply_env_platform
+        apply_env_platform()
         func, args, kwargs = pickle.loads(raw)
         out = ("ok", func(*args, **kwargs))
         code = 0

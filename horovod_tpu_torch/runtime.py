@@ -74,6 +74,9 @@ def _pick_device(device: Union[str, torch.device, None],
                  local_rank: int) -> torch.device:
     if device is not None:
         return torch.device(device)
+    from .utils import platform
+    if platform.cpu_forced():  # utils/platform.py force_cpu
+        return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
             "horovod_tpu_torch: no CUDA device; pass device='cpu' to run on "
@@ -145,6 +148,8 @@ class Runtime:
         from .perf import validate_mem_knobs, validate_perf_knobs
         validate_perf_knobs(knobs)
         validate_mem_knobs(knobs)
+        from .scenario import validate_scenario_knobs
+        validate_scenario_knobs(knobs)
         self._controller = knobs["HOROVOD_CONTROLLER"].strip().lower()
         if self._controller not in ("auto", "tcp", "none"):
             raise ValueError(

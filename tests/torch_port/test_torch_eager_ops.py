@@ -46,6 +46,7 @@ def _free_port() -> int:
 
 @pytest.fixture(scope="module")
 def runtimes():
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
     horovod_tpu.init()
     old = {k: os.environ.get(k) for k in ("HOROVOD_CONTROLLER",
@@ -63,6 +64,9 @@ def runtimes():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+        # later files in this process (one xdist worker runs many) keep
+        # their thread count
+        torch.set_num_threads(threads)
 
 
 # --------------------------------------------------- hook-driven optimizer

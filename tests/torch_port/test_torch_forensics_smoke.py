@@ -53,12 +53,13 @@ if {part!r} == "phase":
                             kill_layers=1)
     assert out == {{name: 0 for name in C.REPLACES}}, out
 elif {part!r} == "ranks":
-    # (c) at a slower pace than the card's: on a loaded CPU a peer's
-    # ages may reach the 65.5 ms bucket, and a 200 ms stall still reads
-    # four buckets above that
+    # (c) at a slower pace than the card's, and with enough ticks (17 a
+    # step, 102 a rank) that a peer's p99 is not its single slowest op:
+    # on a loaded CPU one op of every peer (the first) reads 33-66 ms,
+    # which alone pulled the skew of a 200 ms stall down to the rule's 4
     C.rank_postmortem(torch, 4, "CPU", device_type="cpu", cfg_name="tiny",
-                      batch=1, seq=64, timeout_s="6", tick_s=0.5,
-                      stall_ms=200, tags="abcd")
+                      batch=1, seq=64, timeout_s="6", tick_s=0.3,
+                      stall_ms=200, tags="abcd", ticks=17)
 else:
     C.rank_postmortem(torch, 4, "CPU", device_type="cpu", cfg_name="tiny",
                       batch=1, seq=64, timeout_s="6", tags="ef")
@@ -97,3 +98,26 @@ def test_chip_smoke_forensics_rehearsal_on_cpu(part):
     else:
         for tag in "ef":
             assert f"({tag})" in out
+
+
+@pytest.mark.parametrize("ticks_a_step,want", [(5, 4.0), (17, 32.0)])
+def test_ranks_rehearsal_straggler_margin_on_a_loaded_host(ticks_a_step,
+                                                          want):
+    """(c)'s skew from the histograms a loaded six-worker run gives: rank
+    1's 200 ms stalls in the 262 ms bucket, its peers' ops at 2-8 ms but
+    one of each (the first negotiated op) at 50 ms.  At 5 ticks a step (30
+    ops a rank) that one op is every peer's p99 and the skew sits on the
+    rule's 4 (the run that failed read below it); at the rehearsal's 17
+    (102 ops) the p99 drops it and the skew reads 32."""
+    from horovod_tpu_torch.utils.metrics import Histogram
+    from horovod_tpu_torch.watch.rules import straggler_verdict
+    n = 6 * ticks_a_step
+    p99 = {}
+    for rank in range(4):
+        h = Histogram("ages", "")
+        for k in range(n):
+            h.observe(0.2 + 0.001 * (k % 20) if rank == 1 else
+                      0.05 if k == 0 else 0.002 + 0.006 * (k % 2))
+        p99[rank] = h.quantile(0.99)
+    v = straggler_verdict(p99)
+    assert v is not None and v["rank"] == 1 and v["ratio"] == want

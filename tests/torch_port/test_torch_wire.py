@@ -51,10 +51,14 @@ NBYTES = [0, 1024, 64 * 1024 - 1, 64 * 1024, 1 << 20, 4 * 1024 * 1024 - 1,
 
 @pytest.fixture
 def runtime():
+    threads = torch.get_num_threads()
     torch.set_num_threads(1)
     hvd.init(device="cpu")
     yield hvd
     hvd.shutdown()
+    # later files in this process (one xdist worker runs many) keep their
+    # thread count
+    torch.set_num_threads(threads)
 
 
 def _raises_same(jfn, tfn):

@@ -3,7 +3,8 @@ on the same weights (a numpy tree of the JAX model's shapes), BN in eval
 mode (training mode: ``torch_port_zoo``), at the JAX tests' size (139 px,
 batch 2, 10 classes): logits within 1e-5 of their largest magnitude, the
 loss within 1e-5 and every gradient, through every block kind (A, the
-reductions, C, E), within 1e-4 of its tensor's largest magnitude."""
+reductions, C, E), within 1e-4 of its tensor's largest magnitude, at the
+default thread count and on one thread."""
 
 import numpy as np
 import pytest
@@ -39,6 +40,22 @@ def test_inception_v3_eval_loss_and_grads_match(v3):
     for block in ("a0", "b0", "c0", "d0", "e1"):
         assert sum(p.grad.abs().sum().item()
                    for p in getattr(model, block).parameters()) > 0, block
+
+
+def test_inception_v3_eval_loss_and_grads_match_on_one_thread(v3):
+    """The same check on one CPU thread, where PyTorch's convolutions in
+    ``channels_last`` memory round enough to flip a ReLU of block ``c2``'s
+    7x1 branch (float64 input 7.0e-6) and lose its gradient upstream
+    (``s0.conv.weight`` 2.8e-3 off); the port runs them contiguous on the
+    CPU (``layers.nchw``)."""
+    params, x, y = v3
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        check_eval(JI.loss_fn, params,
+                   TI.params_from_jax(params, device="cpu"), x, y)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_inception_v3_param_count():
