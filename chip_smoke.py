@@ -253,7 +253,22 @@ Phases, in order; any failure exits non-zero before the result line:
    ``tune.report`` reaches the driver; (c) ``probe_backend()`` returns
    ``''``, and a reason with the cards hidden from its child; the
    phase's seconds;
-9. printed last, after phase 20: a ``{"kernels": [...]}`` JSON line (the
+21. cluster (``phase_cluster``): phase 5's ``1b`` step placed by the
+   cluster layer, each task a fresh process (``cluster_task``): (a)
+   ``spark.run(num_proc=1)`` through ``LocalTaskExecutor`` and (b)
+   ``RayExecutor(num_workers=1)`` on ``LocalWorkerPool``, phase 5's 8
+   steps, losses and parameter checksums bitwise phase 5's; (c)
+   ``spark.run_elastic`` whose first task dies after step 2: one reset,
+   both attempts' losses bitwise phase 5's; (d) ``ElasticRayExecutor``
+   over ``FixedHosts(localhost:1)``: one round, the result back through
+   the driver's KV; (e) ``hvd.run(np=1)`` and a
+   ``tune.distributed_trainable(num_proc=1,
+   executor_factory=LocalTaskExecutor)`` trial; (c)-(e) 3 steps, bitwise
+   phase 5's; 16 launches a kernel a step in every part; printed: each
+   part's wall seconds, its task's start-up on the caller's clock, the
+   first step and the median of the rest beside phase 5's, the phase's
+   seconds;
+9. printed last, after phase 21: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128``, MoE
    ``mini``-shape ``d32`` and BERT-Large ``bert_large`` numbers, D=128
    resources, its ring-shape ``ring`` numbers and the launches of each
@@ -261,10 +276,13 @@ Phases, in order; any failure exits non-zero before the result line:
    15's, ``launches_perf`` phase 16's, ``launches_watch`` phase 17's,
    ``launches_elastic`` phase 18's two rounds', ``launches_zoo`` phase
    19's BERT-Large steps, ``launches_tune`` phase 20's grid trials,
-   ``launches_scenario`` its replays, which must be 0), then the ``{"ok":
-   true, "device": {...}}`` JSON line.
+   ``launches_scenario`` its replays, which must be 0, ``launches_cluster``
+   phase 21's parts), then the ``{"ok": true, "device": {...}}`` JSON line.
 
-    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic,zoo]
+Phase 21's and ``--parts cluster``'s tasks write and reuse compiled
+bytecode under ``build/pycache`` (``keep_bytecode``).
+
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic,zoo,cluster]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, started by the port's launcher as
@@ -407,7 +425,13 @@ the ranks' local variances would miss them); (c) BERT-Large under
 Ulysses over the 512 positions: the fp32 loss of 2 layers against one
 card's over the whole sequence (atol 2e-4, rtol 1e-3), then bf16 at
 full depth with Adam, gradients summed: tokens/s per card, parameters
-bitwise equal on every rank.  ``--parts`` runs a subset (default: all).
+bitwise equal on every rank.  The ``cluster`` part (``rank_cluster``,
+the parent again) places phase 5's step over N cards: the dp part's
+direct step launched as the reference, then ``spark.run(num_proc=N)``
+and ``RayExecutor(num_workers=N)`` (losses bitwise the reference's,
+parameters bitwise equal across the ranks and the two placements), then
+``spark.run_elastic`` with rank N-1's task killed after step 2, placed
+again at N-1 and finished.  ``--parts`` runs a subset (default: all).
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -416,6 +440,7 @@ TF32 is off for matrix products and convolutions
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import http.client
 import json
@@ -1134,6 +1159,33 @@ def phase_serve(torch, np, hvd, llama, serve, F, card: str) -> dict:
     return figures
 
 
+@contextlib.contextmanager
+def keep_bytecode(on: bool = True):
+    """Within, with ``on``: the processes started from here write and
+    reuse compiled bytecode under ``build/pycache``.  The card's machine
+    sets ``PYTHONDONTWRITEBYTECODE=1`` and ships no ``.pyc``, so each
+    fresh process compiled torch from source: ``import torch`` and
+    ``import torch._dynamo`` (which the first ``AdamW.step`` runs) took
+    22.6-23.5 s a process there, and 10.5-12.4 s once a first process had
+    written the cache (``scripts/torch_import_probe.py`` on the H100's
+    machine).  Phase 21 and ``--parts cluster`` start a fresh process a
+    part; the other phases keep the machine's env."""
+    keys = ("PYTHONDONTWRITEBYTECODE", "PYTHONPYCACHEPREFIX")
+    saved = {k: os.environ.get(k) for k in keys}
+    if on:
+        os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+        os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "build", "pycache")
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def free_port() -> int:
     """A free port below the kernel's ephemeral range, which it hands to
     outgoing connections: released here, a probed port stays free until
@@ -1456,6 +1508,8 @@ ZERO_CONFIGS = (
 # configurations that must be bitwise equal (same wire format and k)
 ZERO_SAME = (("L1", "L2", "L3", "L3 prefetch 1"), ("L2 k=2", "L3 k=2"),
              ("L1 bf16+EF", "L3 bf16+EF"))
+ZERO_LOSS_TOL = 1e-3     # --ranks N: losses against the none configuration's
+ZERO_FP32_K_TOL = 1e-5   # the CPU rehearsal: fp32 level 2, k=2 against k=1
 
 
 def zero_tokens(np, vocab: int, rows: int, seq: int, steps: int,
@@ -2492,13 +2546,63 @@ def rank_adasum_two_level(torch, np, hvd, rank: int, n: int, dev) -> None:
               flush=True)
 
 
+def zero_gaps(label: str, losses, ref_losses, tol: float) -> list:
+    """Each step's loss less the none wire configuration's; raises when
+    one is off by more than ``tol``."""
+    gaps = [a - b for a, b in zip(losses, ref_losses)]
+    require(len(losses) == len(ref_losses)
+            and max(abs(g) for g in gaps) <= tol,
+            f"zero [{label}]: losses {losses} against the none wire "
+            f"configuration's {ref_losses} (bound {tol:.2e})")
+    return gaps
+
+
+def zero_cpu_bound(torch, np, hvd, llama, F, dev, rank: int, n: int, cfg,
+                   tokens, rows: int, ref_losses) -> float:
+    """The CPU rehearsal's bound on a microbatched configuration's losses
+    against the none wire configuration's (k=1), and the check that holds
+    the k=2 path in fp32.
+
+    Both compute in bf16, and splitting a step's rows into microbatches
+    rounds its products otherwise; on the card the gap stays within
+    ``ZERO_LOSS_TOL``, on a CPU's bf16 path it need not (level 2 at k=2
+    read 1.17e-3 at step 7 of the tiny rehearsal, bitwise equal all the
+    while to ``DistributedOptimizer`` at k=2).  So (1) level 2 in fp32
+    compute at k=2 must stay within ``ZERO_FP32_K_TOL`` of k=1, which a
+    microbatch dropped or counted twice misses by far; (2) the bound is
+    2 delta, delta the largest gap of the none configuration's bf16
+    losses from level 2's fp32 losses at k=1: each bf16 run is a rounding
+    of the fp32 one, so two of them lie about 2 delta apart at most; and
+    never below ``ZERO_LOSS_TOL``."""
+    fp32 = {k: zero_run(torch, np, hvd, llama, F, dev, rank, n, cfg, tokens,
+                        rows, 2, k=k, master_fp32=False, warmup=WARMUP_STEPS,
+                        profile=True)["losses"] for k in (1, 2)}
+    k_gap = max(abs(a - b) for a, b in zip(fp32[2], fp32[1]))
+    delta = max(abs(a - b) for a, b in zip(ref_losses, fp32[1]))
+    tol = max(ZERO_LOSS_TOL, 2 * delta)
+    if rank == 0:
+        print(f"ranks [{n}] zero, CPU bound: level 2 in fp32, k=2 - k=1: "
+              + " ".join(f"{a - b:+.2e}" for a, b in zip(fp32[2], fp32[1]))
+              + f" (bound {ZERO_FP32_K_TOL:.0e}); none's bf16 - fp32: "
+              + " ".join(f"{a - b:+.2e}" for a, b in zip(ref_losses,
+                                                        fp32[1]))
+              + f"; microbatched configurations held to 2 x "
+              f"{delta:.2e} = {tol:.2e}", flush=True)
+    require(k_gap <= ZERO_FP32_K_TOL,
+            f"zero [L2 k=2 fp32]: losses {fp32[2]} against k=1's "
+            f"{fp32[1]} (bound {ZERO_FP32_K_TOL:.0e})")
+    return tol
+
+
 def rank_zero(torch, np, hvd, llama, F, rank: int, n: int, dev,
               cfg_name: str, batch: int, seq: int, ref_losses,
               big_name: str) -> None:
     """--ranks N, after the wire configurations: (a) ``cfg_name`` through
     ``ZERO_CONFIGS``, 8 steps of ``batch`` x ``seq`` per rank, bitwise
     equal across the ranks and within each group of ``ZERO_SAME``, and
-    within 1e-3 of the ``none`` wire configuration's losses; (b)
+    within ``ZERO_LOSS_TOL`` of the ``none`` wire configuration's losses
+    (on a CPU rehearsal the microbatched ones within ``zero_cpu_bound``);
+    (b)
     ``big_name`` cut to 2 layers, fp32 master weights, levels 1 and 3
     bitwise equal; (c) ``big_name`` at full depth in its own dtype (bf16),
     level 3, 2 warm-up, 4 timed and 1 profiled step of 1 x ``seq``."""
@@ -2518,6 +2622,11 @@ def rank_zero(torch, np, hvd, llama, F, rank: int, n: int, dev,
     cfg = llama.CONFIGS[cfg_name]
     tokens = zero_tokens(np, cfg.vocab, batch * n, seq,
                          WARMUP_STEPS + TIMED_STEPS + 1, n)
+    # microbatched configurations: the card's bound, or on a CPU the
+    # bound measured from bf16 rounding at this depth
+    k_tol = ZERO_LOSS_TOL if cuda else zero_cpu_bound(
+        torch, np, hvd, llama, F, dev, rank, n, cfg, tokens, batch,
+        ref_losses)
     runs = {}
     for label, level, k, pre, wire in ZERO_CONFIGS:
         r = runs[label] = zero_run(
@@ -2527,17 +2636,15 @@ def rank_zero(torch, np, hvd, llama, F, rank: int, n: int, dev,
         everywhere(r, label)
         if cuda:
             check_zero_launches(r, cfg.n_layers, k, label)
-        gaps = [a - b for a, b in zip(r["losses"], ref_losses)]
-        require(max(abs(g) for g in gaps) <= 1e-3,
-                f"zero [{label}]: losses {r['losses']} against the none "
-                f"wire configuration's {ref_losses}")
+        tol = ZERO_LOSS_TOL if k == 1 else k_tol
+        gaps = zero_gaps(label, r["losses"], ref_losses, tol)
         if rank == 0:
             print(f"ranks [{n}] zero {label} ({cfg_name}, fp32 master "
                   f"weights, bf16 compute, k={k} x {batch // k} x {seq} per "
                   f"rank): " + zero_line(r) + "; loss - none's: "
                   + " ".join(f"{g:+.2e}" for g in gaps)
-                  + f"; parameters bitwise equal on all {n} ranks",
-                  flush=True)
+                  + f" (bound {tol:.2e}); parameters bitwise equal on all "
+                  f"{n} ranks", flush=True)
     for group in ZERO_SAME:
         for label in group[1:]:
             require(runs[label]["losses"] == runs[group[0]]["losses"]
@@ -3200,7 +3307,7 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 # --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
 # path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
 RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve", "measure",
-              "perf", "postmortem", "elastic", "zoo")
+              "perf", "postmortem", "elastic", "zoo", "cluster")
 
 
 def rank_worker(spec: dict) -> None:
@@ -3222,7 +3329,8 @@ def rank_worker(spec: dict) -> None:
         rank_run(int(os.environ["HOROVOD_RANK"]),
                  int(os.environ["HOROVOD_SIZE"]), spec["ports"], spec["cfg"],
                  spec["device"], spec["batch"], spec["seq"],
-                 tuple(spec["parts"]), spec.get("zoo_ref"))
+                 tuple(spec["parts"]), spec.get("zoo_ref"),
+                 spec.get("out_dir"))
     except BaseException:
         import traceback
         traceback.print_exc()
@@ -3239,7 +3347,7 @@ def rank_env(rank: int, local: int, port: int, **extra) -> None:
 
 
 def rank_run(rank, n, ports, cfg_name, device_type, batch, seq,
-             parts, zoo_ref=None) -> None:
+             parts, zoo_ref=None, out_dir=None) -> None:
     os.environ["HOROVOD_SIZE"] = str(n)
     rank_env(rank, n, ports["store"],
              HOROVOD_CONTROLLER_PORT=str(ports["ctrl"]))
@@ -3257,6 +3365,13 @@ def rank_run(rank, n, ports, cfg_name, device_type, batch, seq,
         torch.set_num_threads(1)
     big_name = "8b" if cuda else cfg_name
     dev = ht.init(device=None if cuda else device_type).device
+    if "cluster" in parts:
+        # --parts cluster's reference: the dp part's direct step
+        r = rank_train(torch, np, hvd, ht, llama, F, mpi_ops, rank, n, dev,
+                       cfg_name, batch, seq, eager=False)
+        if rank == 0:
+            with open(os.path.join(out_dir, "reference.json"), "w") as f:
+                json.dump(r["losses"], f)
     if "dp" in parts:
         rank_dp(torch, np, hvd, ht, llama, F, mpi_ops, rank, n, dev, cfg_name,
                 device_type, batch, seq, big_name, ports)
@@ -3380,15 +3495,16 @@ RANK_PORTS = ("store", "ctrl", "wire", "layout", "seq", "ctrl2", "hier",
 
 def ranks_argv(n: int, parts, cfg_name: str = "1b",
                device_type: str = "cuda", batch: int = TRAIN_BATCH,
-               seq: int = TRAIN_SEQ, zoo_ref=None) -> list:
+               seq: int = TRAIN_SEQ, zoo_ref=None, out_dir=None) -> list:
     """The port launcher's arguments for ``--ranks N``: ``-np N`` (with
     ``--gpu`` on the card) and free coordinator and controller ports, each
     rank ``chip_smoke.py --rank-worker <json>``; ``zoo_ref`` is one card's
-    ResNet-50 images/s, which ``--parts zoo`` scales against."""
+    ResNet-50 images/s, which ``--parts zoo`` scales against; ``out_dir``
+    is where the ``cluster`` part's reference lands."""
     ports = {name: free_port() for name in RANK_PORTS}
     spec = {"ports": ports, "cfg": cfg_name, "device": device_type,
             "batch": batch, "seq": seq, "parts": list(parts),
-            "zoo_ref": zoo_ref}
+            "zoo_ref": zoo_ref, "out_dir": out_dir}
     return (["-np", str(n)] + (["--gpu"] if device_type == "cuda" else [])
             + ["--coordinator-port", str(ports["store"]),
                "--controller-port", str(ports["ctrl"]), sys.executable,
@@ -3404,7 +3520,7 @@ def phase_ranks(torch, n: int, parts) -> None:
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
     worker_parts = [p for p in parts
                     if p not in ("serve", "measure", "perf", "postmortem",
-                                 "elastic")]
+                                 "elastic", "cluster")]
     zoo_ref = None
     if "zoo" in parts:
         # one card's ResNet-50 at the recipe, the ranks' scaling reference
@@ -3463,6 +3579,13 @@ def phase_ranks(torch, n: int, parts) -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
         rank_elastic(torch, np, n, card)
+    if "cluster" in parts:
+        # placement through the cluster layer: the parent places the tasks
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        rank_cluster(torch, n, card)
 
 
 LAUNCH_STEPS = 3         # phase 13: 1 warm-up and 2 timed steps
@@ -3674,6 +3797,10 @@ def phase_launch(torch, card: str, ref_losses, ref_step_ms: float) -> dict:
 FLEET_TTL = 900          # the fleets' --serve-ttl: a backstop, the drain ends them
 FLEET_DEADLINE = 600     # seconds a fleet launch may take from start to exit
 FLEET_PREFILL_RANKS = 2  # --parts serve: ranks 0-1 prefill, 2-3 decode
+# seconds a fleet's reads may wait for what they count: the engines' stats
+# after the streams, the scrape (and, as long again, the merged timeline),
+# and the idle heartbeats; a CPU rehearsal beside a loaded run waits longer
+FLEET_SETTLE_S, FLEET_SCRAPE_S, FLEET_HEALTH_S = 10.0, 30.0, 30.0
 
 
 def http_json(port: int, method: str, path: str, body=None,
@@ -3909,7 +4036,7 @@ def run_fleet(label: str, servable: str, n: int, prompts: list,
         r["wall"] = time.perf_counter() - t_start
         # the engines' stats publishes are at most a second old: wait for
         # the ones that count every request
-        deadline = time.time() + 10
+        deadline = time.time() + FLEET_SETTLE_S
         while True:
             _, st = http_json(port, "GET", "/serve/stats")
             extra = {key: http_json(port, "GET", f"/serve/{key}")[1]
@@ -3921,7 +4048,7 @@ def run_fleet(label: str, servable: str, n: int, prompts: list,
                 break
             time.sleep(0.2)
         r["stats"], r["extra"] = st, extra
-        deadline = time.time() + 30
+        deadline = time.time() + FLEET_SCRAPE_S
         while scrape:
             text = http_text(port, "/metrics")
             counted = metric_value(text, "hvd_serve_requests_total",
@@ -3936,6 +4063,7 @@ def run_fleet(label: str, servable: str, n: int, prompts: list,
             r["doctor"] = {"serve": run_doctor(["--serve", url]),
                            "request": run_doctor(["--request", rid, url]),
                            "rid": rid}
+        deadline = time.time() + FLEET_SCRAPE_S
         while timeline:
             merged = json.loads(http_text(port, "/timeline"))
             spans = fleet_spans(merged)
@@ -3977,11 +4105,11 @@ def idle_health(label: str, port: int, n: int) -> dict:
     """``GET /health`` of an idle serving fleet, read until every rank's
     heartbeat shows a step past the first reading's (each worker loop
     stamps ``postmortem.record_step`` on every tick, idle ones too), at
-    most 30 s.  Returns rank -> (first step, later step)."""
+    most ``FLEET_HEALTH_S``.  Returns rank -> (first step, later step)."""
     def steps():
         return {r: info["heartbeat"].get("step") for r, info in
                 http_get_json(port, "/health")["ranks"].items()}
-    deadline = time.time() + 30
+    deadline = time.time() + FLEET_HEALTH_S
     while True:  # the first heartbeats may predate the loop's first tick
         first = steps()
         if sorted(first) == sorted(str(r) for r in range(n)) and all(
@@ -5213,6 +5341,7 @@ WATCH_DEADLINE = 600     # seconds a forensics launch may take to exit
 WATCH_KILL_LAYERS = 2    # phase 17's kill launch: 1b cut to 2 layers
 WATCH_WATERMARK = "0.05"  # phase 17: the memory sampler's high watermark
 POSTMORTEM_TIMEOUT = "20"  # --parts postmortem: HOROVOD_HEARTBEAT_TIMEOUT
+SENTINEL_VIEW_S = 60     # (e), (f): seconds to wait for every rank's alert
 STRAGGLER_TICKS = 5      # --parts postmortem (c): negotiated ticks after each step
 STRAGGLER_TICK_S = 0.2   # --parts postmortem (c): seconds between tick starts
 # --parts postmortem (c): the stall at `complete`.  70 ms puts rank 1's
@@ -5653,10 +5782,10 @@ def phase_forensics(torch, card: str, ref_losses, ref_step_ms: float,
 def sentinel_views(mport: int, n: int) -> dict:
     """What the parent reads while a sentinel launch's ranks wait to be
     released: ``sentinel-nonfinite`` firing at ``GET /alerts`` (polled
-    until it names all ``n`` ranks, at most 60 s), ``GET /health`` and a
-    ``launch doctor --watch --once`` frame."""
+    until it names all ``n`` ranks, at most ``SENTINEL_VIEW_S``), ``GET
+    /health`` and a ``launch doctor --watch --once`` frame."""
     t0, firing = time.time(), []
-    while time.time() < t0 + 60:
+    while time.time() < t0 + SENTINEL_VIEW_S:
         firing = [a for a in http_get_json(mport, "/alerts")["firing"]
                   if a["rule"] == "sentinel-nonfinite"]
         if {a["rank"] for a in firing} == set(range(n)):
@@ -7561,6 +7690,395 @@ def phase_scenario(torch, np, hvd, llama, serve, F, card: str, ref_losses,
     return out
 
 
+# phase 21 and --parts cluster: placement through the cluster layer
+CLUSTER_STEPS = 3        # (c)-(e): phase 5's first steps
+CLUSTER_KILL_AFTER = 2   # (c) and --parts cluster: a task dies after step 2
+CLUSTER_CPU = dict(cfg_name="tiny", batch=2, seq=32)  # the CPU rehearsal
+
+
+def cluster_task(spec: dict) -> dict:
+    """Phase 21's and ``--parts cluster``'s task function, imported by name
+    in the tasks: phase 5's step (``spec["cfg"]`` from seed 0, AdamW at
+    ``spec["lr"]`` through ``DistributedOptimizer``, the flash kernels,
+    ``ce_chunks=8``) for ``spec["steps"]`` of phase 5's batches, ``batch``
+    x ``seq`` a rank, on ``cuda:<local rank>`` (or the CPU for
+    ``device="cpu"``).  With ``kill_after``, rank ``kill_rank`` writes its
+    losses to ``marker`` and dies after that step unless ``marker``
+    exists.  Returns the losses, each step's ms, the parameters'
+    checksums, the kernels' launches and the start-up's clock readings."""
+    t_main = time.time()
+    import numpy as np
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = spec["device"] == "cuda"
+    if not cuda:  # gloo tasks beside each other on a few cores
+        torch.set_num_threads(1)
+    dev = hvd.init(device=None if cuda else spec["device"]).device
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t_init = time.time()
+    cfg = llama.CONFIGS[spec["cfg"]]
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=spec.get("lr", 3e-4),
+                          weight_decay=0.01),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    step = hvd.make_train_step(
+        model, lambda m, ids: llama.loss_fn(m, ids, attn_fn=hvd.flash_attention,
+                                            ce_chunks=8), opt)
+    rng = np.random.RandomState(0)
+    batches = [torch.from_numpy(rng.randint(
+        0, cfg.vocab, (spec["batch"] * hvd.size(), spec["seq"] + 1),
+        dtype=np.int32)).to(dev) for _ in range(spec["steps"])]
+    sync()
+    t_ready = time.time()
+    F.reset_launches()
+    losses, step_ms = [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(float(step(b)))
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if (i + 1 == spec.get("kill_after")
+                and hvd.rank() == spec.get("kill_rank", 0)
+                and not os.path.exists(spec["marker"])):
+            with open(spec["marker"], "w") as f:
+                json.dump(losses, f)
+            os._exit(1)  # the task dies, as a lost card or host takes it
+    out = {"losses": losses, "step_ms": step_ms,
+           "sums": param_checksums(torch, list(model.parameters())).cpu(),
+           "launches": dict(F.LAUNCHES), "device": str(dev),
+           "rank": hvd.rank(), "size": hvd.size(), "t_main": t_main,
+           "t_init": t_init, "t_ready": t_ready,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+    hvd.shutdown()
+    return out
+
+
+def cluster_trial(config: dict) -> dict:
+    """Phase 21 (e)'s ``tune`` trial: ``cluster_task`` at the trial's lr;
+    every step's loss and the kernels' launches as the trial's metrics."""
+    r = cluster_task(dict(config["spec"], lr=config["lr"]))
+    out = {f"loss{i}": x for i, x in enumerate(r["losses"])}
+    out.update({f"launches_{k}": float(v) for k, v in r["launches"].items()})
+    out["loss"] = r["losses"][-1]
+    out["cuda"] = float(r["device"].startswith("cuda"))
+    return out
+
+
+def cluster_line(label: str, r: dict, t0: float, wall: float,
+                 ref_step_ms: float) -> str:
+    """A part's times: the wall seconds, the task's start-up on the
+    caller's clock, the first step and the median of the rest."""
+    rest = sorted(r["step_ms"][1:])
+    med = rest[len(rest) // 2] if rest else float("nan")
+    return (f"cluster [{label}] {r['device']} rank {r['rank']} of "
+            f"{r['size']}: {wall:.2f} s wall; the task's python up at "
+            f"{r['t_main'] - t0:.2f} s, hvd.init done at "
+            f"{r['t_init'] - t0:.2f} s, model ready at "
+            f"{r['t_ready'] - t0:.2f} s; first step {r['step_ms'][0]:.1f} "
+            f"ms, median of steps 2-{len(r['step_ms'])} {med:.1f} ms "
+            f"(phase 5: {ref_step_ms:.1f} ms); peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB")
+
+
+def check_cluster_launches(label: str, r: dict, layers: int,
+                           steps: int) -> None:
+    for name in REPLACES:
+        require(r["launches"].get(name) == layers * steps,
+                f"cluster [{label}]: {name} launched "
+                f"{r['launches'].get(name)} times, expected "
+                f"{layers * steps}")
+
+
+def phase_cluster(torch, card: str, ref_losses, ref_sums,
+                  ref_step_ms: float, device_type: str = "cuda",
+                  cfg_name: str = "1b", batch: int = TRAIN_BATCH,
+                  seq: int = TRAIN_SEQ) -> dict:
+    """Phase 21: phase 5's step placed by the cluster layer on one card,
+    each task a fresh process: (a) ``spark.run(num_proc=1)`` through
+    ``LocalTaskExecutor``; (b) ``RayExecutor(num_workers=1)`` on
+    ``LocalWorkerPool``: both phase 5's 8 steps, losses and parameter
+    checksums bitwise phase 5's; (c) ``spark.run_elastic`` whose first
+    attempt's task dies after step ``CLUSTER_KILL_AFTER``: one reset, the
+    first attempt's and the second's losses bitwise phase 5's first
+    steps; (d) ``ElasticRayExecutor(min_np=1, max_np=1)`` over
+    ``FixedHosts(localhost:1)``: one round, the result back through the
+    driver's KV; (e) ``hvd.run(np=1)`` and one
+    ``tune.distributed_trainable(num_proc=1,
+    executor_factory=LocalTaskExecutor)`` trial.  (c)-(e) run
+    ``CLUSTER_STEPS`` steps, each bitwise phase 5's; each kernel launched
+    16 times a step in every part.  Returns the launches summed over the
+    parts, and the phase's seconds."""
+    import shutil
+    import tempfile
+    import chip_smoke as this  # importable by name in the tasks
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import spark, tune
+    from horovod_tpu_torch.elastic.discovery import FixedHosts
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ray import (ElasticRayExecutor, LocalWorkerPool,
+                                       RayExecutor)
+    from horovod_tpu_torch.runner.hosts import HostInfo
+    from horovod_tpu_torch.utils import metrics
+    cuda = device_type == "cuda"
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.empty_cache()
+    layers = llama.CONFIGS[cfg_name].n_layers
+    spec = dict(device=device_type, cfg=cfg_name, batch=batch, seq=seq,
+                steps=len(ref_losses))
+    short = dict(spec, steps=CLUSTER_STEPS)
+    total = {name: 0 for name in REPLACES}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+
+    def part(label, run, steps, full=False):
+        t0 = time.time()
+        results = run()
+        wall = time.time() - t0
+        require(len(results) == 1, f"cluster [{label}]: {len(results)} "
+                                   "results for one task")
+        r = results[0]
+        ref = ref_losses[:steps]
+        print(cluster_line(label, r, t0, wall, ref_step_ms), flush=True)
+        print(f"cluster [{label}]: losses "
+              + " ".join(f"{x:.5f}" for x in r["losses"])
+              + f"; bitwise phase 5's: {r['losses'] == ref}"
+              + (f"; parameter checksums bitwise phase 5's: "
+                 f"{torch.equal(r['sums'], ref_sums)}" if full else ""),
+              flush=True)
+        require(r["device"].startswith(device_type),
+                f"cluster [{label}]: the task ran on {r['device']}")
+        require(r["losses"] == ref, f"cluster [{label}]: losses "
+                                    f"{r['losses']} vs phase 5's {ref}")
+        if full:
+            require(torch.equal(r["sums"], ref_sums),
+                    f"cluster [{label}]: parameters differ from phase 5's")
+        if cuda:
+            check_cluster_launches(label, r, layers, steps)
+        for name in REPLACES:
+            total[name] += r["launches"].get(name, 0)
+        return r
+
+    try:
+        with keep_bytecode(cuda):
+            # (a) spark.run on one local task
+            part("spark.run num_proc=1", lambda: spark.run(
+                this.cluster_task, args=(spec,), num_proc=1,
+                executor=spark.LocalTaskExecutor(1),
+                coordinator_port=free_port()), len(ref_losses), full=True)
+            # (b) RayExecutor on one local worker
+            ex = RayExecutor(num_workers=1, pool=LocalWorkerPool(),
+                             coordinator_port=free_port())
+            try:  # the pool's start inside the part's wall time
+                part("RayExecutor num_workers=1", lambda: (
+                    ex.start(), ex.run(this.cluster_task, args=(spec,)))[1],
+                    len(ref_losses), full=True)
+            finally:
+                ex.shutdown()
+            # (c) run_elastic: the first attempt's task dies after step 2
+            marker = os.path.join(out_dir, "killed")
+            sizes = []
+
+            def factory(n):
+                sizes.append(n)
+                return spark.LocalTaskExecutor(n)
+            part("spark.run_elastic, second attempt",
+                 lambda: spark.run_elastic(
+                     this.cluster_task, args=(dict(
+                         short, kill_after=CLUSTER_KILL_AFTER, kill_rank=0,
+                         marker=marker),), num_proc=1, min_np=1, reset_limit=1,
+                     executor_factory=factory, coordinator_port=free_port()),
+                 CLUSTER_STEPS)
+            with open(marker) as f:
+                first = json.load(f)
+            print(f"cluster [spark.run_elastic]: attempts at np {sizes}; the "
+                  "first attempt's losses before its task died "
+                  + " ".join(f"{x:.5f}" for x in first)
+                  + f", bitwise phase 5's: "
+                  f"{first == ref_losses[:CLUSTER_KILL_AFTER]}", flush=True)
+            require(sizes == [1, 1], f"run_elastic: attempts at np {sizes}, "
+                                     "expected one reset")
+            require(first == ref_losses[:CLUSTER_KILL_AFTER],
+                    f"run_elastic: the first attempt's losses {first}")
+            # (d) ElasticRayExecutor over FixedHosts(localhost:1)
+            resets = metrics.ELASTIC_RESETS.value()
+            ex = ElasticRayExecutor(
+                min_np=1, max_np=1, discovery=FixedHosts([HostInfo(
+                    "localhost", 1)]), elastic_timeout=120,
+                coordinator_port=free_port(), controller_port=free_port())
+            ex.start()
+            part("ElasticRayExecutor min_np=max_np=1",
+                 lambda: ex.run(this.cluster_task, args=(short,)),
+                 CLUSTER_STEPS)
+            ex.shutdown()
+            rounds = 1 + metrics.ELASTIC_RESETS.value() - resets
+            require(rounds == 1, f"ElasticRayExecutor: {rounds} rounds")
+            # (e) hvd.run and a tune trial, both through the placement
+            part("hvd.run np=1", lambda: hvd.run(
+                this.cluster_task, args=(short,), np=1,
+                coordinator_port=free_port()), CLUSTER_STEPS)
+            t0 = time.time()
+            trial = tune.distributed_trainable(
+                this.cluster_trial, num_proc=1,
+                executor_factory=spark.LocalTaskExecutor,
+                coordinator_port=free_port())
+            res = tune.run(trial, config={"lr": 3e-4, "spec": short},
+                           metric="loss", mode="min")
+            t = res.trials[0]
+            got = [t.metrics.get(f"loss{i}") for i in range(CLUSTER_STEPS)]
+            print(f"cluster [tune.distributed_trainable num_proc=1]: "
+                  f"{time.time() - t0:.2f} s wall; losses {got}; error "
+                  f"{t.error}; bitwise phase 5's: "
+                  f"{got == ref_losses[:CLUSTER_STEPS]}", flush=True)
+            require(t.error is None and got == ref_losses[:CLUSTER_STEPS]
+                    and t.metrics.get("cuda") == float(cuda),
+                    f"the tune trial: {t}")
+            for name in REPLACES:
+                n = int(t.metrics.get(f"launches_{name}", 0))
+                if cuda:
+                    require(n == layers * CLUSTER_STEPS,
+                            f"the tune trial: {name} launched {n} times")
+                total[name] += n
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    s = time.perf_counter() - t_phase
+    print(f"cluster [{card}]: phase 21 took {s:.1f} s; launches "
+          + json.dumps(total), flush=True)
+    return {"launches": total, "s": s}
+
+
+def rank_cluster(torch, n: int, card: str, device_type: str = "cuda",
+                 cfg_name: str = "1b", batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ) -> None:
+    """``--parts cluster``: phase 5's step data-parallel over N cards
+    placed by the cluster layer.  The reference is the dp part's direct
+    step (``rank_train``) on ranks the launcher starts; then
+    ``spark.run(num_proc=N)`` and ``RayExecutor(num_workers=N)`` place
+    ``cluster_task`` for phase 5's 8 steps: every rank's losses bitwise
+    the reference's, the parameters bitwise equal across the ranks and
+    between the two placements; then ``spark.run_elastic`` with rank N-1's
+    task killed after step 2: one reset, the job placed again at N-1 and
+    finished, its parameters bitwise equal across its ranks."""
+    import shutil
+    import tempfile
+    import chip_smoke as this  # importable by name in the tasks
+    from horovod_tpu_torch import spark
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ray import LocalWorkerPool, RayExecutor
+    from horovod_tpu_torch.runner import launch
+    cuda = device_type == "cuda"
+    layers = llama.CONFIGS[cfg_name].n_layers
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    steps = WARMUP_STEPS + TIMED_STEPS + 1
+    spec = dict(device=device_type, cfg=cfg_name, batch=batch, seq=seq,
+                steps=steps)
+    try:
+        with keep_bytecode(device_type == "cuda"):
+            t0 = time.time()
+            rc = launch.run_commandline(ranks_argv(
+                n, ("cluster",), cfg_name, device_type, batch, seq,
+                out_dir=out_dir))
+            require(rc == 0, f"--parts cluster: the reference launch "
+                             f"returned {rc}")
+            with open(os.path.join(out_dir, "reference.json")) as f:
+                ref = json.load(f)
+            print(f"ranks [{n}] cluster reference (the dp part's direct step, "
+                  f"launched): losses " + " ".join(f"{x:.5f}" for x in ref)
+                  + f"; {time.time() - t0:.2f} s wall", flush=True)
+            placed = {}
+            t0 = time.time()
+            placed["spark.run"] = spark.run(
+                this.cluster_task, args=(spec,), num_proc=n,
+                executor=spark.LocalTaskExecutor(n),
+                coordinator_port=free_port())
+            walls = {"spark.run": time.time() - t0}
+            ex = RayExecutor(num_workers=n, pool=LocalWorkerPool(),
+                             coordinator_port=free_port())
+            t0 = time.time()
+            try:
+                ex.start()
+                placed["RayExecutor"] = ex.run(this.cluster_task, args=(spec,))
+            finally:
+                ex.shutdown()
+            walls["RayExecutor"] = time.time() - t0
+            for label, rs in placed.items():
+                require([r["rank"] for r in rs] == list(range(n))
+                        and all(r["size"] == n for r in rs),
+                        f"--parts cluster [{label}]: ranks "
+                        f"{[(r['rank'], r['size']) for r in rs]}")
+                devices = [r["device"] for r in rs]
+                if cuda:
+                    require(devices == [f"cuda:{i}" for i in range(n)],
+                            f"--parts cluster [{label}]: devices {devices}")
+                    for r in rs:
+                        check_cluster_launches(f"{label} rank {r['rank']}", r,
+                                               layers, steps)
+                same = all(torch.equal(r["sums"], rs[0]["sums"]) for r in rs)
+                rest = sorted(rs[0]["step_ms"][1:])
+                print(f"ranks [{n}] cluster [{label}]: {walls[label]:.2f} s "
+                      f"wall on {devices}; first step "
+                      f"{rs[0]['step_ms'][0]:.1f} "
+                      f"ms, median of steps 2-{steps} "
+                      f"{rest[len(rest) // 2]:.1f} ms; losses "
+                      + " ".join(f"{x:.5f}" for x in rs[0]["losses"])
+                      + f"; bitwise the reference's: "
+                      f"{all(r['losses'] == ref for r in rs)}; parameters "
+                      f"bitwise equal on all {n} ranks: {same}; launches a "
+                      f"rank {json.dumps(rs[0]['launches'])}", flush=True)
+                require(all(r["losses"] == ref for r in rs),
+                        f"--parts cluster [{label}]: losses "
+                        f"{[r['losses'] for r in rs]} vs the reference's "
+                        f"{ref}")
+                require(same, f"--parts cluster [{label}]: parameters differ "
+                              "across the ranks")
+            require(all(torch.equal(a["sums"], b["sums"]) for a, b in zip(
+                placed["spark.run"], placed["RayExecutor"])),
+                "--parts cluster: spark.run and RayExecutor trained apart")
+            marker = os.path.join(out_dir, "killed")
+            sizes = []
+
+            def factory(k):
+                sizes.append(k)
+                return spark.LocalTaskExecutor(k)
+            t0 = time.time()
+            rs = spark.run_elastic(
+                this.cluster_task, args=(dict(
+                    spec, steps=CLUSTER_STEPS, kill_after=CLUSTER_KILL_AFTER,
+                    kill_rank=n - 1, marker=marker),), num_proc=n, min_np=1,
+                reset_limit=1, executor_factory=factory,
+                coordinator_port=free_port())
+            same = all(torch.equal(r["sums"], rs[0]["sums"]) for r in rs)
+            print(f"ranks [{n}] cluster [spark.run_elastic]: rank {n - 1}'s "
+                  "task "
+                  f"killed after step {CLUSTER_KILL_AFTER}; attempts at np "
+                  f"{sizes}; {time.time() - t0:.2f} s wall; the second "
+                  f"attempt's losses " + " ".join(f"{x:.5f}" for x in
+                                                   rs[0]["losses"])
+                  + f"; parameters bitwise equal on all {len(rs)} ranks: "
+                  f"{same}; launches a rank {json.dumps(rs[0]['launches'])}",
+                  flush=True)
+            require(os.path.exists(marker) and sizes == [n, n - 1]
+                    and len(rs) == n - 1,
+                    f"--parts cluster [run_elastic]: attempts at np {sizes}, "
+                    f"{len(rs)} results")
+            require(same and all(math.isfinite(x) for r in rs
+                                 for x in r["losses"]),
+                    "--parts cluster [run_elastic]: the second attempt "
+                    f"{[r['losses'] for r in rs]}")
+            if cuda:
+                for r in rs:
+                    check_cluster_launches(f"run_elastic rank {r['rank']}", r,
+                                           layers, CLUSTER_STEPS)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
 def main() -> int:
     args = sys.argv[1:]
     if len(args) == 2 and args[0] in ("--rank-worker", "--launched",
@@ -7654,6 +8172,7 @@ def main() -> int:
     serve_ref = phase_serve(torch, np, hvd, llama, serve, F, card)
     eager, eager_ms = phase_eager(torch, np, hvd, llama, F, card, losses,
                                   step_ms, tok_s, busy, params)
+    sums = param_checksums(torch, params)  # phase 21's reference
     del params
     wire = phase_wire(torch, np, hvd, llama, F)
     zero, zero_runs = phase_zero(torch, np, hvd, llama, F, card)
@@ -7669,6 +8188,7 @@ def main() -> int:
     zoo = phase_zoo(torch, np, hvd, F, L, card)
     scen = phase_scenario(torch, np, hvd, llama, serve, F, card, losses,
                           step_ms)
+    cluster = phase_cluster(torch, card, losses, sums, step_ms)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -7686,6 +8206,7 @@ def main() -> int:
         row["launches_zoo"] = zoo["launches"][row["name"]]
         row["launches_tune"] = scen["launches_tune"][row["name"]]
         row["launches_scenario"] = scen["launches_scenario"][row["name"]]
+        row["launches_cluster"] = cluster["launches"][row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

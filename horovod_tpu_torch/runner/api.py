@@ -5,33 +5,18 @@ Reference: ``horovod.run`` (horovod/__init__.py -> runner/launch.py:763) —
 run a function on N distributed workers from inside a Python program and
 get the per-rank results back, no CLI involved.
 
-The JAX version places its workers through ``spark/runner.py``'s
-``LocalTaskExecutor``; the port has no ``spark/`` yet (ROADMAP queue 1
-item 5), so it carries its own local executor, on the launcher itself:
-the function goes to the workers pickled through the rendezvous KV (scope
-``run``, key ``fn``), each rank runs it under the launcher's env block
-(``launch.launch_static``: slot, rendezvous, coordinator and controller
-env, fail-fast reap), and puts its result back under ``result.<rank>``.
-The function must be importable by the workers (a module-level function);
-they get the caller's ``sys.path`` as ``PYTHONPATH``.
+As in the JAX package, the workers are placed by ``spark/runner.py``'s
+``LocalTaskExecutor``: local processes started with ``spawn``, each with
+the ``HOROVOD_*`` block of ``runner/hosts.py`` ``env_for_tasks`` and the
+``torch.distributed`` store at ``coordinator_port``.  There is no
+launcher and no rendezvous KV: the function and its result travel
+pickled between the caller and its workers, so ``func`` must be
+importable by them (a module-level function).
 """
 
 from __future__ import annotations
 
-import argparse
-import os
-import pickle
-import socket
-import sys
 from typing import Any, Callable, Dict, List, Optional, Sequence
-
-SCOPE = "run"
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def run(func: Callable, args: Sequence[Any] = (),
@@ -46,8 +31,8 @@ def run(func: Callable, args: Sequence[Any] = (),
     ``np`` defaults to the total slots of ``hosts`` (else 1).  ``hosts``
     other than localhost raises NotImplementedError: use the launcher CLI
     for multi-host jobs.  ``env`` joins every worker's env.  A worker that
-    raises ends the job (the launcher's fail-fast), and ``run`` raises
-    RuntimeError with its traceback."""
+    raises ends the job, and ``run`` raises RuntimeError with its
+    traceback."""
     if hosts is not None:
         from .hosts import parse_hosts
         infos = parse_hosts(hosts)
@@ -68,36 +53,10 @@ def run(func: Callable, args: Sequence[Any] = (),
     if verbose:
         print(f"[horovod_tpu_torch.run] launching {np} local worker "
               f"process(es), coordinator port {coordinator_port}")
-    from . import launch
-    from .http_server import RendezvousServer
-    ns = launch.make_parser().parse_args(
-        ["-np", str(np), "--coordinator-port", str(coordinator_port),
-         "--controller-port", str(_free_port())]
-        + (["--verbose"] if verbose else []))
-    rendezvous = RendezvousServer(shards=launch.resolve_kv_shards(ns))
-    rendezvous.start()
-    rendezvous.put(SCOPE, "fn", pickle.dumps(
-        (func, tuple(args), dict(kwargs or {}))))
-    path = [p for p in sys.path if p]
-    if os.environ.get("PYTHONPATH"):
-        path.append(os.environ["PYTHONPATH"])
-    extra = dict(env or {})
-    extra["PYTHONPATH"] = os.pathsep.join(path)
-    rc = launch.launch_static(
-        ns, [sys.executable, "-m", "horovod_tpu_torch.runner.task"],
-        rendezvous=rendezvous, extra_env=extra)
-    raws = [rendezvous.get(SCOPE, f"result.{rank}") for rank in range(np)]
-    outs = [pickle.loads(raw) for raw in raws if raw is not None]
-    if rc == 0 and len(outs) == np and all(s == "ok" for s, _ in outs):
-        return [val for _, val in outs]
-    # a rank that raised reported its traceback; a rank the launcher
-    # ended for it did not
-    errors = [(r, pickle.loads(raw)[1]) for r, raw in enumerate(raws)
-              if raw is not None and pickle.loads(raw)[0] == "error"]
-    missing = [r for r, raw in enumerate(raws) if raw is None]
-    why = (f"rank {errors[0][0]} raised:\n{errors[0][1]}" if errors else
-           f"rank(s) {missing} exited without reporting a result")
-    raise RuntimeError(f"run(): the job ended with exit code {rc}; {why}")
+    from ..spark.runner import LocalTaskExecutor, run as _run
+    return _run(func, args=args, kwargs=kwargs or {}, num_proc=np,
+                executor=LocalTaskExecutor(np), env=env,
+                coordinator_port=coordinator_port)
 
 
 __all__ = ["run"]

@@ -11,9 +11,8 @@ The Bayesian engine is the port's native Gaussian process + expected
 improvement (``csrc/core/optim.cc`` through ``common/basics.py``
 ``BayesianOptimizer``, the optimizer behind autotune and the same code
 as the JAX package's), so no external tuning framework is required.
-``distributed_trainable`` runs a trial's workers through the port's own
-launcher (``runner/api.py`` ``run``), where the JAX package uses its
-``spark.run`` executors.
+``distributed_trainable`` places a trial's workers through ``spark.run``'s
+executors (``spark/runner.py``), as the JAX package does.
 
     from horovod_tpu_torch import tune
 
@@ -258,21 +257,17 @@ def distributed_trainable(fn: Callable, num_proc: int = 1,
     """Adapt ``fn(config) -> metric`` into a trial that runs on
     ``num_proc`` distributed workers per trial (reference:
     DistributedTrainableCreator's num_hosts/num_slots scoping).  Workers
-    start through the port's launcher (``runner/api.py`` ``run``, local
-    processes: the JAX package's ``spark.run`` placement is not ported,
-    so ``executor_factory`` must stay None); rank 0 scores the trial —
+    are placed through the same layer as ``spark.run``:
+    ``executor_factory(num_proc)``, or local processes
+    (``LocalTaskExecutor``) when it is None; rank 0 scores the trial —
     via its return value AND any ``tune.report`` calls it made
     (forwarded from the worker process)."""
-    if executor_factory is not None:
-        raise NotImplementedError(
-            "distributed_trainable(executor_factory=...) places trials "
-            "through the JAX package's spark executors, which the port "
-            "does not have (ROADMAP queue 1 item 5); its trials run as "
-            "local processes through runner/api.py run")
-
     def trial(config):
-        from .runner.api import run as dist_run
-        out = dist_run(_WorkerTrial(fn), args=(config,), np=num_proc,
+        from .spark.runner import LocalTaskExecutor, run as dist_run
+        executor = (executor_factory(num_proc) if executor_factory
+                    else LocalTaskExecutor(num_proc))
+        out = dist_run(_WorkerTrial(fn), args=(config,),
+                       num_proc=num_proc, executor=executor,
                        coordinator_port=coordinator_port)
         ret, reported = out[0]
         if reported:

@@ -61,8 +61,12 @@ elif {part!r} == "ranks":
                       batch=1, seq=64, timeout_s="6", tick_s=0.3,
                       stall_ms=200, tags="abcd", ticks=17)
 else:
+    # (e) and (f) stall nothing: the card's heartbeat patience, and up to
+    # 200 s for every rank's alert, so a loaded CPU reads no stale rank
+    C.SENTINEL_VIEW_S = 200
     C.rank_postmortem(torch, 4, "CPU", device_type="cpu", cfg_name="tiny",
-                      batch=1, seq=64, timeout_s="6", tags="ef")
+                      batch=1, seq=64, timeout_s=C.POSTMORTEM_TIMEOUT,
+                      tags="ef")
 print("REHEARSAL-OK", flush=True)
 """
 

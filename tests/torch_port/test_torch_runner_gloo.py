@@ -189,3 +189,32 @@ def test_run_raises_with_the_failing_ranks_traceback():
     with pytest.raises(ValueError):
         hvd.run(W.peer_info, args=("x",), np=3, hosts="localhost:2")
 
+
+
+def test_run_places_through_the_local_task_executor(monkeypatch):
+    """``run`` places its workers with ``spark.runner.LocalTaskExecutor``,
+    as the JAX ``run`` does, and each task gets the JAX ``run``'s env."""
+    import torch_port_cluster_worker as CW
+    from horovod_tpu import run as jax_run
+    from horovod_tpu_torch.spark import runner as R
+    from torch_port_deadline import deadline
+    seen = []
+    real = R.LocalTaskExecutor.run_tasks
+
+    def spy(self, task_fn):
+        seen.append((self.num_tasks(), type(task_fn).__name__))
+        return real(self, task_fn)
+
+    monkeypatch.setattr(R.LocalTaskExecutor, "run_tasks", spy)
+    keys = ("HOROVOD_RANK", "HOROVOD_SIZE", "HOROVOD_LOCAL_RANK",
+            "HOROVOD_LOCAL_SIZE", "HOROVOD_CROSS_RANK",
+            "HOROVOD_CROSS_SIZE", "HOROVOD_COORDINATOR_ADDR")
+    port = _free_port()
+    with deadline(120, "run() of the port and of the JAX package"):
+        got = hvd.run(CW.env_block, args=(keys,), np=2,
+                      coordinator_port=port)
+        want = jax_run(CW.env_block, args=(keys,), np=2,
+                       coordinator_port=port)
+    assert seen == [(2, "_Task")]
+    assert got == want
+    assert [g["HOROVOD_RANK"] for g in got] == ["0", "1"]

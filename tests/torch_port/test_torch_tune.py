@@ -3,9 +3,9 @@
 can run here held to it: the same trials (configs and metrics, exact) for
 the grid runs and for the Bayesian runs, whose proposals come from the two
 packages' copies of the native GP (``csrc/core/optim.cc`` and
-``csrc/optim.cc``) with the same seed.  The distributed trials start
-their workers through the port's launcher (``runner/api.py`` ``run``) on
-free coordinator ports."""
+``csrc/optim.cc``) with the same seed.  The distributed trials place
+their workers through ``spark.run``'s executors (local processes, or an
+``executor_factory``'s) on free store ports."""
 
 import os
 
@@ -15,6 +15,7 @@ import pytest  # noqa: E402
 
 from horovod_tpu import tune as jtune  # noqa: E402
 from horovod_tpu_torch import tune  # noqa: E402
+from torch_port_deadline import deadline  # noqa: E402
 from torch_port_ports import hold_ports  # noqa: E402
 
 
@@ -217,6 +218,43 @@ def test_distributed_trainable_raises_on_no_metric():
     res = tune.run(trial, config={"lr": tune.grid_search([0.1])},
                    metric="loss")
     assert res.trials[0].error and "no metric" in res.trials[0].error
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tune.distributed_trainable(_silent_dist,
-                                   executor_factory=lambda n: None)
+    from horovod_tpu_torch.spark import LocalTaskExecutor
+    trial = tune.distributed_trainable(_silent_dist, num_proc=1,
+                                       executor_factory=LocalTaskExecutor,
+                                       coordinator_port=_port())
+    res = tune.run(trial, config={"lr": tune.grid_search([0.1])},
+                   metric="loss")
+    assert res.trials[0].error and "no metric" in res.trials[0].error
+
+
+def _plain_dist(config):
+    # no init: the JAX package's tasks import JAX, the port's torch
+    import os as _os
+    return (config["lr"] - 0.25) ** 2 + 0.0 * int(_os.environ["HOROVOD_RANK"])
+
+
+def test_distributed_trainable_executor_factory_trials_equal_jax():
+    """Trials placed through ``executor_factory(num_proc)``: the factory
+    is called once a trial with ``num_proc``, its tasks run the trial, and
+    the trials equal the JAX package's through its own executors."""
+    from horovod_tpu.spark import LocalTaskExecutor as JaxExecutor
+    from horovod_tpu_torch.spark import LocalTaskExecutor
+    calls = []
+
+    def factory(n):
+        calls.append(n)
+        return LocalTaskExecutor(n)
+
+    config = {"lr": tune.grid_search([0.1, 0.25])}
+    with deadline(180, "two trials of each package on two tasks"):
+        got = tune.run(tune.distributed_trainable(
+            _plain_dist, num_proc=2, executor_factory=factory,
+            coordinator_port=_port()), config=config, metric="loss")
+        want = jtune.run(jtune.distributed_trainable(
+            _plain_dist, num_proc=2, executor_factory=JaxExecutor,
+            coordinator_port=_port()), config=_jax_domains(config),
+            metric="loss")
+    assert calls == [2, 2]
+    assert _trials(got) == _trials(want)
+    assert [t.error for t in got.trials] == [None, None]
+    assert got.best_config == {"lr": 0.25} and got.best_metric == 0.0

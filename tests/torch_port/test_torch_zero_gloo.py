@@ -337,6 +337,29 @@ def test_tiny_llama_matches_jax_per_parameter(ranks, monkeypatch, level):
                                        **S_TOL)
 
 
+def test_tiny_llama_microbatched_matches_jax(ranks, monkeypatch):
+    """Level 2 at k=2 (two microbatches a step, gradient shards
+    accumulated) on the tiny Llama in fp32 against the JAX chain on the
+    same weights and tokens: the path the ``--ranks N`` rehearsal's
+    ``zero [L2 k=2]`` drives."""
+    cfg = JL.CONFIGS["tiny"]
+    batches = [jnp.asarray(ids.astype(np.int32))
+               for ids in W.llama_batches(2)]
+    ref_p, _, ref_l = _jax_chain(
+        monkeypatch, _tiny_params(), lambda p, ids: JL.loss_fn(p, ids, cfg),
+        batches, 2, "none", False, 2, W.LLAMA_THRESH, lr=W.LLAMA_LR)
+    want_p = _jax_to_torch_names(ref_p)
+    first = ranks[0]["llama L2 k=2"]
+    for r in range(W.SIZE):
+        got = ranks[r]["llama L2 k=2"]
+        for i, n in enumerate(_names()):
+            np.testing.assert_array_equal(got["params"][i],
+                                          first["params"][i])
+            np.testing.assert_allclose(got["params"][i], want_p[n],
+                                       err_msg=f"L2 k=2 {n}", **P_TOL)
+        np.testing.assert_allclose(got["losses"], ref_l, rtol=1e-5)
+
+
 def test_tiny_llama_levels_bitwise_equal(ranks):
     for r in range(W.SIZE):
         _assert_bitwise(ranks[r]["llama L3"], ranks[r]["llama L1"],

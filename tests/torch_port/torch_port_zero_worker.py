@@ -44,9 +44,12 @@ def toy_batches(k):
             for _ in range(STEPS)]
 
 
-def llama_batches():
+def llama_batches(k=1):
+    """Global token ids per step, ``[k, SIZE * LLAMA_ROWS, ...]`` when
+    ``k > 1``; rank r takes rows ``LLAMA_ROWS * r`` onward."""
     rng = np.random.RandomState(2)
-    return [rng.randint(0, 256, (SIZE * LLAMA_ROWS, LLAMA_SEQ + 1))
+    shape = (SIZE * LLAMA_ROWS, LLAMA_SEQ + 1)
+    return [rng.randint(0, 256, shape if k == 1 else (k,) + shape)
             .astype(np.int64) for _ in range(STEPS)]
 
 
@@ -128,7 +131,7 @@ def _toy_steps(torch, Z, rank, level, wire, ef, k, ag_prefetch,
     return _result(torch, Z, model, state, losses, level, THRESH)
 
 
-def _llama_run(torch, Z, rank, level, tree):
+def _llama_run(torch, Z, rank, level, tree, k=1):
     from horovod_tpu_torch.models import llama
     cfg = llama.CONFIGS["tiny"]
     model = llama.params_from_jax(tree, cfg, device="cpu")
@@ -138,10 +141,11 @@ def _llama_run(torch, Z, rank, level, tree):
                               eps=EPS, weight_decay=WD)
     step = Z.make_zero_train_step(model, lambda m, ids: llama.loss_fn(m, ids),
                                   state, zero_level=level, wire_policy="none",
+                                  backward_passes_per_step=k,
                                   fusion_threshold_bytes=LLAMA_THRESH)
     rows = slice(LLAMA_ROWS * rank, LLAMA_ROWS * (rank + 1))
-    losses = [float(step(torch.from_numpy(ids[rows])))
-              for ids in llama_batches()]
+    losses = [float(step(torch.from_numpy(ids[..., rows, :])))
+              for ids in llama_batches(k)]
     return _result(torch, Z, model, state, losses, level, LLAMA_THRESH)
 
 
@@ -189,6 +193,8 @@ def run(rank, port, out_dir):
     cases += [(f"llama L{lv}", lambda lv=lv: _llama_run(torch, Z, rank, lv,
                                                         tree))
               for lv in LLAMA_LEVELS]
+    cases.append(("llama L2 k=2", lambda: _llama_run(torch, Z, rank, 2, tree,
+                                                     k=2)))
     cases.append(("reshard", lambda: _reshard(torch, dist, Z, rank)))
     for name, fn in cases:
         try:
