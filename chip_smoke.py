@@ -268,7 +268,31 @@ Phases, in order; any failure exits non-zero before the result line:
    part's wall seconds, its task's start-up on the caller's clock, the
    first step and the median of the rest beside phase 5's, the phase's
    seconds;
-9. printed last, after phase 21: a ``{"kernels": [...]}`` JSON line (the
+22. estimator (``phase_estimator``): the Spark estimator workflow, each
+   fit's task a fresh process placed by ``spark.run``: (a) the MNIST
+   example's configuration (``examples/torch_port/pytorch_spark_mnist.py``:
+   4096 x 784, an MLP 784-128-10, Adam at 0.05, batch 128, 4 epochs,
+   ``validation=0.2``) through ``TorchEstimator(num_proc=1)``: its holdout
+   accuracy above 0.8, the history complete, and a second estimator on the
+   same Store at 6 epochs resuming through ``fit_on_parquet``, its first 4
+   epochs bitwise the first fit's; (b) ``spark_estimator.py``'s
+   ``LinearEstimator`` (``fit(elastic=True)``, then ``fit_on_parquet`` to 5
+   epochs), float64 on the card: ``w`` and ``b`` within 1e-10 relative of a
+   float64 numpy replay of the same SGD over the rows read back from the
+   Store; (c) ``TorchEstimator`` fitting ``1b`` at full width and depth in
+   bf16 from phase 5's first 4 batches, written to the Store by
+   ``prepare_data`` (``features`` the 2048 input ids, ``label`` the next
+   ids, float32): AdamW, batch 4, 2 epochs of 4 steps, the flash kernels
+   as ``attn_fn``, 16 launches of each a step, epoch 0's mean loss within
+   ``ESTIMATOR_LOSS_TOL`` of phase 5's first 4 steps' mean, the initial
+   weights' loss on the Store's first batch within ``ESTIMATOR_FIRST_TOL``
+   of phase 5's first loss (the 4 batches' initial losses printed: what a
+   wrong batch moves), and the driver's ``EstimatorModel`` loading the envelope onto
+   the card and transforming one row to finite logits; printed: each fit's
+   wall seconds, its task's model ready on the caller's clock, the first
+   step and the median of the rest, the epoch checkpoints' bytes and write
+   seconds, the parquet dataset's bytes, the peak GiB;
+9. printed last, after phase 22: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128``, MoE
    ``mini``-shape ``d32`` and BERT-Large ``bert_large`` numbers, D=128
    resources, its ring-shape ``ring`` numbers and the launches of each
@@ -277,12 +301,14 @@ Phases, in order; any failure exits non-zero before the result line:
    ``launches_elastic`` phase 18's two rounds', ``launches_zoo`` phase
    19's BERT-Large steps, ``launches_tune`` phase 20's grid trials,
    ``launches_scenario`` its replays, which must be 0, ``launches_cluster``
-   phase 21's parts), then the ``{"ok": true, "device": {...}}`` JSON line.
+   phase 21's parts, ``launches_estimator`` phase 22 (c)'s fit), then the
+   ``{"ok": true, "device": {...}}`` JSON line.
 
-Phase 21's and ``--parts cluster``'s tasks write and reuse compiled
-bytecode under ``build/pycache`` (``keep_bytecode``).
+Phase 21's and 22's tasks, and those of ``--parts cluster`` and
+``estimator``, write and reuse compiled bytecode under ``build/pycache``
+(``keep_bytecode``).
 
-    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic,zoo,cluster]
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic,zoo,cluster,estimator]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, started by the port's launcher as
@@ -431,7 +457,14 @@ direct step launched as the reference, then ``spark.run(num_proc=N)``
 and ``RayExecutor(num_workers=N)`` (losses bitwise the reference's,
 parameters bitwise equal across the ranks and the two placements), then
 ``spark.run_elastic`` with rank N-1's task killed after step 2, placed
-again at N-1 and finished.  ``--parts`` runs a subset (default: all).
+again at N-1 and finished.  The ``estimator`` part (``rank_estimator``,
+the parent again) fits across N cards: (a) the MNIST example's
+``TorchEstimator`` at ``num_proc=N`` (its holdout check); (b)
+``LinearEstimator`` at ``num_proc=N``, ``w_sum`` bitwise equal on every
+rank; (c) ``fit(elastic=True)`` with ``HOROVOD_SPARK_FAULT`` killing rank
+N-1 after epoch 0: placed again at N-1 tasks, resumed from the epoch-0
+envelope, the history complete.  ``--parts`` runs a subset (default:
+all).
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -446,6 +479,7 @@ import http.client
 import json
 import math
 import os
+import pickle
 import random
 import re
 import signal
@@ -3307,7 +3341,7 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 # --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
 # path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
 RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve", "measure",
-              "perf", "postmortem", "elastic", "zoo", "cluster")
+              "perf", "postmortem", "elastic", "zoo", "cluster", "estimator")
 
 
 def rank_worker(spec: dict) -> None:
@@ -3520,7 +3554,7 @@ def phase_ranks(torch, n: int, parts) -> None:
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
     worker_parts = [p for p in parts
                     if p not in ("serve", "measure", "perf", "postmortem",
-                                 "elastic", "cluster")]
+                                 "elastic", "cluster", "estimator")]
     zoo_ref = None
     if "zoo" in parts:
         # one card's ResNet-50 at the recipe, the ranks' scaling reference
@@ -3586,6 +3620,13 @@ def phase_ranks(torch, n: int, parts) -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
         rank_cluster(torch, n, card)
+    if "estimator" in parts:
+        # the estimators: the parent fits them, their tasks on the cards
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        rank_estimator(torch, n, card)
 
 
 LAUNCH_STEPS = 3         # phase 13: 1 warm-up and 2 timed steps
@@ -8079,6 +8120,536 @@ def rank_cluster(torch, n: int, card: str, device_type: str = "cuda",
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
+
+ESTIMATOR_MNIST = dict(epochs=4, batch=128, lr=0.05)  # the example's config
+ESTIMATOR_RESUME = 2     # (a): the second estimator's epochs past the first's
+ESTIMATOR_LINEAR = dict(epochs=3, resume=2)  # (b): spark_estimator.py's
+ESTIMATOR_LINEAR_RTOL = 1e-10  # (b): w, b against the float64 numpy replay
+ESTIMATOR_LLAMA_BATCHES = 4  # (c): phase 5's first batches, in the Store
+ESTIMATOR_LLAMA_EPOCHS = 2   # (c): epochs over them, a step a batch
+# (c): epoch 0's mean loss against the mean of phase 5's first 4 losses.
+# The same weights, batches and AdamW; the CE runs over whole fp32 logits
+# where phase 5 runs ce_chunks=8, so step 1 agrees to rounding and steps 2-4
+# carry what that rounding moved through three bf16 AdamW updates
+ESTIMATOR_LOSS_TOL = 2e-3
+# (c): the initial weights' loss on the Store's first batch, whole fp32
+# logits, against phase 5's first loss (ce_chunks=8): rounding only
+ESTIMATOR_FIRST_TOL = 1e-4
+ESTIMATOR_KILL_EPOCH = 0  # --parts estimator (c): rank N-1 dies after epoch 0
+ESTIMATOR_CPU = dict(cfg_name="tiny", batch=2, seq=32)  # the CPU rehearsal
+
+
+class TimedStore:
+    """A Store that appends each checkpoint write's bytes and seconds to a
+    JSON-lines log; everything else is the wrapped store's.  Picklable, so
+    it rides into the train tasks."""
+
+    def __init__(self, inner, log_path: str):
+        self.inner = inner
+        self.log_path = log_path
+
+    def __getattr__(self, name):
+        inner = self.__dict__.get("inner")
+        if inner is None:
+            raise AttributeError(name)
+        return getattr(inner, name)
+
+    def save_checkpoint(self, run_id, payload, name="checkpoint.bin"):
+        t0 = time.perf_counter()
+        out = self.inner.save_checkpoint(run_id, payload, name)
+        s = time.perf_counter() - t0
+        with open(self.log_path, "a") as f:
+            f.write(json.dumps({"bytes": len(payload), "s": s}) + "\n")
+        return out
+
+
+class Stamps:
+    """Phase 22's clock in a train task, written to
+    ``<report>.rank<r>.json``: the first :meth:`stamp` is the task's model
+    ready, each later one a step's end (the card synchronized), beside the
+    kernels' launches in this process, the device and its peak memory.
+    Picklable: each task gets its own copy, and so its own readings."""
+
+    def __init__(self, report: str):
+        self.report = report
+        self.readings = None
+
+    def stamp(self, dev) -> None:
+        import torch
+        from horovod_tpu_torch.ops import flash_attention as F
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+        rank = int(os.environ.get("HOROVOD_RANK", "0") or 0)
+        path = f"{self.report}.rank{rank}.json"
+        if self.readings is None:
+            self.readings = {"t_ready": time.time(), "stamps": [],
+                             "rank": rank, "device": str(dev)}
+        else:
+            self.readings["stamps"].append(time.time())
+        r = self.readings
+        r["launches"] = dict(F.LAUNCHES)
+        r["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda \
+            else 0
+        with open(path + ".tmp", "w") as f:
+            json.dump(r, f)
+        os.replace(path + ".tmp", path)
+
+    def __call__(self, batch):
+        """Phase 22 (b)'s ``transformation_fn``: the batch unchanged, each
+        stamped: the first, which sizes the model, as the task's model
+        ready, the others as the previous step's end."""
+        from horovod_tpu_torch import runtime
+        self.stamp(runtime.get().device)
+        return batch
+
+
+def timed_optimizer(make, report: str, params):
+    """Phase 22's ``optimizer_fn``: ``make(params)``, stamped when made
+    (the task's model ready) and after each ``step`` (:class:`Stamps`)."""
+    opt = make(params)
+    dev = opt.param_groups[0]["params"][0].device
+    stamps = Stamps(report)
+    stamps.stamp(dev)
+    inner = opt.step
+
+    def step(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        stamps.stamp(dev)
+        return out
+    opt.step = step
+    return opt
+
+
+def estimator_llama(cfg_name: str):
+    """Phase 22 (c)'s ``model_fn``: phase 5's model (``cfg_name`` from a
+    generator seeded 0, on the runtime's device) whose forward takes the
+    float32 token ids of a Store row, casts them back with ``.long()``,
+    runs with the flash kernels as ``attn_fn`` and returns fp32 logits as
+    ``[rows * seq, vocab]``, so ``loss="cross_entropy"`` applies."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import runtime
+    from horovod_tpu_torch.models import llama
+
+    class LlamaLogits(torch.nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, x):
+            logits = self.model(x.long(), attn_fn=hvd.flash_attention)
+            return logits.float().reshape(-1, logits.shape[-1])
+    dev = runtime.resolve_device()
+    return LlamaLogits(llama.init(
+        llama.CONFIGS[cfg_name], torch.Generator(device=dev).manual_seed(0),
+        device=dev))
+
+
+def estimator_rows(np, vocab: int, batch: int, seq: int):
+    """Phase 5's first ``ESTIMATOR_LLAMA_BATCHES`` batches as Store rows,
+    in phase 5's order: ``features`` the ``seq`` input ids, ``label`` the
+    ``seq`` next ids, both float32 (exact below 2**24)."""
+    rng = np.random.RandomState(0)
+    ids = np.concatenate([rng.randint(0, vocab, (batch, seq + 1),
+                                      dtype=np.int32)
+                          for _ in range(ESTIMATOR_LLAMA_BATCHES)])
+    return {"features": ids[:, :-1].astype(np.float32),
+            "label": ids[:, 1:].astype(np.float32)}
+
+
+def estimator_report(out_dir: str, label: str) -> dict:
+    """Rank 0's clock readings of a phase 22 fit (:class:`Stamps`)."""
+    with open(os.path.join(out_dir, f"{label}.rank0.json")) as f:
+        return json.load(f)
+
+
+def estimator_line(label: str, r: dict, t0: float, wall: float,
+                   ckpts: list, data_bytes: int) -> str:
+    """A fit's times: its wall seconds, the task's model ready on the
+    caller's clock, the first step and the median of the others, the epoch
+    checkpoints' bytes and write seconds, the parquet dataset's bytes."""
+    steps = [b - a for a, b in zip([r["t_ready"]] + r["stamps"],
+                                   r["stamps"])]
+    rest = sorted(steps[1:])
+    med = rest[len(rest) // 2] * 1e3 if rest else float("nan")
+    ck = (f"{len(ckpts)} epoch checkpoints of {ckpts[-1]['bytes']} bytes, "
+          f"written in " + "/".join(f"{c['s']:.3f}" for c in ckpts) + " s"
+          if ckpts else "no checkpoint written")
+    return (f"estimator [{label}] {r['device']}: {wall:.2f} s wall; the "
+            f"task's model ready at {r['t_ready'] - t0:.2f} s; "
+            f"{len(steps)} steps: first {steps[0] * 1e3:.1f} ms, median of "
+            f"the rest {med:.1f} ms; {ck}; parquet dataset {data_bytes} "
+            f"bytes; peak {r['peak_bytes'] / 2**30:.2f} GiB")
+
+
+def dataset_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path) if f.endswith(".parquet"))
+
+
+def read_ckpts(path: str) -> list:
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def linear_replay(np, store, epochs: int, batch: int, lr: float):
+    """``LinearEstimator``'s SGD replayed in float64 numpy over the train
+    rows read back from the Store, in the one-task loader's batches: the
+    final ``w`` and ``b`` and each epoch's mean loss."""
+    data = store.read_parquet(store.get_train_data_path("run0"))
+    x = data["features"].reshape(len(data["features"]), -1).astype(np.float64)
+    y = data["label"].reshape(len(x), -1).astype(np.float64)
+    w = np.zeros((x.shape[1], y.shape[1]))
+    b = np.zeros((y.shape[1],))
+    losses = []
+    for _ in range(epochs):
+        total, nb = 0.0, 0
+        for i in range(0, len(x), batch):
+            xb, yb = x[i:i + batch], y[i:i + batch]
+            diff = xb @ w + b - yb
+            w = w - lr * (xb.T @ diff / len(xb))
+            b = b - lr * diff.mean(axis=0)
+            total += float(np.mean(diff ** 2))
+            nb += 1
+        losses.append(total / nb)
+    return w, b, losses
+
+
+def phase_estimator(torch, np, card: str, ref_losses,
+                    device_type: str = "cuda", cfg_name: str = "1b",
+                    batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                    mnist=None) -> dict:
+    """Phase 22: the Spark estimator workflow on one card, each fit's task
+    a fresh process (``spark.run`` through ``LocalTaskExecutor``): (a)
+    ``examples/torch_port/pytorch_spark_mnist.py``'s configuration through
+    ``TorchEstimator`` at ``num_proc=1``: the example's holdout check (acc
+    > 0.8), a complete history, and a second estimator on the same Store at
+    ``epochs + 2`` resuming through ``fit_on_parquet``, its first
+    ``epochs`` entries bitwise the first fit's; (b) ``LinearEstimator`` at
+    ``examples/torch_port/spark_estimator.py``'s configuration
+    (``fit(elastic=True)``, then ``fit_on_parquet`` to ``epochs + 2``),
+    float64 on the card: ``w`` and ``b`` within 1e-10 relative of a float64
+    numpy replay of the same SGD over the rows read back from the Store;
+    (c) ``TorchEstimator`` fitting ``cfg_name`` (``1b``) at full width and
+    depth in bf16 over phase 5's first 4 batches written to the Store by
+    ``prepare_data``: AdamW, batch 4, 2 epochs of 4 steps, 16 launches of
+    each kernel a step, epoch 0's mean loss within ``ESTIMATOR_LOSS_TOL`` of
+    the mean of phase 5's first 4 losses, and the driver's
+    ``EstimatorModel`` loading the envelope onto the card and transforming
+    one row to finite logits.  Returns (c)'s launches and the phase's
+    seconds."""
+    import functools
+    import shutil
+    import tempfile
+    import chip_smoke as this  # importable by name in the tasks
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples", "torch_port"))
+    import pytorch_spark_mnist as MN
+    import spark_estimator as SE
+    from horovod_tpu_torch import spark
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as F
+    cuda = device_type == "cuda"
+    mnist = dict(ESTIMATOR_MNIST, **(mnist or {}))
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_estimator_")
+
+    def store(name):
+        return this.TimedStore(spark.FilesystemStore(
+            os.path.join(out_dir, name)), os.path.join(out_dir,
+                                                       name + ".ckpt"))
+
+    def timed(label, make):
+        return functools.partial(this.timed_optimizer, make,
+                                 os.path.join(out_dir, label))
+
+    def fit(label, est, run):
+        t0 = time.time()
+        model = run(est)
+        wall = time.time() - t0
+        r = estimator_report(out_dir, label)
+        require(r["device"].startswith(device_type),
+                f"estimator [{label}]: the task ran on {r['device']}")
+        print(estimator_line(label, r, t0, wall, read_ckpts(
+            est.store.log_path), dataset_bytes(est.store.get_train_data_path(
+                est.run_id))), flush=True)
+        return model, r
+
+    try:
+        with keep_bytecode(cuda):
+            # (a) the MNIST example's configuration, then its resume
+            x, y = MN.make_mnist_like()
+            sa = store("mnist")
+
+            def mnist_est(epochs, label):
+                return spark.TorchEstimator(
+                    store=sa, model_fn=MN.model_fn, num_proc=1,
+                    feature_cols=["features"], label_cols=["label"],
+                    batch_size=mnist["batch"], epochs=epochs,
+                    loss="cross_entropy", metrics=["accuracy"],
+                    validation=0.2, executor=spark.LocalTaskExecutor(1),
+                    optimizer_fn=timed(label, functools.partial(
+                        MN.adam_fn, lr=mnist["lr"])),
+                    coordinator_port=free_port())
+            first, _ = fit("mnist", mnist_est(mnist["epochs"], "mnist"),
+                           lambda e: e.fit({"features": x, "label": y}))
+            xt, yt = MN.make_mnist_like(n=1024, seed=1)
+            pred = first.transform({"features": xt})["predict"]
+            acc = float(np.mean(np.argmax(pred, axis=1) == yt.ravel()))
+            h = first.history
+            print(f"estimator [mnist]: history " + json.dumps(h)
+                  + f"; holdout accuracy {acc:.4f}", flush=True)
+            require(acc > 0.8, f"estimator [mnist]: holdout accuracy {acc}")
+            require(sorted(h) == ["train_loss", "val_accuracy"]
+                    and all(len(v) == mnist["epochs"] for v in h.values()),
+                    f"estimator [mnist]: history {h}")
+            est2 = mnist_est(mnist["epochs"] + ESTIMATOR_RESUME,
+                             "mnist-resume")
+            require(est2.has_checkpoint(), "estimator [mnist]: no envelope")
+            second, _ = fit("mnist-resume", est2, lambda e: e.fit_on_parquet())
+            h2 = second.history
+            same = all(h2[k][:mnist["epochs"]] == h[k] for k in h)
+            print(f"estimator [mnist-resume]: history " + json.dumps(h2)
+                  + f"; its first {mnist['epochs']} epochs bitwise the first "
+                  f"fit's: {same}", flush=True)
+            require(same and all(len(v) == mnist["epochs"] + ESTIMATOR_RESUME
+                                 for v in h2.values()),
+                    f"estimator [mnist-resume]: history {h2}")
+
+            # (b) spark_estimator.py's workflow, float64 on the card
+            sb = store("linear")
+            port = free_port()
+
+            def linear_est(epochs, label):
+                est = SE.estimator(sb, 1, epochs, port)
+                est.executor = spark.LocalTaskExecutor(1)
+                est.transformation_fn = this.Stamps(
+                    os.path.join(out_dir, label))
+                return est
+            xl, yl = SE.make_data()
+            lin1, _ = fit("linear", linear_est(ESTIMATOR_LINEAR["epochs"],
+                                               "linear"),
+                          lambda e: e.fit({"features": xl, "label": yl},
+                                          elastic=True, min_np=1))
+            lin2, _ = fit("linear-resume", linear_est(
+                ESTIMATOR_LINEAR["epochs"] + ESTIMATOR_LINEAR["resume"],
+                "linear-resume"), lambda e: e.fit_on_parquet())
+            epochs = ESTIMATOR_LINEAR["epochs"] + ESTIMATOR_LINEAR["resume"]
+            env = pickle.loads(sb.read_checkpoint("run0"))
+            state = pickle.loads(env["model"])
+            w, b, losses = linear_replay(np, sb, epochs, 64, 0.1)
+            err = max(float(np.max(np.abs(state[k] - ref) / np.abs(ref)))
+                      for k, ref in (("w", w), ("b", b)))
+            lerr = max(abs(a - c) / abs(c) for a, c in zip(
+                lin2.history["train_loss"], losses))
+            print(f"estimator [linear]: fit(elastic=True) to "
+                  f"{len(lin1.history['train_loss'])} epochs and "
+                  f"fit_on_parquet to {len(lin2.history['train_loss'])}; "
+                  f"w, b dtype "
+                  f"{state['w'].dtype}; largest relative gap to the float64 "
+                  f"numpy replay: w, b {err:.3e}, epoch losses {lerr:.3e} "
+                  f"(limit {ESTIMATOR_LINEAR_RTOL})", flush=True)
+            require(state["w"].dtype == np.float64
+                    and err <= ESTIMATOR_LINEAR_RTOL
+                    and lerr <= ESTIMATOR_LINEAR_RTOL,
+                    f"estimator [linear]: gap {err}, losses {lerr}")
+            require(len(lin2.history["val_mse"]) == epochs,
+                    f"estimator [linear]: history {lin2.history}")
+
+            # (c) cfg_name (1b) at full width and depth from parquet
+            cfg = llama.CONFIGS[cfg_name]
+            sc = store("llama")
+            rows = estimator_rows(np, cfg.vocab, batch, seq)
+            t0 = time.time()
+            spark.prepare_data(sc, rows, ["features"], ["label"])
+            t_prep = time.time() - t0
+            est = spark.TorchEstimator(
+                store=sc, model_fn=functools.partial(this.estimator_llama,
+                                                     cfg_name),
+                num_proc=1, feature_cols=["features"], label_cols=["label"],
+                batch_size=batch, epochs=ESTIMATOR_LLAMA_EPOCHS,
+                loss="cross_entropy", executor=spark.LocalTaskExecutor(1),
+                optimizer_fn=timed("llama", functools.partial(
+                    torch.optim.AdamW, lr=3e-4, weight_decay=0.01)),
+                coordinator_port=free_port())
+            F.reset_launches()
+            model, r = fit("llama", est, lambda e: e.fit_on_parquet())
+            launches = r["launches"]
+            steps = ESTIMATOR_LLAMA_BATCHES * ESTIMATOR_LLAMA_EPOCHS
+            h = model.history["train_loss"]
+            ref = sum(ref_losses[:ESTIMATOR_LLAMA_BATCHES]) / \
+                ESTIMATOR_LLAMA_BATCHES
+            # what a wrong batch moves: phase 5's initial weights' loss on
+            # each of the 4 batches, no grad, whole fp32 logits
+            m0 = estimator_llama(cfg_name)
+            with torch.no_grad():
+                l0 = [float(torch.nn.functional.cross_entropy(
+                    m0(torch.from_numpy(rows["features"][i:i + batch])
+                       .to(next(m0.parameters()).device)),
+                    torch.from_numpy(rows["label"][i:i + batch].ravel()
+                                     .astype(np.int64))
+                    .to(next(m0.parameters()).device)))
+                    for i in range(0, len(rows["label"]), batch)]
+            del m0
+            wrong = min(abs(a - c) for i, a in enumerate(l0)
+                        for c in l0[i + 1:])
+            print(f"estimator [llama {cfg_name}]: prepare_data of "
+                  f"{len(rows['label'])} rows in {t_prep:.2f} s; epoch mean "
+                  f"losses {h}; epoch 0 {h[0]:.6f} against phase 5's first "
+                  f"{ESTIMATOR_LLAMA_BATCHES} steps' mean {ref:.6f}: gap "
+                  f"{abs(h[0] - ref):.3e} (limit {ESTIMATOR_LOSS_TOL}); the "
+                  f"initial weights' losses on the {len(l0)} batches "
+                  + " ".join(f"{v:.6f}" for v in l0)
+                  + f", closest two {wrong:.3e} apart, the first "
+                  f"{abs(l0[0] - ref_losses[0]):.3e} from phase 5's first "
+                  f"loss (limit {ESTIMATOR_FIRST_TOL}); launches "
+                  + json.dumps(launches), flush=True)
+            require(len(h) == ESTIMATOR_LLAMA_EPOCHS
+                    and all(math.isfinite(v) for v in h),
+                    f"estimator [llama]: history {h}")
+            require(abs(h[0] - ref) <= ESTIMATOR_LOSS_TOL,
+                    f"estimator [llama]: epoch 0 {h[0]} vs phase 5's {ref}")
+            # model_fn's weights and the Store's first rows are phase 5's
+            require(abs(l0[0] - ref_losses[0]) <= ESTIMATOR_FIRST_TOL,
+                    f"estimator [llama]: the initial loss on the first "
+                    f"batch {l0[0]} vs phase 5's first {ref_losses[0]}")
+            if cuda:
+                for name in REPLACES:
+                    require(launches.get(name) == cfg.n_layers * steps,
+                            f"estimator [llama]: {name} launched "
+                            f"{launches.get(name)} times, expected "
+                            f"{cfg.n_layers * steps}")
+            t0 = time.time()
+            out = model.transform({"features": rows["features"][:1]})
+            logits = out["predict"]
+            print(f"estimator [llama {cfg_name}]: the driver's "
+                  f"EstimatorModel on {device_type}: one row to logits "
+                  f"{list(logits.shape)} {logits.dtype} in "
+                  f"{time.time() - t0:.2f} s, finite: "
+                  f"{bool(np.isfinite(logits).all())}", flush=True)
+            require(logits.shape == (seq, cfg.vocab)
+                    and bool(np.isfinite(logits).all()),
+                    f"estimator [llama]: logits {logits.shape}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    s = time.perf_counter() - t_phase
+    print(f"estimator [{card}]: phase 22 took {s:.1f} s; launches "
+          + json.dumps(launches), flush=True)
+    return {"launches": launches, "s": s}
+
+
+class CountingExecutor:
+    """``--parts estimator`` (c)'s placement: ``LocalTaskExecutor`` whose
+    resizes are recorded, so the elastic shrink shows."""
+
+    def __init__(self, n: int, sizes: list):
+        from horovod_tpu_torch.spark import LocalTaskExecutor
+        self._ex = LocalTaskExecutor(n)
+        self.sizes = sizes
+        sizes.append(n)
+
+    def num_tasks(self) -> int:
+        return self._ex.num_tasks()
+
+    def run_tasks(self, task_fn):
+        return self._ex.run_tasks(task_fn)
+
+    def with_num_tasks(self, n: int) -> "CountingExecutor":
+        return CountingExecutor(n, self.sizes)
+
+
+def rank_estimator(torch, n: int, card: str, device_type: str = "cuda",
+                   mnist=None) -> None:
+    """``--parts estimator``: the estimators across N cards, the tasks
+    placed by ``spark.run`` (the parent places them): (a) the MNIST
+    example's ``TorchEstimator`` at ``num_proc=N``, the example's holdout
+    check; (b) ``LinearEstimator`` at ``num_proc=N`` (spark_estimator.py's
+    data): ``w_sum`` bitwise equal on all N ranks; (c) ``fit(elastic=True)``
+    with ``HOROVOD_SPARK_FAULT`` killing rank N-1 after epoch 0: placed
+    again at N-1 tasks, resumed from the epoch-0 envelope, the history
+    complete."""
+    import shutil
+    import tempfile
+    import numpy as np
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "examples", "torch_port"))
+    import pytorch_spark_mnist as MN
+    import spark_estimator as SE
+    from horovod_tpu_torch import spark
+    mnist = dict(ESTIMATOR_MNIST, **(mnist or {}))
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_estimator_")
+    try:
+        with keep_bytecode(device_type == "cuda"):
+            t0 = time.time()
+            model, acc = MN.fit(
+                spark.FilesystemStore(os.path.join(out_dir, "mnist")),
+                num_proc=n, epochs=mnist["epochs"], batch=mnist["batch"],
+                lr=mnist["lr"], coordinator_port=free_port(),
+                executor=spark.LocalTaskExecutor(n))
+            print(f"ranks [{n}] estimator [mnist]: {time.time() - t0:.2f} s "
+                  f"wall; history {json.dumps(model.history)}; holdout "
+                  f"accuracy {acc:.4f}", flush=True)
+            require(acc > 0.8, f"--parts estimator [mnist]: accuracy {acc}")
+            require(all(len(v) == mnist["epochs"]
+                        for v in model.history.values()),
+                    f"--parts estimator [mnist]: {model.history}")
+
+            x, y = SE.make_data()
+            df = {"features": x, "label": y}
+            s = spark.FilesystemStore(os.path.join(out_dir, "linear"))
+            est = SE.estimator(s, n, ESTIMATOR_LINEAR["epochs"], free_port())
+            train, val = spark.prepare_data(
+                s, df, est.feature_cols, est.label_cols,
+                validation=est.validation, seed=est.seed)
+            t0 = time.time()
+            rs = spark.run(est._make_train_task(), args=(train, val),
+                           num_proc=n, executor=spark.LocalTaskExecutor(n),
+                           coordinator_port=est.coordinator_port)
+            sums = [r["w_sum"] for r in rs]
+            devices = [r["device"] for r in rs]
+            print(f"ranks [{n}] estimator [linear]: {time.time() - t0:.2f} s "
+                  f"wall on {devices}; w_sum {sums}; bitwise equal on all "
+                  f"{n} ranks: {len(set(sums)) == 1}", flush=True)
+            require(len(rs) == n and len(set(sums)) == 1,
+                    f"--parts estimator [linear]: w_sum {sums}")
+            if device_type == "cuda":
+                require(devices == [f"cuda:{i}" for i in range(n)],
+                        f"--parts estimator [linear]: devices {devices}")
+
+            marker = os.path.join(out_dir, "killed")
+            sizes = []
+            s = spark.FilesystemStore(os.path.join(out_dir, "elastic"))
+            est = SE.estimator(s, n, ESTIMATOR_LINEAR["epochs"], free_port())
+            est.executor = CountingExecutor(n, sizes)
+            os.environ["HOROVOD_SPARK_FAULT"] = \
+                f"{n - 1},{ESTIMATOR_KILL_EPOCH},{marker}"
+            t0 = time.time()
+            try:
+                model = est.fit(df, elastic=True, min_np=1, reset_limit=1)
+            finally:
+                del os.environ["HOROVOD_SPARK_FAULT"]
+            env = pickle.loads(s.read_checkpoint("run0"))
+            h = model.history
+            print(f"ranks [{n}] estimator [elastic]: rank {n - 1} killed "
+                  f"after epoch {ESTIMATOR_KILL_EPOCH}; placements at np "
+                  f"{sizes}; {time.time() - t0:.2f} s wall; last envelope "
+                  f"epoch {env['epoch']}; history {json.dumps(h)}",
+                  flush=True)
+            require(os.path.exists(marker) and sizes[-2:] == [n, n - 1],
+                    f"--parts estimator [elastic]: placements {sizes}")
+            require(env["epoch"] == ESTIMATOR_LINEAR["epochs"] - 1
+                    and all(len(v) == ESTIMATOR_LINEAR["epochs"]
+                            for v in h.values()),
+                    f"--parts estimator [elastic]: {env['epoch']}, {h}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     if len(args) == 2 and args[0] in ("--rank-worker", "--launched",
@@ -8189,6 +8760,7 @@ def main() -> int:
     scen = phase_scenario(torch, np, hvd, llama, serve, F, card, losses,
                           step_ms)
     cluster = phase_cluster(torch, card, losses, sums, step_ms)
+    estimator = phase_estimator(torch, np, card, losses)
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -8207,6 +8779,7 @@ def main() -> int:
         row["launches_tune"] = scen["launches_tune"][row["name"]]
         row["launches_scenario"] = scen["launches_scenario"][row["name"]]
         row["launches_cluster"] = cluster["launches"][row["name"]]
+        row["launches_estimator"] = estimator["launches"][row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -41,7 +41,10 @@ def train(epochs: int, batch: int, lr: float, cpu: bool, tree=None):
     from horovod_tpu_torch.models import mlp
 
     dev = hvd.init(device="cpu" if cpu else None).device
-    if cpu:  # the workers share this host's cores
+    if cpu and "OMP_NUM_THREADS" not in os.environ:
+        # the workers share this host's cores; a caller's own thread
+        # count stands (under load, more threads than free cores spin in
+        # every gloo wait)
         torch.set_num_threads(max(1, (os.cpu_count() or 1)
                                   // hvd.local_size()))
     if hvd.rank() == 0:

@@ -57,9 +57,12 @@ LINK_CLASSES = tuple(sorted(LINK_GBPS))
 
 
 def peak_flops(chip: str) -> float:
-    """Chip name -> peak FLOP/s (falls back to v5e, as the JAX package
-    does)."""
-    return PEAK_TFLOPS.get(chip, PEAK_TFLOPS["v5e"]) * 1e12
+    """Chip name -> peak FLOP/s.  An unknown chip raises, as an unknown
+    link does (the JAX package prices it as a v5e)."""
+    if chip not in PEAK_TFLOPS:
+        raise ValueError(f"unknown chip {chip!r}; valid: "
+                         f"{', '.join(sorted(PEAK_TFLOPS))}")
+    return PEAK_TFLOPS[chip] * 1e12
 
 
 def link_bandwidth(link: str) -> float:

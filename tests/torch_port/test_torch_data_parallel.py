@@ -5,6 +5,8 @@ accumulation, the runtime's refusals, and that the port imports no JAX."""
 
 import ast
 import os
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -263,3 +265,28 @@ def test_port_imports_no_jax_and_nothing_of_horovod_tpu():
             bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                     for n in names if n.split(".")[0] in _FORBIDDEN]
     assert not bad, bad
+
+
+def test_spark_estimators_load_no_jax():
+    """A fresh process loads ``horovod_tpu_torch.spark`` with the Store,
+    ``prepare_data`` and the estimators, writes a dataset and builds both
+    estimators: neither ``jax`` nor ``horovod_tpu`` lands in
+    ``sys.modules``."""
+    prog = (
+        "import sys, tempfile\n"
+        "import numpy as np\n"
+        "from horovod_tpu_torch import spark\n"
+        "from horovod_tpu_torch.spark import estimator, prepare, store\n"
+        "s = spark.Store.create(tempfile.mkdtemp())\n"
+        "spark.prepare_data(s, {'features': np.ones((4, 2)), "
+        "'label': np.zeros((4, 1))}, ['features'], ['label'])\n"
+        "spark.LinearEstimator(s)._make_train_task()\n"
+        "spark.TorchEstimator(s, lambda: None)._make_train_task()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in " + repr(sorted(_FORBIDDEN))
+        + ")\nprint('LOADED-NONE' if not bad else bad)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", prog], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "LOADED-NONE" in out.stdout, (
+        out.stdout[-2000:], out.stderr[-2000:])

@@ -56,10 +56,14 @@ elif {part!r} == "ranks":
     # (c) at a slower pace than the card's, and with enough ticks (17 a
     # step, 102 a rank) that a peer's p99 is not its single slowest op:
     # on a loaded CPU one op of every peer (the first) reads 33-66 ms,
-    # which alone pulled the skew of a 200 ms stall down to the rule's 4
+    # which alone pulled the skew of a 200 ms stall down to the rule's 4;
+    # so the stall is 400 ms (its p99 bucket 0.52 s, the rule's 4 at any
+    # peer p99 up to 0.13 s).  The heartbeat patience is the card's 20 s:
+    # under load a rank's heartbeat thread went 6 s unheard, the launcher
+    # aborted it, and (b) or (d) ended before rank 1's step 3
     C.rank_postmortem(torch, 4, "CPU", device_type="cpu", cfg_name="tiny",
-                      batch=1, seq=64, timeout_s="6", tick_s=0.3,
-                      stall_ms=200, tags="abcd", ticks=17)
+                      batch=1, seq=64, timeout_s=C.POSTMORTEM_TIMEOUT,
+                      tick_s=0.5, stall_ms=400, tags="abcd", ticks=17)
 else:
     # (e) and (f) stall nothing: the card's heartbeat patience, and up to
     # 200 s for every rank's alert, so a loaded CPU reads no stale rank
