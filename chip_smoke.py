@@ -53,8 +53,9 @@ Phases, in order; any failure exits non-zero before the result line:
    phase;
 8. wire: the wire and overlap planes (``ops/wire.py``,
    ``ops/overlap.py``): (a) the ``1b`` model's fp32 gradients (seeded)
-   packed into the fusion plan's buckets, each bucket's int8 codes and
-   scale, ``int8_roundtrip``, ``local_error`` of every lossy format and
+   packed into the fusion plan's buckets, each checked bucket's (every
+   ``CODEC_BUCKET_STRIDE``-th and the last) int8 codes and scale,
+   ``int8_roundtrip``, ``local_error`` of every lossy format and
    bf16/fp16 casts on the card bitwise equal to the CPU's; (b) the ``1b``
    step over k=2 microbatches of 2 x 2048 (phase 5's batches, 4 steps)
    through ``DistributedOptimizer(AdamW, wire_policy="auto",
@@ -292,7 +293,28 @@ Phases, in order; any failure exits non-zero before the result line:
    wall seconds, its task's model ready on the caller's clock, the first
    step and the median of the rest, the epoch checkpoints' bytes and write
    seconds, the parquet dataset's bytes, the peak GiB;
-9. printed last, after phase 22: a ``{"kernels": [...]}`` JSON line (the
+23. lightning (``phase_lightning``): the Lightning estimator, each fit's
+   task a fresh process placed by ``spark.run``: (a) the Lightning MNIST
+   example's configuration (``examples/torch_port/lightning_spark_mnist.py``:
+   a protocol module with no ``.to``, Adam at 0.05 with ``StepLR`` in the
+   dict form, ``StopWhenGoodEnough(0.95)``, a ``JsonlLogger``,
+   ``gradient_clip_val=5``, batch 128, 4 epochs, ``validation=0.2``)
+   through ``LightningEstimator(num_proc=1)``: its holdout accuracy above
+   0.8, the logger's file with the flushed metrics and the ``finalized``
+   record, ``val_acc`` in the history, each step's applied gradient norm
+   min(its norm, the clip); (b) ``1b`` at full width and depth as a LightningModule (an
+   ``nn.Module``: ``configure_optimizers`` AdamW at 3e-4, weight decay 0.01;
+   ``training_step`` phase 5's loss, ``ce_chunks=8``, the flash kernels)
+   over phase 22 (c)'s Store rows, batch 4, 2 epochs: 16 launches of each
+   kernel a step, the initial loss on the Store's first batch within
+   ``ESTIMATOR_FIRST_TOL`` of phase 5's first, epoch 0 within
+   ``ESTIMATOR_LOSS_TOL`` of phase 5's first 4 steps' mean, ``transform``
+   to finite logits on the driver's card; (c) the Keras example through
+   ``KerasEstimator`` on keras's torch backend, or, where keras cannot be
+   imported, a line saying it was not run; printed: each fit's wall
+   seconds, its task's model ready, the first step and the median of the
+   rest (beside phase 5's step for (b));
+9. printed last, after phase 23: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128``, MoE
    ``mini``-shape ``d32`` and BERT-Large ``bert_large`` numbers, D=128
    resources, its ring-shape ``ring`` numbers and the launches of each
@@ -301,12 +323,13 @@ Phases, in order; any failure exits non-zero before the result line:
    ``launches_elastic`` phase 18's two rounds', ``launches_zoo`` phase
    19's BERT-Large steps, ``launches_tune`` phase 20's grid trials,
    ``launches_scenario`` its replays, which must be 0, ``launches_cluster``
-   phase 21's parts, ``launches_estimator`` phase 22 (c)'s fit), then the
+   phase 21's parts, ``launches_estimator`` phase 22 (c)'s fit,
+   ``launches_lightning`` phase 23 (b)'s), then the
    ``{"ok": true, "device": {...}}`` JSON line.
 
-Phase 21's and 22's tasks, and those of ``--parts cluster`` and
-``estimator``, write and reuse compiled bytecode under ``build/pycache``
-(``keep_bytecode``).
+The processes that phases 13-16 and 18-23 start, and those of ``--parts
+cluster`` and ``estimator``, write and reuse compiled bytecode under
+``build/pycache`` (``keep_bytecode``); phase 17's keep the machine's env.
 
     python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic,zoo,cluster,estimator]
 
@@ -463,7 +486,10 @@ the parent again) fits across N cards: (a) the MNIST example's
 ``LinearEstimator`` at ``num_proc=N``, ``w_sum`` bitwise equal on every
 rank; (c) ``fit(elastic=True)`` with ``HOROVOD_SPARK_FAULT`` killing rank
 N-1 after epoch 0: placed again at N-1 tasks, resumed from the epoch-0
-envelope, the history complete.  ``--parts`` runs a subset (default:
+envelope, the history complete; (d) the Lightning MNIST example at N
+tasks: its holdout check, the synced stop alike on every rank, every
+rank's final ``state_dict`` bitwise equal (a checksum allgather), the
+logger written by rank 0 only.  ``--parts`` runs a subset (default:
 all).
 
 TF32 is off for matrix products and convolutions
@@ -1202,8 +1228,10 @@ def keep_bytecode(on: bool = True):
     ``import torch._dynamo`` (which the first ``AdamW.step`` runs) took
     22.6-23.5 s a process there, and 10.5-12.4 s once a first process had
     written the cache (``scripts/torch_import_probe.py`` on the H100's
-    machine).  Phase 21 and ``--parts cluster`` start a fresh process a
-    part; the other phases keep the machine's env."""
+    machine).  Phases 13-16 and 18-23, ``--parts cluster`` and
+    ``estimator`` start fresh processes under it; phase 17 keeps the
+    machine's env (with the reuse on there, a rank once took 11.3 s of its
+    10 s to exit after a failure)."""
     keys = ("PYTHONDONTWRITEBYTECODE", "PYTHONPYCACHEPREFIX")
     saved = {k: os.environ.get(k) for k in keys}
     if on:
@@ -1218,6 +1246,14 @@ def keep_bytecode(on: bool = True):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def write_json(path: str, obj) -> None:
+    """``obj`` as JSON at ``path``, whole or not at all: a reader that
+    polls for the file never finds it half written."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
 
 
 def free_port() -> int:
@@ -1401,12 +1437,19 @@ def phase_eager(torch, np, hvd, llama, F, card: str, ref_losses,
     return launches, step_ms
 
 
+# phase 8a: the buckets checked, every CODEC_BUCKET_STRIDE-th and the last
+# (the remainder's length).  All 35 took 76.0-91.9 s of the script's
+# 1200 s, nearly all of it the CPU's side; every bucket holds leaves of
+# every scale, so the subset sees every magnitude and both lengths.
+CODEC_BUCKET_STRIDE = 4
+
+
 def codec_checks(torch, llama, dev) -> None:
     """Phase 8a: the 1b model's fp32 gradients (seeded, made per leaf on
-    the card), packed into the fusion plan's 128 MiB buckets; per bucket
-    the int8 codes and scale, ``int8_roundtrip``, ``local_error`` of each
-    lossy format and the bf16/fp16 casts on the card and on the CPU must be
-    bitwise equal."""
+    the card), packed into the fusion plan's 128 MiB buckets; per checked
+    bucket (``CODEC_BUCKET_STRIDE``) the int8 codes and scale,
+    ``int8_roundtrip``, ``local_error`` of each lossy format and the
+    bf16/fp16 casts on the card and on the CPU must be bitwise equal."""
     from horovod_tpu_torch.ops import fusion, quantized, wire
     from horovod_tpu_torch.ops.compression import Compression
     from horovod_tpu_torch.runtime import get as hvd_runtime
@@ -1428,7 +1471,10 @@ def codec_checks(torch, llama, dev) -> None:
 
     t0 = time.perf_counter()
     elems, checks = 0, 0
-    for b in plan.buckets:
+    last = len(plan.buckets) - 1
+    checked = [b for j, b in enumerate(plan.buckets)
+               if j % CODEC_BUCKET_STRIDE == 0 or j == last]
+    for b in checked:
         leaves = [None] * len(shapes)
         for i in b.indices:  # gradient-sized entries, a scale per leaf
             leaves[i] = torch.randn(shapes[i], generator=gen, device=dev) \
@@ -1445,8 +1491,9 @@ def codec_checks(torch, llama, dev) -> None:
             checks += 1
         elems += buf.numel()
         del leaves, buf, card, host
-    print(f"wire [1b codec]: {len(plan.buckets)} fp32 buckets, {elems} "
-          f"elements; {checks} card results (int8 codes and scales, "
+    print(f"wire [1b codec]: {len(checked)} of {len(plan.buckets)} fp32 "
+          f"buckets, {elems} elements; {checks} card results (int8 codes "
+          "and scales, "
           "int8_roundtrip, local_error of bf16/fp16/int8_ring/dcn_int8, "
           "bf16 and fp16 casts) bitwise equal to the CPU's "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -3535,7 +3582,9 @@ def ranks_argv(n: int, parts, cfg_name: str = "1b",
     rank ``chip_smoke.py --rank-worker <json>``; ``zoo_ref`` is one card's
     ResNet-50 images/s, which ``--parts zoo`` scales against; ``out_dir``
     is where the ``cluster`` part's reference lands."""
-    ports = {name: free_port() for name in RANK_PORTS}
+    ports = {}
+    while len(set(ports.values())) < len(RANK_PORTS):  # distinct ports
+        ports = {name: free_port() for name in RANK_PORTS}
     spec = {"ports": ports, "cfg": cfg_name, "device": device_type,
             "batch": batch, "seq": seq, "parts": list(parts),
             "zoo_ref": zoo_ref, "out_dir": out_dir}
@@ -4699,8 +4748,7 @@ def measured_worker(out_dir: str) -> int:
         del step, opt, model
     require(rt.metrics_publisher.publish_now(), "the metrics publish failed")
     require(rt.perf_publisher.publish_now(), "the perf publish failed")
-    with open(os.path.join(out_dir, f"measured.{rank}.json"), "w") as f:
-        json.dump(out, f)
+    write_json(os.path.join(out_dir, f"measured.{rank}.json"), out)
     deadline = time.time() + 300
     while not os.path.exists(os.path.join(out_dir, "scraped")):
         require(time.time() < deadline, "the parent never scraped")
@@ -5101,8 +5149,7 @@ def perfed_worker(out_dir: str) -> int:
            "level": M.ZERO_LEVEL.value(), "padded": padded,
            "buckets": buckets, "n_params": n_params,
            "report": hvd.perf_report()}
-    with open(os.path.join(out_dir, f"measured.{rank}.json"), "w") as f:
-        json.dump(out, f)
+    write_json(os.path.join(out_dir, f"measured.{rank}.json"), out)
     deadline = time.time() + 300
     while not os.path.exists(os.path.join(out_dir, "scraped")):
         require(time.time() < deadline, "the parent never scraped")
@@ -5604,8 +5651,7 @@ def watched_worker(out_dir: str) -> int:
                 "counts"]) if c} if fam["samples"] else {}
             out.update(straggler=verdict, straggler_firing=hits,
                        age_p99=M.NEGOTIATION_AGE.quantile(0.99), ages=ages)
-    with open(os.path.join(out_dir, f"watched.{rank}.json"), "w") as f:
-        json.dump(out, f)
+    write_json(os.path.join(out_dir, f"watched.{rank}.json"), out)
     deadline = time.time() + 300
     while not os.path.exists(os.path.join(out_dir, "scraped")):
         require(time.time() < deadline, "the parent never scraped")
@@ -8174,7 +8220,9 @@ class Stamps:
         self.report = report
         self.readings = None
 
-    def stamp(self, dev) -> None:
+    def stamp(self, dev, **extra) -> None:
+        """A reading; ``extra``'s values are appended to lists of their
+        names in the report."""
         import torch
         from horovod_tpu_torch.ops import flash_attention as F
         cuda = dev.type == "cuda"
@@ -8188,12 +8236,12 @@ class Stamps:
         else:
             self.readings["stamps"].append(time.time())
         r = self.readings
+        for k, v in extra.items():
+            r.setdefault(k, []).append(v)
         r["launches"] = dict(F.LAUNCHES)
         r["peak_bytes"] = torch.cuda.max_memory_allocated(dev) if cuda \
             else 0
-        with open(path + ".tmp", "w") as f:
-            json.dump(r, f)
-        os.replace(path + ".tmp", path)
+        write_json(path, r)
 
     def __call__(self, batch):
         """Phase 22 (b)'s ``transformation_fn``: the batch unchanged, each
@@ -8572,7 +8620,10 @@ def rank_estimator(torch, n: int, card: str, device_type: str = "cuda",
     data): ``w_sum`` bitwise equal on all N ranks; (c) ``fit(elastic=True)``
     with ``HOROVOD_SPARK_FAULT`` killing rank N-1 after epoch 0: placed
     again at N-1 tasks, resumed from the epoch-0 envelope, the history
-    complete."""
+    complete; (d) the Lightning MNIST example's ``LightningEstimator`` at
+    ``num_proc=N``: its checks, the synced stop alike on every rank, every
+    rank's final ``state_dict`` bitwise equal (:class:`RankProbe`), the
+    logger's rows all rank 0's."""
     import shutil
     import tempfile
     import numpy as np
@@ -8646,8 +8697,358 @@ def rank_estimator(torch, n: int, card: str, device_type: str = "cuda",
                     and all(len(v) == ESTIMATOR_LINEAR["epochs"]
                             for v in h.values()),
                     f"--parts estimator [elastic]: {env['epoch']}, {h}")
+
+            # (d) the Lightning MNIST example at N tasks
+            import chip_smoke as this  # importable by name in the tasks
+            import lightning_spark_mnist as LM
+            log_path = os.path.join(out_dir, "lightning.jsonl")
+            probe = os.path.join(out_dir, "lightning.ranks.json")
+            t0 = time.time()
+            model, acc, rows = LM.fit(
+                spark.FilesystemStore(os.path.join(out_dir, "lightning")),
+                log_path, num_proc=n, epochs=LIGHTNING_MNIST["epochs"],
+                batch=LIGHTNING_MNIST["batch"], coordinator_port=free_port(),
+                executor=spark.LocalTaskExecutor(n),
+                logger=this.RankLogger(log_path),
+                callbacks=[this.RankProbe(probe)])
+            wall = time.time() - t0
+            label = f"ranks [{n}] estimator [lightning]"
+            lightning_mnist_checks(label, model, acc, rows)
+            with open(probe) as f:
+                every = json.load(f)
+            stops = [(e["should_stop"], e["epoch"]) for e in every]
+            same = all(e["sums"] == every[0]["sums"] for e in every)
+            writers = sorted({r["rank"] for r in rows})
+            print(f"{label}: {wall:.2f} s wall; stop and epoch by rank "
+                  f"{stops}; state_dict bitwise equal on all {n} ranks: "
+                  f"{same}; the logger written by ranks {writers}",
+                  flush=True)
+            require(len(every) == n and len(set(stops)) == 1,
+                    f"{label}: stops {stops}")
+            require(same, f"{label}: state_dicts differ across ranks")
+            require(writers == ["0"], f"{label}: logger rows from {writers}")
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# phase 23 and --parts estimator (d): the Lightning and Keras estimators
+LIGHTNING_MNIST = dict(epochs=4, batch=128, clip=5.0)  # the example's config
+# (a): the norm a step applies against min(its norm, the clip), relative to
+# the clip: clip_grad_norm_ scales by clip / (norm + 1e-6) in float32
+LIGHTNING_CLIP_RTOL = 1e-5
+
+
+def module_device(module):
+    return next(iter(module.parameters())).device
+
+
+def grad_norm(torch, grads) -> float:
+    return float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads])))
+
+
+class LightningStamps(Stamps):
+    """Phase 23's clock as a Lightning callback (:class:`Stamps`): the
+    task's model ready at ``on_train_start``, each step's end at
+    ``on_train_batch_end``.  With ``norms``, each step's gradient norm as
+    the backward left it (``pre_clip``, from each parameter's
+    post-accumulate hook) and as the step applied it (``grad_norm``)."""
+
+    def __init__(self, report: str, norms: bool = False):
+        super().__init__(report)
+        self.norms = norms
+        self.grads = []
+
+    def on_train_start(self, trainer, module):
+        if self.norms:
+            for p in module.parameters():
+                p.register_post_accumulate_grad_hook(
+                    lambda q: self.grads.append(q.grad.detach().clone()))
+        self.stamp(module_device(module))
+
+    def on_train_batch_end(self, trainer, module, out, batch, i):
+        extra = {}
+        if self.norms:
+            import torch
+            extra = {"pre_clip": grad_norm(torch, self.grads),
+                     "grad_norm": grad_norm(torch, [
+                         p.grad for p in module.parameters()
+                         if p.grad is not None])}
+            self.grads.clear()
+        self.stamp(module_device(module), **extra)
+
+
+class RankProbe:
+    """``--parts estimator`` (d)'s callback: at the fit's end, every rank's
+    stop flag, epoch and ``state_dict`` checksums (:func:`zoo_checksums`),
+    allgathered; rank 0 writes them to ``path``."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def on_train_end(self, trainer, module):
+        import torch
+        import horovod_tpu_torch as hvd
+        mine = {"rank": hvd.rank(), "should_stop": trainer.should_stop,
+                "epoch": trainer.current_epoch,
+                "sums": zoo_checksums(torch, module).cpu().tolist()}
+        every = hvd.allgather_object(mine)
+        if hvd.rank() == 0:
+            with open(self.path, "w") as f:
+                json.dump(every, f)
+
+
+class RankLogger:
+    """A ``JsonlLogger`` whose rows name the rank that wrote them."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def log_metrics(self, metrics, step=None):
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"step": step, "rank": os.environ.get(
+                "HOROVOD_RANK"), **metrics}) + "\n")
+
+    def finalize(self, status):
+        with open(self.path, "a") as f:
+            f.write(json.dumps({"finalized": status, "rank": os.environ.get(
+                "HOROVOD_RANK")}) + "\n")
+
+
+def lightning_llama(cfg_name: str):
+    """Phase 23 (b)'s ``model_fn``: phase 5's model (``cfg_name`` from a
+    generator seeded 0, on the runtime's device) as a LightningModule, an
+    ``nn.Module`` that speaks the protocol: ``configure_optimizers`` phase
+    5's AdamW, ``training_step`` phase 5's loss (``ce_chunks=8``, the flash
+    kernels) over the ids the Store's float32 row and the last of its
+    next ids give back, ``forward`` fp32 logits as ``[rows * seq, vocab]``
+    for ``transform``."""
+    import torch
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import runtime
+    from horovod_tpu_torch.models import llama
+
+    class LlamaModule(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            dev = runtime.resolve_device()
+            self.model = llama.init(
+                llama.CONFIGS[cfg_name],
+                torch.Generator(device=dev).manual_seed(0), device=dev)
+
+        def forward(self, x):
+            logits = self.model(x.long(), attn_fn=hvd.flash_attention)
+            return logits.float().reshape(-1, logits.shape[-1])
+
+        def configure_optimizers(self):
+            return torch.optim.AdamW(self.parameters(), lr=3e-4,
+                                     weight_decay=0.01)
+
+        def training_step(self, batch, batch_idx):
+            x, y = batch
+            ids = torch.cat([x, y[:, -1:]], dim=1).long()
+            return llama.loss_fn(self.model, ids,
+                                 attn_fn=hvd.flash_attention, ce_chunks=8)
+    return LlamaModule()
+
+
+def lightning_mnist_checks(label: str, model, acc: float, rows: list) -> None:
+    """The Lightning MNIST example's own checks: holdout accuracy above
+    0.8, ``val_loss`` and ``val_acc`` in the history, the logger's rows
+    with the flushed metrics and, last, the ``finalized`` record."""
+    h = model.history
+    logged = sorted({k for r in rows for k in r
+                     if k not in ("step", "finalized", "rank")})
+    print(f"{label}: history " + json.dumps(h) + f"; holdout accuracy "
+          f"{acc:.4f}; the logger's {len(rows)} rows, metrics {logged}, "
+          f"last {json.dumps(rows[-1])}", flush=True)
+    require(acc > 0.8, f"{label}: holdout accuracy {acc}")
+    require({"val_loss", "val_acc", "train_loss"} <= set(h),
+            f"{label}: history {h}")
+    require({"train_ce", "val_acc", "val_loss"} <= set(logged),
+            f"{label}: logged {logged}")
+    require(rows[-1].get("finalized") == "success",
+            f"{label}: the logger's last row {rows[-1]}")
+
+
+def phase_lightning(torch, np, card: str, ref_losses, ref_step_ms: float,
+                    device_type: str = "cuda", cfg_name: str = "1b",
+                    batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                    keras: bool = True) -> dict:
+    """Phase 23: the Lightning estimator on one card, each fit's task a
+    fresh process (``spark.run`` through ``LocalTaskExecutor``): (a)
+    ``examples/torch_port/lightning_spark_mnist.py``'s configuration at
+    ``num_proc=1``: the example's checks and each step's applied gradient
+    norm min(its norm, the clip); (b) ``cfg_name`` (``1b``) at full width
+    and depth as a LightningModule (:func:`lightning_llama`) over phase 22
+    (c)'s Store rows, batch 4, 2 epochs: 16 launches of each kernel a step,
+    the initial loss on the Store's first batch within ``ESTIMATOR_FIRST_TOL``
+    of phase 5's first, epoch 0 within ``ESTIMATOR_LOSS_TOL`` of phase 5's
+    first 4 steps' mean, the driver's ``transform`` to finite logits; (c)
+    with ``keras``, ``examples/torch_port/keras_spark_mnist.py`` in a
+    process of its own under ``KERAS_BACKEND=torch`` (its accuracy check),
+    or a line saying it was not run where keras cannot be imported.
+    Returns (b)'s launches and the phase's seconds."""
+    import functools
+    import importlib.util
+    import shutil
+    import tempfile
+    import chip_smoke as this  # importable by name in the tasks
+    examples = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples", "torch_port")
+    sys.path.insert(0, examples)
+    import lightning_spark_mnist as LM
+    from horovod_tpu_torch import spark
+    from horovod_tpu_torch.models import llama
+    from horovod_tpu_torch.ops import flash_attention as F
+    cuda = device_type == "cuda"
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.empty_cache()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_lightning_")
+
+    def fit(label, store, run):
+        """``run()``'s result and the task's clock readings; printed: the
+        fit's times (:func:`estimator_line`)."""
+        t0 = time.time()
+        out = run()
+        wall = time.time() - t0
+        r = estimator_report(out_dir, label)
+        require(r["device"].startswith(device_type),
+                f"lightning [{label}]: the task ran on {r['device']}")
+        print(estimator_line(f"lightning {label}", r, t0, wall,
+                             read_ckpts(store.log_path), dataset_bytes(
+                                 store.get_train_data_path("run0"))),
+              flush=True)
+        return out, r
+
+    def store(name):
+        return this.TimedStore(spark.FilesystemStore(
+            os.path.join(out_dir, name)), os.path.join(out_dir,
+                                                       name + ".ckpt"))
+
+    try:
+        with keep_bytecode(cuda):
+            # (a) the Lightning MNIST example's configuration
+            clip = LIGHTNING_MNIST["clip"]
+            sa = store("mnist-store")
+            (model, acc, rows), r = fit("mnist", sa, lambda: LM.fit(
+                sa, os.path.join(out_dir, "mnist.jsonl"), num_proc=1,
+                epochs=LIGHTNING_MNIST["epochs"],
+                batch=LIGHTNING_MNIST["batch"], coordinator_port=free_port(),
+                executor=spark.LocalTaskExecutor(1),
+                callbacks=[this.LightningStamps(
+                    os.path.join(out_dir, "mnist"), norms=True)]))
+            lightning_mnist_checks("lightning [mnist]", model, acc, rows)
+            # clip_grad_norm_: the norm the step applies is min(pre, clip)
+            pre, post = r["pre_clip"], r["grad_norm"]
+            gap = max(abs(b - min(a, clip)) for a, b in zip(pre, post)) / clip
+            print(f"lightning [mnist]: gradient norms {min(pre):.4f}-"
+                  f"{max(pre):.4f} before the clip at {clip} over "
+                  f"{len(pre)} steps, {sum(a > clip for a in pre)} above it; "
+                  f"applied min(norm, clip) within {gap:.3e} of the clip "
+                  f"(limit {LIGHTNING_CLIP_RTOL})", flush=True)
+            require(len(pre) == len(r["stamps"])
+                    and gap <= LIGHTNING_CLIP_RTOL,
+                    f"lightning [mnist]: the clip: {pre} -> {post}")
+
+            # (b) cfg_name (1b) at full width and depth as a LightningModule
+            cfg = llama.CONFIGS[cfg_name]
+            sb = store("llama-store")
+            rows = estimator_rows(np, cfg.vocab, batch, seq)
+            spark.prepare_data(sb, rows, ["features"], ["label"])
+            est = spark.LightningEstimator(
+                store=sb, model_fn=functools.partial(
+                    this.lightning_llama, cfg_name),
+                num_proc=1, feature_cols=["features"], label_cols=["label"],
+                batch_size=batch, epochs=ESTIMATOR_LLAMA_EPOCHS,
+                executor=spark.LocalTaskExecutor(1),
+                callbacks=[this.LightningStamps(
+                    os.path.join(out_dir, "llama"))],
+                coordinator_port=free_port())
+            F.reset_launches()
+            model, r = fit("llama", sb, est.fit_on_parquet)
+            launches = dict(r["launches"])
+            steps = ESTIMATOR_LLAMA_BATCHES * ESTIMATOR_LLAMA_EPOCHS
+            h = model.history["train_loss"]
+            ref = sum(ref_losses[:ESTIMATOR_LLAMA_BATCHES]) / \
+                ESTIMATOR_LLAMA_BATCHES
+            first = sb.read_parquet(sb.get_train_data_path("run0"))
+            m0 = lightning_llama(cfg_name)
+            dev = module_device(m0)
+            with torch.no_grad():
+                l0 = float(m0.training_step(tuple(
+                    torch.from_numpy(np.ascontiguousarray(
+                        first[c][:batch], np.float32)).to(dev)
+                    for c in ("features", "label")), 0))
+            del m0
+            print(f"lightning [llama {cfg_name}]: phase 5's step "
+                  f"{ref_step_ms:.1f} ms; epoch mean losses {h}; "
+                  f"epoch 0 {h[0]:.6f} against phase 5's first "
+                  f"{ESTIMATOR_LLAMA_BATCHES} steps' mean {ref:.6f}: gap "
+                  f"{abs(h[0] - ref):.3e} (limit {ESTIMATOR_LOSS_TOL}); the "
+                  f"initial loss on the Store's first batch {l0:.6f}, "
+                  f"{abs(l0 - ref_losses[0]):.3e} from phase 5's first "
+                  f"(limit {ESTIMATOR_FIRST_TOL}); launches "
+                  + json.dumps(launches), flush=True)
+            require(len(h) == ESTIMATOR_LLAMA_EPOCHS
+                    and all(math.isfinite(v) for v in h),
+                    f"lightning [llama]: history {h}")
+            require(abs(l0 - ref_losses[0]) <= ESTIMATOR_FIRST_TOL,
+                    f"lightning [llama]: the initial loss on the first "
+                    f"batch {l0} vs phase 5's first {ref_losses[0]}")
+            require(abs(h[0] - ref) <= ESTIMATOR_LOSS_TOL,
+                    f"lightning [llama]: epoch 0 {h[0]} vs phase 5's {ref}")
+            if cuda:
+                for name in REPLACES:
+                    require(launches.get(name) == cfg.n_layers * steps,
+                            f"lightning [llama]: {name} launched "
+                            f"{launches.get(name)} times, expected "
+                            f"{cfg.n_layers * steps}")
+            t0 = time.time()
+            logits = model.transform({"features": rows["features"][:1]})[
+                "predict"]
+            print(f"lightning [llama {cfg_name}]: transform on "
+                  f"{device_type}: one row to logits {list(logits.shape)} "
+                  f"{logits.dtype} in {time.time() - t0:.2f} s, finite: "
+                  f"{bool(np.isfinite(logits).all())}", flush=True)
+            require(logits.shape == (seq, cfg.vocab)
+                    and bool(np.isfinite(logits).all()),
+                    f"lightning [llama]: logits {logits.shape}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # (c) the Keras estimator, where keras is installed
+    if not keras:
+        print("lightning [keras]: the Keras estimator was not run: not "
+              "asked for", flush=True)
+    elif importlib.util.find_spec("keras") is None:
+        print("lightning [keras]: the Keras estimator was not run: keras "
+              "cannot be imported on this machine", flush=True)
+    else:
+        env = dict(os.environ, KERAS_BACKEND="torch", JAX_PLATFORMS="cpu")
+        env["PYTHONPATH"] = os.pathsep.join(
+            [os.path.dirname(os.path.abspath(__file__))]
+            + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, os.path.join(examples, "keras_spark_mnist.py"),
+             "--np", "1", "--coordinator-port", str(free_port())]
+            + ([] if cuda else ["--cpu"]), env=env, capture_output=True,
+            text=True, timeout=600)
+        acc_line = [ln for ln in res.stdout.splitlines()
+                    if ln.startswith("holdout accuracy")]
+        print(f"lightning [keras]: keras_spark_mnist.py on keras's torch "
+              f"backend: exit {res.returncode} in {time.time() - t0:.2f} s; "
+              f"{acc_line[-1] if acc_line else 'no accuracy line'}",
+              flush=True)
+        require(res.returncode == 0 and "OK" in res.stdout,
+                f"lightning [keras]: {res.stdout[-2000:]} "
+                f"{res.stderr[-3000:]}")
+    s = time.perf_counter() - t_phase
+    print(f"lightning [{card}]: phase 23 took {s:.1f} s; launches "
+          + json.dumps(launches), flush=True)
+    return {"launches": launches, "s": s}
 
 
 def main() -> int:
@@ -8736,31 +9137,57 @@ def main() -> int:
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
 
+    marks = [("start", time.perf_counter())]  # each phase's end
     rows = phase_kernels(F, torch, card)
+    marks.append(("kernels", time.perf_counter()))
     phase_model(torch, hvd, llama, L)
+    marks.append(("model", time.perf_counter()))
     launches, losses, step_ms, tok_s, busy, params = phase_train(
         torch, np, hvd, llama, F)
+    marks.append(("train", time.perf_counter()))
     serve_ref = phase_serve(torch, np, hvd, llama, serve, F, card)
+    marks.append(("serve", time.perf_counter()))
     eager, eager_ms = phase_eager(torch, np, hvd, llama, F, card, losses,
                                   step_ms, tok_s, busy, params)
+    marks.append(("eager", time.perf_counter()))
     sums = param_checksums(torch, params)  # phase 21's reference
     del params
     wire = phase_wire(torch, np, hvd, llama, F)
+    marks.append(("wire", time.perf_counter()))
     zero, zero_runs = phase_zero(torch, np, hvd, llama, F, card)
+    marks.append(("zero", time.perf_counter()))
     layout = phase_layout(torch, np, hvd, llama, F, card, zero_runs)
+    marks.append(("layout", time.perf_counter()))
     ring_rows, ring_launches, moe_launches = phase_sequence(
         torch, np, hvd, llama, F, L, card)
-    launched = phase_launch(torch, card, losses, step_ms)
-    fleet = phase_fleet(torch, np, serve, card, serve_ref)
-    measure = phase_measure(torch, card, losses, step_ms, eager_ms)
-    perf = phase_perf(torch, np, hvd, llama, F, card, losses, step_ms)
+    marks.append(("sequence", time.perf_counter()))
+    # the launches of phases 13-20 reuse compiled bytecode (keep_bytecode),
+    # but phase 17's, whose ranks must exit within 10 s of a failure
+    with keep_bytecode():
+        launched = phase_launch(torch, card, losses, step_ms)
+        marks.append(("launch", time.perf_counter()))
+        fleet = phase_fleet(torch, np, serve, card, serve_ref)
+        marks.append(("fleet", time.perf_counter()))
+        measure = phase_measure(torch, card, losses, step_ms, eager_ms)
+        marks.append(("measure", time.perf_counter()))
+        perf = phase_perf(torch, np, hvd, llama, F, card, losses, step_ms)
+        marks.append(("perf", time.perf_counter()))
     watch = phase_forensics(torch, card, losses, step_ms)
-    elastic = phase_elastic(torch, card, losses)
-    zoo = phase_zoo(torch, np, hvd, F, L, card)
-    scen = phase_scenario(torch, np, hvd, llama, serve, F, card, losses,
-                          step_ms)
+    marks.append(("forensics", time.perf_counter()))
+    with keep_bytecode():
+        elastic = phase_elastic(torch, card, losses)
+        marks.append(("elastic", time.perf_counter()))
+        zoo = phase_zoo(torch, np, hvd, F, L, card)
+        marks.append(("zoo", time.perf_counter()))
+        scen = phase_scenario(torch, np, hvd, llama, serve, F, card,
+                              losses, step_ms)
+        marks.append(("scenario", time.perf_counter()))
     cluster = phase_cluster(torch, card, losses, sums, step_ms)
+    marks.append(("cluster", time.perf_counter()))
     estimator = phase_estimator(torch, np, card, losses)
+    marks.append(("estimator", time.perf_counter()))
+    lightning = phase_lightning(torch, np, card, losses, step_ms)
+    marks.append(("lightning", time.perf_counter()))
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]
@@ -8780,8 +9207,12 @@ def main() -> int:
         row["launches_scenario"] = scen["launches_scenario"][row["name"]]
         row["launches_cluster"] = cluster["launches"][row["name"]]
         row["launches_estimator"] = estimator["launches"][row["name"]]
+        row["launches_lightning"] = lightning["launches"][row["name"]]
         row["ring"] = ring_rows[row["name"]]
         row["d128"]["resources"] = d128[row["name"]]
+    print("phases (s): " + ", ".join(
+        f"{name} {t - t0:.1f}"
+        for (_, t0), (name, t) in zip(marks, marks[1:])), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {

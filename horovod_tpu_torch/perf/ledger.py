@@ -545,6 +545,10 @@ class PerfPublisher:
         self.rank = int(rank)
         self.interval = max(0.1, float(interval))
         self._report_fn = report_fn
+        # one publish at a time, each taking its payload inside: a
+        # payload taken earlier never lands after a newer one (the
+        # loop's publishes beside publish_now and close)
+        self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         if self.addr and self.port:
@@ -552,6 +556,10 @@ class PerfPublisher:
             self._thread.start()
 
     def publish_now(self, retries: int = 3) -> bool:
+        with self._lock:
+            return self._publish(retries=retries)
+
+    def _publish(self, retries: int = 3) -> bool:
         if not (self.addr and self.port):
             return False
         try:

@@ -1,5 +1,6 @@
 """Estimator API: fit on a dataset, get back a servable model; the port of
-the Linear and Torch parts of ``horovod_tpu/spark/estimator.py``.
+``horovod_tpu/spark/estimator.py`` (``LightningEstimator`` is in
+``spark/lightning.py``).
 
 Reference: horovod/spark/common/estimator.py:25-103 — ``Estimator.fit(df)``
 persists the DataFrame as parquet in the Store, trains inside
@@ -30,12 +31,22 @@ The port's rules beside the JAX module's:
   numpy arrays, and a torch envelope's a ``state_dict`` of CPU tensors, as
   the JAX package writes them: a Store written by either package resumes
   in the other.
+- **Keras.**  ``KerasEstimator`` trains on keras's torch backend: its
+  tasks' env sets ``KERAS_BACKEND=torch``, and the task and the driver's
+  loader raise, naming the backend, when keras runs on another one.  keras
+  imports jax whatever its backend, so keras is imported only inside the
+  task and the loader, never when this module is, and ``JAX_PLATFORMS=cpu``
+  is set beside the backend: an import of jax by keras never brings up a
+  backend on a card.  The task brings up the runtime (which selects
+  ``cuda:<local rank>``) before it first imports keras, and builds and
+  trains under ``keras.device`` of its device; the epoch's parameter
+  average is one grouped average of the variables' tensors on the device,
+  then ``assign``.  The envelope's ``model`` stays ``pickle`` of
+  ``get_weights()``, a list of numpy arrays, as the JAX package writes it.
 - **Ports.**  ``coordinator_port`` names the store port of the tasks'
   process group (``spark.run``'s); the JAX estimator has no such knob.
   The native controller's port is the ``HOROVOD_CONTROLLER_PORT`` knob of
   the tasks' env.
-
-The Keras and Lightning estimators are not ported here.
 """
 
 from __future__ import annotations
@@ -209,11 +220,15 @@ def _epoch_driver(store: Store, run_id: str, epochs: int, metrics,
                   predict: Callable[[np.ndarray], np.ndarray],
                   device=None,
                   cold_start: Optional[Callable[[], None]] = None,
-                  opts: Optional[Dict] = None) -> Dict:
+                  opts: Optional[Dict] = None,
+                  should_stop: Optional[Callable[[], bool]] = None,
+                  extra_eval: Optional[Callable[[int], Dict]] = None
+                  ) -> Dict:
     """The epoch loop every train task shares: resume from the stored
     envelope (or run ``cold_start``, the initial parameter sync), then
-    each epoch: train, the val metrics, rank 0's envelope and history log,
-    the fault hook."""
+    each epoch: train, the val metrics, ``extra_eval``'s (Lightning's
+    ``validation_step``), rank 0's envelope and history log, the fault
+    hook, and an early end when ``should_stop`` says so."""
     metrics = _resolve_metrics(metrics)
     start_epoch = 0
     history: Dict[str, List[float]] = {}
@@ -232,6 +247,9 @@ def _epoch_driver(store: Store, run_id: str, epochs: int, metrics,
                                   size, sync, device=device, fs=store.fs,
                                   opts=opts).items():
             history.setdefault(k, []).append(v)
+        if extra_eval is not None:
+            for k, v in (extra_eval(epoch) or {}).items():
+                history.setdefault(k, []).append(v)
         if rank == 0 and opts.get("verbose"):
             parts = [f"{k}={v[-1]:.4f}" for k, v in history.items()]
             print(f"[estimator] epoch {epoch}: " + " ".join(parts),
@@ -241,6 +259,8 @@ def _epoch_driver(store: Store, run_id: str, epochs: int, metrics,
                                    history)
             store.save_log(run_id, pickle.dumps(history))
         _maybe_inject_fault(rank, epoch)
+        if should_stop is not None and should_stop():
+            break
     return history
 
 
@@ -385,6 +405,11 @@ class Estimator:
     def _load_model(self, payload: bytes) -> Callable:
         raise NotImplementedError
 
+    def _task_env(self) -> Dict[str, str]:
+        """What joins every train task's env (``KerasEstimator``'s
+        backend)."""
+        return {}
+
     def has_checkpoint(self) -> bool:
         """Whether the Store holds this run's envelope: the next ``fit`` or
         ``fit_on_parquet`` then continues from its epoch (reference:
@@ -434,11 +459,13 @@ class Estimator:
             run_elastic(task, args=(train_path, val_path),
                         num_proc=self.num_proc, min_np=min_np,
                         reset_limit=reset_limit,
+                        env=self._task_env(),
                         executor_factory=self._executor_factory(),
                         coordinator_port=self.coordinator_port)
         else:
             spark_run(task, args=(train_path, val_path),
                       num_proc=self.num_proc, executor=self.executor,
+                      env=self._task_env(),
                       coordinator_port=self.coordinator_port)
         env = _load_epoch_checkpoint(self.store, self.run_id)
         if env is None:
@@ -608,13 +635,26 @@ def _torch_eval_predict(model, x: np.ndarray, device) -> np.ndarray:
     return out
 
 
+def _build_module(model_fn: Callable, dev):
+    """``model_fn()`` with its tensors made on ``dev``, and moved there as
+    well where it has ``.to``: a LightningModule-protocol object need not
+    have it."""
+    import torch
+    with torch.device(dev):
+        module = model_fn()
+    if hasattr(module, "to"):
+        module.to(dev)
+    return module
+
+
 def _torch_predict_fn(model_fn: Callable, payload: bytes) -> Callable:
     """A state dict's bytes -> an eval-mode predict on the driver's device
-    (the runtime's, else the current card; the CPU only when asked for)."""
+    (the runtime's, else the current card; the CPU only when asked for),
+    the module built as the Lightning task builds it."""
     import torch
     from .. import runtime as _rt
     dev = _rt.resolve_device()
-    model = model_fn().to(dev)
+    model = _build_module(model_fn, dev)
     model.load_state_dict(torch.load(io.BytesIO(payload), map_location=dev,
                                      weights_only=True))
     model.eval()
@@ -765,3 +805,173 @@ class _TorchTrainTask:
             else 0.0
         _end_task(owned)
         return out
+
+
+# ---------------------------------------------------------------------------
+# KerasEstimator, on keras's torch backend
+
+def _keras_torch():
+    """keras, on its torch backend.  In a process that has not imported
+    keras yet, ``KERAS_BACKEND=torch`` and ``JAX_PLATFORMS=cpu`` are set
+    before the import: keras imports jax whatever its backend, and jax must
+    never bring up a backend on a card.  A keras already running on another
+    backend raises; there is no fallback."""
+    import sys
+    if "keras" not in sys.modules:
+        os.environ["KERAS_BACKEND"] = "torch"
+        os.environ["JAX_PLATFORMS"] = "cpu"
+    import keras
+    backend = keras.backend.backend()
+    if backend != "torch":
+        raise RuntimeError(
+            f"the port's KerasEstimator needs keras's torch backend; keras "
+            f"in this process runs on {backend!r} (set KERAS_BACKEND=torch "
+            "before keras is first imported)")
+    return keras
+
+
+class KerasEstimator(Estimator):
+    """Keras 3 estimator (reference: spark/keras/estimator.py) on keras's
+    torch backend: the model is built by ``model_fn`` in each worker,
+    under ``keras.device`` of the worker's device, and trained on its
+    parquet shard; after every epoch the weights are averaged across the
+    workers (one collective an epoch, not one a batch), then rank 0 writes
+    the epoch envelope, whose ``model`` is ``pickle`` of
+    ``model.get_weights()`` as the JAX package writes it.
+
+    ``callbacks``: keras callbacks run inside every worker: ``set_model``,
+    ``on_train_begin``/``end`` and ``on_epoch_begin``/``end`` with the
+    workers' average loss, which covers LR schedules, ReduceLROnPlateau and
+    EarlyStopping (``model.stop_training`` ends the fit).  They ship to the
+    workers by pickle, so use module-level schedule functions; their state
+    is rebuilt on a resume (only the weights and the history persist).
+
+    The tasks' env sets ``KERAS_BACKEND=torch`` and ``JAX_PLATFORMS=cpu``
+    (:func:`_keras_torch`)."""
+
+    def __init__(self, store: Store, model_fn: Callable, num_proc: int = 1,
+                 lr: float = 1e-3, callbacks: Sequence = (), **kwargs):
+        super().__init__(store, num_proc=num_proc, **kwargs)
+        self.model_fn = model_fn
+        self.lr = lr
+        self.callbacks = list(callbacks)
+
+    def _task_env(self) -> Dict[str, str]:
+        return {"KERAS_BACKEND": "torch", "JAX_PLATFORMS": "cpu"}
+
+    def _make_train_task(self) -> Callable:
+        return _KerasTrainTask(self.store, self.run_id, self.model_fn,
+                               self.feature_cols, self.label_cols,
+                               self.batch_size, self.epochs, self.lr,
+                               loss=self.loss, metrics=self.metrics,
+                               callbacks=self.callbacks,
+                               opts=self._data_opts())
+
+    def _load_model(self, payload: bytes) -> Callable:
+        """The weights onto a model built on the driver's device (the
+        runtime's, else the current card; the CPU only when asked for); its
+        predictions come back to the host."""
+        from .. import runtime as _rt
+        keras = _keras_torch()
+        dev = _rt.resolve_device()
+        weights = pickle.loads(payload)
+        with keras.device(str(dev)):
+            model = self.model_fn()
+            model.set_weights(weights)
+
+        def predict(x: np.ndarray) -> np.ndarray:
+            with keras.device(str(dev)):
+                return keras.ops.convert_to_numpy(model(x))
+        return predict
+
+
+class _KerasTrainTask:
+    def __init__(self, store, run_id, model_fn, feature_cols, label_cols,
+                 batch_size, epochs, lr, loss=None, metrics=(),
+                 callbacks=(), opts=None):
+        self.callbacks = list(callbacks)
+        self.opts = dict(opts or {})
+        self.store = store
+        self.run_id = run_id
+        self.model_fn = model_fn
+        self.feature_cols = feature_cols
+        self.label_cols = label_cols
+        self.batch_size = batch_size
+        self.epochs = epochs
+        self.lr = lr
+        self.loss = loss
+        self.metrics = list(metrics)
+
+    def __call__(self, train_path: str, val_path: Optional[str] = None):
+        import torch
+        rank, size = _task_rank_size()
+        # the runtime first: it selects cuda:<local rank>, which keras's
+        # torch backend takes as its "cuda" when it is first imported
+        sync, dev, owned = _grad_sync_fn()
+        keras = _keras_torch()
+        loader = _make_train_loader(self.store, train_path,
+                                    self.batch_size, rank, size, self.opts)
+        with keras.device(str(dev)):
+            out = self._train(keras, torch, rank, size, sync, dev, loader,
+                              val_path)
+        _end_task(owned)
+        return out
+
+    def _train(self, keras, torch, rank, size, sync, dev, loader, val_path):
+        model = self.model_fn()
+        # ``loss`` passes straight to compile: keras resolves names and
+        # callables alike (reference: the keras estimator's loss param)
+        model.compile(optimizer=keras.optimizers.SGD(self.lr),
+                      loss=self.loss or "mse")
+        for cb in self.callbacks:
+            cb.set_model(model)
+            cb.on_train_begin()
+        # the variables the epoch average covers: the floating ones (a
+        # seed generator's integer state stays each worker's own)
+        averaged = [v for v in model.weights
+                    if torch.is_floating_point(v.value)]
+
+        def train_epoch(epoch: int) -> float:
+            for cb in self.callbacks:
+                cb.on_epoch_begin(epoch)
+            epoch_loss, nb = 0.0, 0
+            for batch in _iter_train(loader, epoch, self.opts):
+                x, y = _assemble_batch(batch, self.feature_cols,
+                                       self.label_cols)
+                sw = _batch_weights(batch, self.opts)
+                loss = model.train_on_batch(
+                    x, y, sample_weight=None if sw is None
+                    else sw.ravel().astype(np.float32))
+                epoch_loss += float(np.asarray(loss).ravel()[0])
+                # train_on_batch reports the running mean since the last
+                # reset, not this batch's loss
+                model.reset_metrics()
+                nb += 1
+            if size > 1:
+                # one grouped average of the variables on the device keeps
+                # every worker's model alike at the epoch's end
+                for v, a in zip(averaged, sync([v.value.detach()
+                                                for v in averaged])):
+                    v.assign(a)
+            # callbacks see the workers' average loss, so stateful monitors
+            # decide alike on every worker
+            avg = float(sync([torch.tensor(
+                [epoch_loss / max(nb, 1)], dtype=torch.float64,
+                device=dev)])[0])
+            for cb in self.callbacks:
+                cb.on_epoch_end(epoch, logs={"loss": avg})
+            return avg
+
+        history = _epoch_driver(
+            self.store, self.run_id, self.epochs, self.metrics,
+            self.batch_size, self.feature_cols, self.label_cols,
+            rank, size, sync, val_path, device=dev, opts=self.opts,
+            restore=lambda p: model.set_weights(pickle.loads(p)),
+            serialize=lambda: pickle.dumps(model.get_weights()),
+            train_epoch=train_epoch,
+            predict=lambda x: keras.ops.convert_to_numpy(model(x)),
+            should_stop=lambda: bool(getattr(model, "stop_training",
+                                             False)))
+        for cb in self.callbacks:
+            cb.on_train_end()
+        return history["train_loss"][-1] if history["train_loss"] else 0.0

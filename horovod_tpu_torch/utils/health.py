@@ -132,6 +132,10 @@ class HeartbeatPublisher:
         self.rank = int(rank)
         self.interval = max(0.05, float(interval))
         self._payload_fn = payload_fn
+        # one publish at a time, each taking its payload inside: a
+        # payload taken earlier never lands after a newer one (the
+        # loop's publishes beside publish_now and close)
+        self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         if self.addr and self.port:
@@ -139,6 +143,10 @@ class HeartbeatPublisher:
             self._thread.start()
 
     def publish_now(self, retries: int = 2) -> bool:
+        with self._lock:
+            return self._publish(retries=retries)
+
+    def _publish(self, retries: int = 2) -> bool:
         if not (self.addr and self.port):
             return False
         try:

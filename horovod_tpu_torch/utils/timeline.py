@@ -472,6 +472,10 @@ class TimelinePublisher:
         self.timeline = timeline
         self.clock = clock
         self._seq = 0
+        # one publish at a time, each taking its payload inside: two
+        # never take one chunk sequence number (the loop's publish beside
+        # close)
+        self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         timeline.enable_publish()
@@ -480,6 +484,10 @@ class TimelinePublisher:
             self._thread.start()
 
     def publish_now(self) -> bool:
+        with self._lock:
+            return self._publish()
+
+    def _publish(self) -> bool:
         if not (self.addr and self.port):
             return False
         try:

@@ -269,19 +269,24 @@ def test_port_imports_no_jax_and_nothing_of_horovod_tpu():
 
 def test_spark_estimators_load_no_jax():
     """A fresh process loads ``horovod_tpu_torch.spark`` with the Store,
-    ``prepare_data`` and the estimators, writes a dataset and builds both
-    estimators: neither ``jax`` nor ``horovod_tpu`` lands in
-    ``sys.modules``."""
+    ``prepare_data`` and the estimators, writes a dataset and builds every
+    estimator's train task, the Keras and Lightning ones included: neither
+    ``jax`` nor ``horovod_tpu`` lands in ``sys.modules``, and keras (which
+    imports jax) is not imported either."""
     prog = (
         "import sys, tempfile\n"
         "import numpy as np\n"
         "from horovod_tpu_torch import spark\n"
-        "from horovod_tpu_torch.spark import estimator, prepare, store\n"
+        "from horovod_tpu_torch.spark import (estimator, lightning, "
+        "prepare, store)\n"
         "s = spark.Store.create(tempfile.mkdtemp())\n"
         "spark.prepare_data(s, {'features': np.ones((4, 2)), "
         "'label': np.zeros((4, 1))}, ['features'], ['label'])\n"
         "spark.LinearEstimator(s)._make_train_task()\n"
         "spark.TorchEstimator(s, lambda: None)._make_train_task()\n"
+        "spark.LightningEstimator(s, lambda: None)._make_train_task()\n"
+        "spark.KerasEstimator(s, lambda: None)._make_train_task()\n"
+        "assert 'keras' not in sys.modules\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in " + repr(sorted(_FORBIDDEN))
         + ")\nprint('LOADED-NONE' if not bad else bad)\n")

@@ -31,6 +31,7 @@ import os
 import signal
 import subprocess
 import sys
+import threading
 import time
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -870,12 +871,119 @@ def test_op_stats_distinct_names_and_the_snapshot_import():
         hub.close()
 
 
+# ------------------------------------------------------------ publishers
+class _HeldFirst:
+    """A payload function whose first call (the publisher's own thread)
+    waits until :meth:`release`, so a later publish can overtake it; each
+    call returns its index."""
+
+    def __init__(self):
+        self.calls = 0
+        self.entered = threading.Event()
+        self.gate = threading.Event()
+
+    def __call__(self):
+        n = self.calls
+        self.calls += 1
+        if n == 0:
+            self.entered.set()
+            assert self.gate.wait(30)
+        return {"n": n}
+
+
+def _publisher(kind, port, payload):
+    from horovod_tpu_torch.utils import health, metrics
+    if kind == "perf":
+        return TLed.PerfPublisher("127.0.0.1", port, 0, report_fn=payload,
+                                  interval=60.0)
+    if kind == "metrics":
+        return metrics.MetricsPublisher("127.0.0.1", port, 0, payload,
+                                        interval=60.0)
+    return health.HeartbeatPublisher("127.0.0.1", port, 0, payload,
+                                     interval=60.0)
+
+
+@pytest.mark.parametrize("kind,scope", [("perf", "perf"),
+                                        ("metrics", "metrics"),
+                                        ("heartbeat", "health")])
+def test_a_publisher_never_lands_a_stale_payload(kind, scope):
+    """The publisher's thread takes its first payload, then stalls (a
+    loaded host); a ``publish_now`` meanwhile must not be overwritten by
+    that older payload: the KV ends with the newer one.  A ``-np 2``
+    perf launch read a 0-step report this way under the test suite's
+    load, published by the thread after the ranks' 3-step one."""
+    from horovod_tpu_torch.runner.http_server import RendezvousServer
+    server = RendezvousServer(host="127.0.0.1")
+    port = server.start()
+    payload = _HeldFirst()
+    try:
+        pub = _publisher(kind, port, payload)
+        assert payload.entered.wait(30)
+        explicit = threading.Thread(target=pub.publish_now)
+        explicit.start()
+        time.sleep(0.3)  # the explicit publish is under way
+        payload.gate.set()
+        explicit.join(30)
+        pub._stop.set()  # the thread's stalled publish ends, then the thread
+        pub._thread.join(30)
+        assert not explicit.is_alive() and not pub._thread.is_alive()
+        assert json.loads(server.get(scope, "rank.0"))["n"] == 1
+        pub.close()
+        assert json.loads(server.get(scope, "rank.0"))["n"] == 2
+    finally:
+        payload.gate.set()
+        server.stop()
+
+
+def test_timeline_publishes_never_share_a_sequence_number(monkeypatch):
+    """Two timeline publishes at once (the thread's, its PUT stalled,
+    beside ``close``) write two chunks under two keys: neither overwrites
+    the other."""
+    from horovod_tpu_torch.runner import http_client
+    from horovod_tpu_torch.runner.http_server import RendezvousServer
+    from horovod_tpu_torch.utils import timeline as TT
+
+    class Chunks:
+        n = 0
+
+        def enable_publish(self):
+            pass
+
+        def drain_chunk(self):
+            self.n += 1
+            return [{"n": self.n - 1}]
+
+        def clock_meta(self):
+            return {}
+
+    held = _HeldFirst()
+    put = http_client.put_kv
+
+    def stalled_put(*args, **kwargs):
+        held()
+        return put(*args, **kwargs)
+    monkeypatch.setattr(http_client, "put_kv", stalled_put)
+    server = RendezvousServer(host="127.0.0.1")
+    port = server.start()
+    try:
+        pub = TT.TimelinePublisher("127.0.0.1", port, 0, Chunks(),
+                                   interval=0.1)
+        assert held.entered.wait(30)
+        closing = threading.Thread(target=pub.close)
+        closing.start()
+        time.sleep(0.3)
+        held.gate.set()
+        closing.join(30)
+        assert not closing.is_alive()
+        got = [json.loads(server.get("timeline", f"rank.0.{i:06d}") or
+                          b"null") for i in range(2)]
+        assert [c and c["events"][0]["n"] for c in got] == [0, 1], got
+    finally:
+        held.gate.set()
+        server.stop()
+
+
 # ---------------------------------------------------------------- launch
-def _free_port() -> int:
-    """A port below the ephemeral range, free when taken (``hold_ports``)."""
-    return hold_ports(1).release()[0]
-
-
 def test_two_rank_launch_serves_the_merged_perf_view(tmp_path):
     """``-np 2`` gloo ranks with ``HOROVOD_PERF=1``: ``GET /perf`` holds
     both ranks' reports and equals the JAX ``merge_perf_reports`` of the
@@ -889,10 +997,11 @@ def test_two_rank_launch_serves_the_merged_perf_view(tmp_path):
     env["PYTHONPATH"] = os.pathsep.join(
         [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
+    coord, ctrl, metrics = hold_ports(3).release()  # three distinct ports
     p = subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
-         "2", "--coordinator-port", str(_free_port()), "--controller-port",
-         str(_free_port()), "--metrics-port", str(_free_port()),
+         "2", "--coordinator-port", str(coord), "--controller-port",
+         str(ctrl), "--metrics-port", str(metrics),
          sys.executable, worker, str(tmp_path)], cwd=REPO, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         start_new_session=True)
@@ -900,8 +1009,9 @@ def test_two_rank_launch_serves_the_merged_perf_view(tmp_path):
         out, err = p.communicate(timeout=120)
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, signal.SIGKILL)
-        p.communicate()
-        pytest.fail("the launch did not end in 120 s")
+        out, err = p.communicate()
+        pytest.fail("the launch did not end in 120 s: "
+                    + err.decode()[-3000:])
     assert p.returncode == 0, err.decode()[-3000:]
     got = json.load(open(tmp_path / "perf.json"))
     served = got["served"]

@@ -398,8 +398,6 @@ def test_metrics_envelope_and_model_surface(tmp_path):
 def test_exports():
     for name in ("Store", "FilesystemStore", "LocalStore", "DBFSLocalStore",
                  "Estimator", "EstimatorModel", "LinearEstimator",
-                 "TorchEstimator"):
+                 "TorchEstimator", "KerasEstimator", "LightningEstimator"):
         assert name in spark.__all__ and hasattr(spark, name)
-        assert hasattr(JSP, name)
-    for name in ("KerasEstimator", "LightningEstimator"):
-        assert not hasattr(spark, name)
+        assert name in JSP.__all__ and hasattr(JSP, name)

@@ -9,9 +9,11 @@ first 4 batches from parquet, epoch 0's mean loss against phase 5's (here
 ``cluster_task`` run in the rehearsal's own process, as phase 5 runs in
 the script's), the driver's ``EstimatorModel`` to finite logits; then the
 ranks part on two gloo tasks: (a) MNIST at two tasks, (b) ``w_sum``
-bitwise equal on both, (c) the elastic shrink after rank 1's fault.  Each
-rehearsal is a subprocess in a session of its own, one thread a process,
-killed at its time limit; alone here each takes 30-40 s."""
+bitwise equal on both, (c) the elastic shrink after rank 1's fault, (d)
+the Lightning MNIST example at two tasks, its stop and ``state_dict``
+alike on both and its logger written by rank 0 alone.  Each rehearsal is
+a subprocess in a session of its own, one thread a process, killed at its
+time limit; alone here each takes 30-45 s."""
 
 import os
 import signal
@@ -79,3 +81,6 @@ def test_chip_smoke_estimator_rehearsal_on_cpu(part):
     else:
         assert "bitwise equal on all 2 ranks: True" in out
         assert "placements at np [2, 2, 1]" in out
+        assert "stop and epoch by rank [(True, 0), (True, 0)]" in out
+        assert "state_dict bitwise equal on all 2 ranks: True" in out
+        assert "the logger written by ranks ['0']" in out
