@@ -314,7 +314,19 @@ Phases, in order; any failure exits non-zero before the result line:
    imported, a line saying it was not run; printed: each fit's wall
    seconds, its task's model ready, the first step and the median of the
    rest (beside phase 5's step for (b));
-9. printed last, after phase 23: a ``{"kernels": [...]}`` JSON line (the
+24. pool (``phase_pool``): the step of a KV pool sharded over ranks
+   (``serve/pool.py``) at ``1b`` width and depth, phase 6's weights, in
+   fp32 and bf16, on one card: one mixed tick (``pool_tick``: prefill
+   chunks, decode and speculative verify rows, a row whose blocks all lie
+   in one shard, an inactive slot) over a 512-block pool of seeded random
+   k/v split into four block shards, each shard writing its share and
+   keeping its fp32 partials, stacked and merged as the fleet's block
+   group merges them (``sharded_tick``), against ``apply_cached`` over the
+   whole pool: fp32 attention within 1e-5 of each layer's largest value
+   and every argmax equal; bf16 each sharded token's whole-pool logit
+   within 0.1 of its position's maximum; every row's logits finite;
+   layer 0's shards bitwise the whole pool's blocks;
+9. printed last, after phase 24: a ``{"kernels": [...]}`` JSON line (the
    rows at the training shape, each with its 8b-shape ``d128``, MoE
    ``mini``-shape ``d32`` and BERT-Large ``bert_large`` numbers, D=128
    resources, its ring-shape ``ring`` numbers and the launches of each
@@ -331,7 +343,7 @@ The processes that phases 13-16 and 18-23 start, and those of ``--parts
 cluster`` and ``estimator``, write and reuse compiled bytecode under
 ``build/pycache`` (``keep_bytecode``); phase 17's keep the machine's env.
 
-    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic,zoo,cluster,estimator]
+    python3 chip_smoke.py --ranks 4 [--parts dp,sequence,expert,adasum,serve,measure,perf,postmortem,elastic,zoo,cluster,estimator,pool]
 
 runs, after the device and build phases, the eager path across 4 ranks
 (one process and one card each, started by the port's launcher as
@@ -489,8 +501,21 @@ N-1 after epoch 0: placed again at N-1 tasks, resumed from the epoch-0
 envelope, the history complete; (d) the Lightning MNIST example at N
 tasks: its holdout check, the synced stop alike on every rank, every
 rank's final ``state_dict`` bitwise equal (a checksum allgather), the
-logger written by rank 0 only.  ``--parts`` runs a subset (default:
-all).
+logger written by rank 0 only.  The ``pool`` part (``rank_pool``, the
+parent again) serves from a KV pool sharded over the N cards: (a) fp32
+``1b`` with prefix sharing, speculative decode and a spill tier at 512
+blocks over the ranks (``pool_traffic``: phase 14's requests, four that
+copy-on-write a block across owners, two repeats), every stream
+byte-identical to one card's in-process engine (held to full-forward
+greedy), every rank's live blocks above 0 at their peak, a CoW pair
+across owners; (b) the 2 + 2 disaggregated fleet, each sub-fleet's pool
+over its own two cards, ``rank_serve``'s contract; (c)
+``HOROVOD_LAYOUT=2,2,1``, kv heads over tp and blocks over dp, (a)'s
+tokens; (d) bf16 ``1b`` at 196,608 blocks (96 GiB): 24 GiB a card by
+``kv_pool()`` and by the device bytes each engine allocated, phase 14's
+requests finished, each rank's tick period beside one card's step at the
+default pool.  Every rank's scheduling digest is its (sub-)fleet rank
+0's, and its plan the rule's.  ``--parts`` runs a subset (default: all).
 
 TF32 is off for matrix products and convolutions
 (``torch.backends.cuda.matmul.allow_tf32 = False``,
@@ -3388,7 +3413,8 @@ def rank_wires(torch, np, hvd, llama, F, rank, n, dev, cfg_name, batch, seq,
 # --ranks N's parts: "dp" is the data-parallel planes of PRs 6-9 (the eager
 # path, the wire configurations, ZeRO and the layouts), then (d), (e), (f)
 RANK_PARTS = ("dp", "sequence", "expert", "adasum", "serve", "measure",
-              "perf", "postmortem", "elastic", "zoo", "cluster", "estimator")
+              "perf", "postmortem", "elastic", "zoo", "cluster", "estimator",
+              "pool")
 
 
 def rank_worker(spec: dict) -> None:
@@ -3603,7 +3629,7 @@ def phase_ranks(torch, n: int, parts) -> None:
             f"--ranks {n} needs {n} cards, {torch.cuda.device_count()} seen")
     worker_parts = [p for p in parts
                     if p not in ("serve", "measure", "perf", "postmortem",
-                                 "elastic", "cluster", "estimator")]
+                                 "elastic", "cluster", "estimator", "pool")]
     zoo_ref = None
     if "zoo" in parts:
         # one card's ResNet-50 at the recipe, the ranks' scaling reference
@@ -3676,6 +3702,15 @@ def phase_ranks(torch, n: int, parts) -> None:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()[0]
         rank_estimator(torch, n, card)
+    if "pool" in parts:
+        # the KV pool sharded over the serving fleet's cards: the parent
+        # starts each fleet and is its client
+        import numpy as np
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+        rank_pool(torch, np, n, card)
 
 
 LAUNCH_STEPS = 3         # phase 13: 1 warm-up and 2 timed steps
@@ -3964,7 +3999,9 @@ def fleet_clients(port: int, prompts: list, new_tokens: int) -> list:
 
 def fleet_worker_reports(out_dir: str, n: int) -> list:
     """Each worker's ``SERVE-DONE`` line (rank, role, ticks, scheduling
-    digest, attention-kernel launches, final engine stats)."""
+    digest, attention-kernel launches, its engine steps' median wall and
+    period, final engine stats) and, from its ``SERVE-READY`` line, the
+    pool bytes it holds and the device bytes its engine allocated."""
     reps = []
     for rank in range(n):
         with open(os.path.join(out_dir, f"rank.{rank}", "stdout"),
@@ -3973,12 +4010,21 @@ def fleet_worker_reports(out_dir: str, n: int) -> list:
         require(len(lines) == 1, f"fleet rank {rank}: no SERVE-DONE line")
         m = re.match(r"SERVE-DONE rank (\d+) role (\w+) sub_rank (\d+) "
                      r"ticks (\d+) sched_digest (\w*) launches (\{.*?\}) "
-                     r"stats (\{.*\})$", lines[0].strip())
+                     r"tick_ms (\{.*?\}) stats (\{.*\})$", lines[0].strip())
         require(m is not None, f"fleet rank {rank}: {lines[0][:200]}")
-        reps.append({"rank": int(m[1]), "role": m[2], "sub_rank": int(m[3]),
-                     "ticks": int(m[4]), "digest": m[5],
-                     "launches": json.loads(m[6]),
-                     "stats": json.loads(m[7])})
+        rec = {"rank": int(m[1]), "role": m[2], "sub_rank": int(m[3]),
+               "ticks": int(m[4]), "digest": m[5],
+               "launches": json.loads(m[6]), "tick_ms": json.loads(m[7]),
+               "stats": json.loads(m[8])}
+        with open(os.path.join(out_dir, f"rank.{rank}", "stdout"),
+                  errors="replace") as f:
+            ready = [ln for ln in f if ln.startswith("SERVE-READY")]
+        m = re.search(r"(\d+) bytes here; the engine allocated (-?\d+) "
+                      r"device bytes\)$", ready[-1].strip()) if ready else None
+        require(m is not None, f"fleet rank {rank}: no SERVE-READY pool "
+                f"line: {ready[-1:]}")
+        rec["pool_bytes_ready"], rec["engine_bytes"] = int(m[1]), int(m[2])
+        reps.append(rec)
     return reps
 
 
@@ -9051,6 +9097,420 @@ def phase_lightning(torch, np, card: str, ref_losses, ref_step_ms: float,
     return {"launches": launches, "s": s}
 
 
+
+# ------------------------------------------------ phase 24 and --parts pool
+POOL_SHARDS = 4          # phase 24: the pool split four ways on one card
+POOL_BLOCKS = 512        # phase 24: 128 blocks a shard
+POOL_FP32_TOL = 1e-5     # phase 24: fp32, of each layer's largest |attention|
+POOL_FLEET_BLOCKS = 512  # --parts pool (a), (c): 128 blocks a rank in (a)
+POOL_SPILL_BLOCKS = 256  # (a), (c): the host spill tier
+POOL_DISAGG_BLOCKS = 1024  # (b): 512 blocks a rank of each sub-fleet
+POOL_CAPACITY_BLOCKS = 196608  # (d): 96 GiB of bf16 1b pool in all
+POOL_LAYOUT = "2,2,1"    # (c): kv heads over tp, blocks over dp
+
+
+def pool_block_bytes(cfg, itemsize: int, block_size: int = 16) -> int:
+    """One pool block's k and v bytes over every layer and kv head."""
+    return 2 * cfg.n_layers * block_size * cfg.n_kv_heads * cfg.head_dim \
+        * itemsize
+
+
+def pool_tick(torch, np, scfg, vocab: int, nb: int, shards: int, dev):
+    """Phase 24's mixed tick over ``scfg.max_slots`` slots of
+    ``prefill_chunk`` positions: (context length, new tokens, shard or
+    None) per slot: fresh and resumed prefill chunks, decode rows of width
+    1 and 1 + ``spec_k`` (the speculative verify row), a decode row whose
+    blocks all lie in the last shard and a prefill row whose blocks all
+    lie in the first, and an inactive slot (every entry -1).  The other
+    rows take block ids in a seeded random order over the whole pool.
+    Returns tokens, block tables, lengths and n_new on ``dev``."""
+    C, bs, mb = scfg.prefill_chunk, scfg.block_size, scfg.max_blocks_per_seq
+    w, T = 1 + scfg.spec_k, scfg.max_seq_len
+    rows = [(0, C, None), (T // 3, C, None), (T * 3 // 4, 1, None),
+            (T // 2, w, None), (T // 7, 1, shards - 1), (2 * C, C, 0),
+            (0, 0, None), (T - 2 * w, w, None)][:scfg.max_slots]
+    rng = np.random.RandomState(24)
+    per = nb // shards
+    order = [int(b) for b in rng.permutation(nb)]
+    pinned = {i: [b for b in order if b // per == i] for i in range(shards)}
+    taken = set()
+    bt = np.full((scfg.max_slots, mb), -1, np.int32)
+    for s_, (length, n, shard) in enumerate(rows):
+        if not n:
+            continue
+        need = -(-(length + n) // bs)
+        pool = pinned[shard] if shard is not None else order
+        ids = [b for b in pool if b not in taken][:need]
+        require(len(ids) == need, f"pool tick: slot {s_} needs {need}")
+        taken.update(ids)
+        bt[s_, :need] = ids
+    lengths = np.array([r[0] for r in rows], np.int32)
+    n_new = np.array([r[1] for r in rows], np.int32)
+    tokens = rng.randint(0, vocab, (scfg.max_slots, C)).astype(np.int32)
+    return tuple(torch.from_numpy(a).to(dev) for a in
+                 (tokens, bt, lengths, n_new))
+
+
+def sharded_tick(torch, L, llama, P, model, tokens, shards, ranges, bt,
+                 lengths, n_new, check=None):
+    """The model's mixed tick (``apply_cached``) with its pool in block
+    shards on one card, as the fleet runs it: in each layer every shard
+    takes its share of the chunk's k/v (``llama.write_paged_kv``) and
+    keeps its partials (``serve.pool.attn_partials``), stacked in shard
+    order as the block group's all-gather stacks them and merged
+    (``serve.pool.merge_partials``).  ``check(i, layer, h, attn)`` sees
+    each layer's input and sharded attention.  Returns the logits."""
+    cfg = model.cfg
+    tokens, bt, lengths, n_new = (t.long() for t in (tokens, bt, lengths,
+                                                     n_new))
+    S, C = tokens.shape
+    cos, sin = L.rope_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
+                            device=tokens.device)
+    cols = torch.arange(C, device=tokens.device)
+    positions = lengths[:, None] + cols[None]
+    valid = cols[None] < n_new[:, None]
+    with torch.no_grad():
+        x = L.embedding(model.embed.table, tokens).to(cfg.dtype)
+        for i, layer in enumerate(model.layers):
+            h = layer.attn_norm(x)
+            q, k, v = layer._qkv_at(h, cos, sin, positions)
+            parts = []
+            for shard, blocks in zip(shards, ranges):
+                llama.write_paged_kv(shard["k"][i], shard["v"][i], k, v, bt,
+                                     positions, valid, blocks)
+                parts.append(P.attn_partials(q, shard["k"][i],
+                                             shard["v"][i], bt, positions,
+                                             blocks))
+            o = P.merge_partials(*(torch.stack(t) for t in zip(*parts)))
+            attn = layer.wo(o.to(q.dtype).reshape(S, C, -1))
+            if check is not None:
+                check(i, layer, h, attn, cos, sin, positions, valid)
+            x = x + attn
+            x = x + layer._ffn(layer.ffn_norm(x))
+        return model.lm_head(model.final_norm(x))
+
+
+def phase_pool(torch, np, llama, L, serve, card: str,
+               device_type: str = "cuda", cfg_name: str = "1b") -> dict:
+    """Phase 24: the sharded pool's step at ``cfg_name`` (``1b``) width and
+    depth on one card, phase 6's weights (seed 0), fp32 and bf16: one
+    mixed tick (:func:`pool_tick`) over a pool of ``POOL_BLOCKS`` blocks
+    of seeded random k/v, run by :func:`sharded_tick` over
+    ``POOL_SHARDS`` block shards against ``apply_cached`` over the whole
+    pool.  fp32: each layer's sharded attention within ``POOL_FP32_TOL``
+    of its largest |value| from the whole pool's ``_attn_cached`` on the
+    same input, and the argmax equal at every valid position; bf16: the
+    sharded argmax's whole-pool logit within ``BF16_LOGIT_TOL`` of the
+    position's maximum.  Both: finite logits in every row, inactive and
+    padding rows included, and layer 0's shards bitwise the whole pool's
+    blocks.  Returns the figures and the phase's seconds."""
+    import dataclasses
+    from horovod_tpu_torch.serve import pool as P
+    t_phase = time.perf_counter()
+    dev = torch.device(device_type, 0)
+    base = llama.CONFIGS[cfg_name]
+    scfg = serve.ServeConfig(max_seq_len=min(2048, base.max_seq))
+    nb, n = POOL_BLOCKS, POOL_SHARDS
+    per = nb // n
+    ranges = [(i * per, (i + 1) * per) for i in range(n)]
+    tokens, bt, lengths, n_new = pool_tick(torch, np, scfg, base.vocab, nb,
+                                           n, dev)
+    cols = torch.arange(scfg.prefill_chunk, device=dev)
+    valid = cols[None] < n_new.long()[:, None]
+    out = {}
+    for tag, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        g = torch.Generator(device=dev).manual_seed(24)
+        shape = (cfg.n_layers, nb + 1, scfg.block_size, cfg.n_kv_heads,
+                 cfg.head_dim)
+        whole = {name: torch.randn(shape, generator=g, device=dev,
+                                   dtype=torch.float32).to(dtype)
+                 for name in ("k", "v")}
+        shards = [{name: torch.cat([t[:, b0:b1], torch.zeros_like(
+            t[:, :1])], 1) for name, t in whole.items()}
+            for b0, b1 in ranges]
+        errs = []
+
+        def check(i, layer, h, attn, cos, sin, positions, valid_):
+            ref = layer._attn_cached(h, cos, sin, whole["k"][i],
+                                     whole["v"][i], bt.long(), positions,
+                                     valid_)
+            scale = ref[valid_].float().abs().max().item()
+            errs.append((attn[valid_].float() - ref[valid_].float()).abs()
+                        .max().item() / scale)
+
+        t0 = time.perf_counter()
+        got = sharded_tick(torch, L, llama, P, model, tokens, shards, ranges,
+                           bt, lengths, n_new, check).float()
+        with torch.no_grad():
+            want = model.apply_cached(tokens, whole, bt, lengths,
+                                      n_new).float()
+        if device_type == "cuda":
+            torch.cuda.synchronize()
+        s_tick = time.perf_counter() - t0
+        require(bool(torch.isfinite(got).all()),
+                f"pool [{tag}]: the sharded tick's logits are not finite")
+        for (b0, b1), sh in zip(ranges, shards):
+            for name in ("k", "v"):
+                require(torch.equal(sh[name][0, :-1], whole[name][0, b0:b1]),
+                        f"pool [{tag}]: layer 0's shard [{b0}, {b1}) "
+                        f"{name} differs from the whole pool's blocks")
+        g_v, w_v = got[valid], want[valid]
+        arg = g_v.argmax(-1)
+        same = int((arg == w_v.argmax(-1)).sum())
+        gap = (w_v.max(-1).values - w_v.gather(1, arg[:, None])[:, 0]).max()
+        diff = (g_v - w_v).abs().max().item()
+        print(card, flush=True)
+        print(f"pool [{cfg_name} {tag}] one tick of {int(valid.sum())} valid "
+              f"positions over {n} shards of {per} blocks against the whole "
+              f"pool: attention rel. error by layer max {max(errs):.3g} "
+              f"(layer 0 {errs[0]:.3g}); logits max |diff| {diff:.4g}; "
+              f"argmax equal at {same} of {len(arg)}; largest whole-pool "
+              f"gap at the sharded argmax {gap.item():.4g}; "
+              f"{s_tick:.2f} s for both ticks", flush=True)
+        if tag == "fp32":
+            require(max(errs) <= POOL_FP32_TOL,
+                    f"pool [fp32]: attention error {max(errs)} > "
+                    f"{POOL_FP32_TOL}")
+            require(same == len(arg), "pool [fp32]: the sharded argmax "
+                    f"differs at {len(arg) - same} positions")
+        else:
+            require(gap.item() <= BF16_LOGIT_TOL,
+                    f"pool [bf16]: a sharded token's logit is {gap.item()} "
+                    "below its position's maximum")
+        out[tag] = {"attn_err": max(errs), "logit_diff": diff,
+                    "same": same, "positions": len(arg),
+                    "gap": gap.item()}
+        del model, whole, shards, got, want
+        gc.collect()
+        if device_type == "cuda":
+            torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    print(f"pool [{card}]: phase 24 took {out['s']:.1f} s", flush=True)
+    return out
+
+
+def pool_traffic(np, vocab: int) -> list:
+    """``--parts pool`` (a)-(c): phase 14's requests, then four that cut
+    an earlier shared-prefix prompt 24 tokens into its tail, inside a
+    block, and go on differently (copy-on-write: the clone lands in a
+    block later handed out, most often another rank's), and two repeats."""
+    prompts = serve_traffic(np.random.RandomState(0), vocab)
+    rng = np.random.RandomState(5)
+    cut = SERVE_PREFIX + 24
+    return prompts + [prompts[k][:cut] + rng.randint(0, vocab, 40).tolist()
+                      for k in (0, 2, 4, 6)] + [prompts[1], prompts[3]]
+
+
+def pool_fleet_checks(label: str, r: dict, spec: list, nb: int,
+                      block_bytes: int) -> list:
+    """The contract of a sharded fleet's ranks: one scheduling digest and
+    tick count (a sub-fleet's, each against its rank 0), every rank's plan
+    ``spec`` with the ranges of its coordinate and ``1/(block shards x
+    head shards)`` of the pool's bytes, in ``kv_pool()`` and in its ready
+    line.  Prints each rank's share, live blocks (now, peak), cross-owner
+    copies, spill counters and step times.  Returns the workers."""
+    by_rank = {w["rank"]: w for w in r["workers"]}
+    for w in r["workers"]:
+        lead = by_rank[w["rank"] - w["sub_rank"]]
+        kv = w["stats"]["kv_pool"]
+        sh = kv.get("shard")
+        require(sh is not None, f"{label}: rank {w['rank']} holds the whole "
+                f"pool: {json.dumps(kv)[:300]}")
+        parts = sh["block_shards"] * sh["head_shards"]
+        print(f"{label}: rank {w['rank']} ({w['role']}) spec {sh['spec']}, "
+              f"blocks {sh['blocks']}, heads {sh['heads']}, pool "
+              f"{kv['pool_bytes']} bytes ({kv['pool_bytes'] / 2**30:.3f} "
+              f"GiB), engine allocated {w['engine_bytes']} device bytes; "
+              f"live blocks {sh['used_blocks']}, peak "
+              f"{sh['peak_used_blocks']}; cross-owner copies "
+              f"{sh['cross_copies']}; spill {json.dumps(kv.get('spill'))}; "
+              f"{w['ticks']} ticks, sched_digest {w['digest']} (its rank 0 "
+              f"{lead['digest']}); steps {json.dumps(w['tick_ms'])}",
+              flush=True)
+        require(sh["spec"] == spec, f"{label}: rank {w['rank']} spec "
+                f"{sh['spec']}")
+        require(w["digest"] == lead["digest"] and w["ticks"] == lead["ticks"],
+                f"{label}: rank {w['rank']} left lockstep")
+        require(kv["pool_bytes"] == nb * block_bytes // parts
+                == w["pool_bytes_ready"],
+                f"{label}: rank {w['rank']} holds {kv['pool_bytes']} bytes")
+    return r["workers"]
+
+
+def rank_pool(torch, np, n: int, card: str, device_type: str = "cuda",
+              cfg_name: str = "1b") -> dict:
+    """``--ranks N --parts pool``: the KV pool sharded over the serving
+    fleet's N cards, ``launch -np N --gpu --serve DIR``, the parent the
+    client.  (a) fp32 ``cfg_name`` (phase 6's weights), prefix sharing,
+    speculative decode and a spill tier, ``POOL_FLEET_BLOCKS`` blocks over
+    the ranks, :func:`pool_traffic`: every stream byte-identical to one
+    card's in-process engine's tokens (held to full-forward greedy), every
+    rank with live blocks at its peak and the CoW pairs across owners; (b)
+    the 2 + 2 disaggregated fleet, each sub-fleet's ``POOL_DISAGG_BLOCKS``
+    over its two ranks, phase 14's requests: ``rank_serve``'s contract;
+    (c) ``HOROVOD_LAYOUT=2,2,1``: kv heads over tp, blocks over dp, (a)'s
+    traffic and tokens; (d) bf16 at ``POOL_CAPACITY_BLOCKS``, phase 14's
+    requests: each rank's pool a quarter of the whole by ``kv_pool()`` and
+    by the device bytes its engine allocated (24 GiB a card at ``1b``),
+    every request finished, the steps' median and period beside one
+    card's in-process engine at the default pool.  Returns the figures."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from horovod_tpu_torch import serve
+    from horovod_tpu_torch.models import llama
+    dev = torch.device(device_type, 0)
+    cuda = device_type == "cuda"
+    base = llama.CONFIGS[cfg_name]
+    cfg = dataclasses.replace(base, dtype=torch.float32)
+    prompts = pool_traffic(np, cfg.vocab)
+    n14 = SERVE_REQUESTS
+    model = llama.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    seq = min(serve.ServeConfig().max_seq_len, cfg.max_seq)
+    scfg = serve.ServeConfig(max_seq_len=seq, cache_blocks=POOL_FLEET_BLOCKS,
+                             spill_blocks=POOL_SPILL_BLOCKS)
+    engine = serve.ServeEngine(model, scfg, device=dev)
+    reqs = [engine.submit(p, SERVE_NEW_TOKENS, req_id=f"p{i}")
+            for i, p in enumerate(prompts)]
+    engine.flush()
+    st = engine.stats()
+    engine.close()
+    ref = [r.out_tokens for r in reqs]
+    print(f"pool [{cfg_name} fp32 one card, in-process]: {len(ref)} "
+          f"requests at {POOL_FLEET_BLOCKS} blocks: prefix hits "
+          f"{st['prefix_cache']['hits']}, CoW copies "
+          f"{st['prefix_cache']['cow_copies']}, spill "
+          f"{json.dumps(st.get('spill'))}", flush=True)
+    greedy_check(torch, model, f"pool [{cfg_name} fp32 one card, "
+                 "in-process]", prompts, ref)
+    bb32 = pool_block_bytes(cfg, 4, scfg.block_size)
+    out = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_pool_")
+    try:
+        d = os.path.join(root, "fp32")
+        serve.save_servable(d, "llama", cfg, model)
+        del model, engine
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        knobs = {"HOROVOD_SERVE_CACHE_BLOCKS": str(POOL_FLEET_BLOCKS),
+                 "HOROVOD_SERVE_SPILL_BLOCKS": str(POOL_SPILL_BLOCKS)}
+        # (a) blocks over the fleet's ranks
+        label = f"pool (a) [{cfg_name} fp32 -np {n}, blocks over hvd]"
+        r = run_fleet(label, d, n, prompts, knobs, device_type=device_type)
+        outs = fleet_streams(label, r, len(prompts))
+        same = sum(a == b for a, b in zip(outs, ref))
+        print(card, flush=True)
+        print(f"{label}: {same} of {len(ref)} streams byte-identical to one "
+              "card's tokens", flush=True)
+        require(same == len(ref), f"{label}: tokens differ from one card's")
+        ws = pool_fleet_checks(label, r, [None, "hvd", None, None, None],
+                               POOL_FLEET_BLOCKS, bb32)
+        peaks = [w["stats"]["kv_pool"]["shard"]["peak_used_blocks"]
+                 for w in ws]
+        cross = ws[0]["stats"]["kv_pool"]["shard"]["cross_copies"]
+        require(all(p > 0 for p in peaks),
+                f"{label}: a rank never held a live block: {peaks}")
+        require(cross >= 1, f"{label}: no copy-on-write pair crossed owners")
+        fleet_launches(label, r)
+        out["a"] = {"peaks": peaks, "cross": cross,
+                    "tick_ms": [w["tick_ms"] for w in ws],
+                    "spill": ws[0]["stats"]["kv_pool"].get("spill")}
+        # (b) the disaggregated fleet, each sub-fleet over its own ranks
+        label = (f"pool (b) [{cfg_name} fp32 -np {n}, "
+                 f"{FLEET_PREFILL_RANKS} prefill]")
+        r = run_fleet(label, d, n, prompts[:n14],
+                      {"HOROVOD_SERVE_PREFILL_RANKS":
+                       str(FLEET_PREFILL_RANKS),
+                       "HOROVOD_SERVE_CACHE_BLOCKS": str(POOL_DISAGG_BLOCKS)},
+                      ready_keys=("stats", "stats.prefill"),
+                      device_type=device_type)
+        disaggregated_checks(np, label, r, prompts[:n14], ref[:n14], card)
+        ws = pool_fleet_checks(label, r, [None, "hvd", None, None, None],
+                               POOL_DISAGG_BLOCKS, bb32)
+        require(all(w["stats"]["kv_pool"]["shard"]["block_shards"]
+                    == FLEET_PREFILL_RANKS for w in ws),
+                f"{label}: a sub-fleet's pool is not over its own ranks")
+        out["b"] = {"tick_ms": [w["tick_ms"] for w in ws]}
+        # (c) kv heads over tp, blocks over dp
+        label = f"pool (c) [{cfg_name} fp32 -np {n}, layout {POOL_LAYOUT}]"
+        r = run_fleet(label, d, n, prompts,
+                      dict(knobs, HOROVOD_LAYOUT=POOL_LAYOUT),
+                      device_type=device_type)
+        outs = fleet_streams(label, r, len(prompts))
+        same = sum(a == b for a, b in zip(outs, ref))
+        print(f"{label}: {same} of {len(ref)} streams byte-identical to one "
+              "card's tokens", flush=True)
+        require(same == len(ref), f"{label}: tokens differ from one card's")
+        ws = pool_fleet_checks(label, r, [None, "dp", None, "tp", None],
+                               POOL_FLEET_BLOCKS, bb32)
+        fleet_launches(label, r)
+        out["c"] = {"tick_ms": [w["tick_ms"] for w in ws]}
+        shutil.rmtree(d, ignore_errors=True)
+        # (d) capacity: bf16 at POOL_CAPACITY_BLOCKS over the ranks, against
+        # one card's in-process engine at the default pool
+        cfg16 = dataclasses.replace(base, dtype=torch.bfloat16)
+        model = llama.init(cfg16, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        engine = serve.ServeEngine(
+            model, serve.ServeConfig(max_seq_len=seq), device=dev)
+        engine.submit(list(range(1, 97)), 4)  # warm-up
+        engine.flush()
+        reqs = [engine.submit(p, SERVE_NEW_TOKENS, req_id=f"d{i}")
+                for i, p in enumerate(prompts[:n14])]
+        step_ms = []
+        while engine.has_work():
+            t = time.perf_counter()
+            engine.step()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        engine.close()
+        ref16 = [r_.out_tokens for r_ in reqs]
+        one_ms = float(np.median(step_ms))
+        d = os.path.join(root, "bf16")
+        serve.save_servable(d, "llama", cfg16, model)
+        del model, engine
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        label = (f"pool (d) [{cfg_name} bf16 -np {n}, "
+                 f"{POOL_CAPACITY_BLOCKS} blocks]")
+        r = run_fleet(label, d, n, prompts[:n14],
+                      {"HOROVOD_SERVE_CACHE_BLOCKS":
+                       str(POOL_CAPACITY_BLOCKS)}, device_type=device_type)
+        outs = fleet_streams(label, r, n14)
+        bb16 = pool_block_bytes(cfg16, 2, scfg.block_size)
+        ws = pool_fleet_checks(label, r, [None, "hvd", None, None, None],
+                               POOL_CAPACITY_BLOCKS, bb16)
+        share = POOL_CAPACITY_BLOCKS * bb16 // n
+        for w in ws:
+            if cuda:  # the pool, its trash block and the staging buffers
+                require(share <= w["engine_bytes"] <= share + 2**26,
+                        f"{label}: rank {w['rank']}'s engine allocated "
+                        f"{w['engine_bytes']} bytes for a {share}-byte pool")
+        same = sum(a == b for a, b in zip(outs, ref16))
+        fleet_ms = [w["tick_ms"]["period_p50"] for w in ws]
+        print(card, flush=True)
+        print(f"{label}: the whole pool {POOL_CAPACITY_BLOCKS * bb16} bytes "
+              f"({POOL_CAPACITY_BLOCKS * bb16 / 2**30:.2f} GiB), "
+              f"{share / 2**30:.2f} GiB a rank; {n14} requests finished, "
+              f"{same} of {n14} streams byte-identical to one card's bf16 "
+              f"engine at the default pool; tick period p50 by rank "
+              f"{fleet_ms} ms, step p50 "
+              f"{[w['tick_ms']['p50'] for w in ws]} ms, against one card's "
+              f"in-process step p50 {one_ms:.3f} ms at "
+              f"{serve.ServeConfig().cache_blocks} blocks", flush=True)
+        fleet_timing(np, label, r, card, None)
+        fleet_launches(label, r)
+        out["d"] = {"share": share, "fleet_ms": fleet_ms, "one_ms": one_ms,
+                    "same": same}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
 def main() -> int:
     args = sys.argv[1:]
     if len(args) == 2 and args[0] in ("--rank-worker", "--launched",
@@ -9188,6 +9648,8 @@ def main() -> int:
     marks.append(("estimator", time.perf_counter()))
     lightning = phase_lightning(torch, np, card, losses, step_ms)
     marks.append(("lightning", time.perf_counter()))
+    phase_pool(torch, np, llama, L, serve, card)
+    marks.append(("pool", time.perf_counter()))
     for row in rows.values():
         row["launches"] = launches[row["name"]]
         row["launches_eager"] = eager[row["name"]]

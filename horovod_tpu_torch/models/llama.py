@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -141,43 +141,83 @@ class LlamaLayer(nn.Module):
         x = x + self._attn(self.attn_norm(x), cos, sin, attn_fn, pos_offset)
         return x + self._ffn(self.ffn_norm(x))
 
-    def _attn_cached(self, x: Tensor, cos: Tensor, sin: Tensor,
-                     k_pool: Tensor, v_pool: Tensor, block_tables: Tensor,
-                     positions: Tensor, valid: Tensor) -> Tensor:
-        """Attention of one layer over its paged pool ``[num_blocks + 1,
-        block_size, n_kv_heads, head_dim]``.  x: ``[S, C, dim]``, S slots
-        of C token positions each.  The chunk's k/v are scattered into the
-        pool first (token at position P to ``block_tables[s, P // bs]``,
-        offset ``P % bs``; invalid positions to the trash block), then each
-        query attends over its slot's whole gathered context under a
-        per-position mask.  The projections are unfused, as in the JAX
-        decode path."""
+    def _qkv_at(self, x: Tensor, cos: Tensor, sin: Tensor,
+                positions: Tensor):
+        """q ``[S, C, n_heads, hd]`` and k, v ``[S, C, n_kv_heads, hd]`` of
+        a tick's chunk, RoPE'd at ``positions``.  The projections are
+        unfused, as in the JAX decode path."""
         cfg = self.cfg
         S, C, _ = x.shape
-        trash, bs = k_pool.shape[0] - 1, k_pool.shape[1]
-        max_blocks = block_tables.shape[1]
         q = self.wq(x).reshape(S, C, cfg.n_heads, cfg.head_dim)
         k = self.wk(x).reshape(S, C, cfg.n_kv_heads, cfg.head_dim)
         v = self.wv(x).reshape(S, C, cfg.n_kv_heads, cfg.head_dim)
         pos_c = positions.clamp(max=cfg.max_seq - 1)
-        q = L.apply_rope_at(q, cos, sin, pos_c)
-        k = L.apply_rope_at(k, cos, sin, pos_c)
-        slot_idx = (positions // bs).clamp(max=max_blocks - 1)
-        blk = block_tables.gather(1, slot_idx).clamp(min=0)
-        blk = torch.where(valid, blk, trash)
-        off = positions % bs
-        k_pool[blk, off] = k.to(k_pool.dtype)
-        v_pool[blk, off] = v.to(v_pool.dtype)
-        # gathered index t is global position t; unassigned entries (-1,
-        # read as block 0) cover only positions the mask excludes
-        bt = block_tables.clamp(min=0)
-        T = max_blocks * bs
-        k_ctx = k_pool[bt].reshape(S, T, cfg.n_kv_heads, cfg.head_dim)
-        v_ctx = v_pool[bt].reshape(S, T, cfg.n_kv_heads, cfg.head_dim)
-        key_pos = torch.arange(T, device=x.device)
-        mask = (key_pos[None, None, :] <= positions[:, :, None])[:, None]
-        o = L.causal_attention(q, k_ctx, v_ctx, causal=False, mask=mask)
-        return self.wo(o.reshape(S, C, cfg.n_heads * cfg.head_dim))
+        return (L.apply_rope_at(q, cos, sin, pos_c),
+                L.apply_rope_at(k, cos, sin, pos_c), v)
+
+    def _attn_cached(self, x: Tensor, cos: Tensor, sin: Tensor,
+                     k_pool: Tensor, v_pool: Tensor, block_tables: Tensor,
+                     positions: Tensor, valid: Tensor,
+                     pool: Any = None) -> Tensor:
+        """Attention of one layer over its paged pool.  x: ``[S, C, dim]``,
+        S slots of C token positions each.  ``pool`` is the serving
+        engine's plan of a pool sharded over ranks
+        (``serve.pool.PoolPlan``): it writes this rank's share of the k/v
+        and attends over it with its peers; without one, the whole pool
+        is here (:func:`paged_attention`)."""
+        S, C, _ = x.shape
+        q, k, v = self._qkv_at(x, cos, sin, positions)
+        if pool is None:
+            o = paged_attention(q, k, v, k_pool, v_pool, block_tables,
+                                positions, valid)
+        else:
+            o = pool.attend(q, k, v, k_pool, v_pool, block_tables,
+                            positions, valid)
+        return self.wo(o.reshape(S, C, -1))
+
+
+def write_paged_kv(k_pool: Tensor, v_pool: Tensor, k: Tensor, v: Tensor,
+                   block_tables: Tensor, positions: Tensor, valid: Tensor,
+                   blocks: Optional[Tuple[int, int]] = None) -> None:
+    """Scatter a chunk's k/v ``[S, C, kv_heads, hd]`` into a pool ``[nb +
+    1, block_size, kv_heads, hd]``: the token at position P to
+    ``block_tables[s, P // bs]``, offset ``P % bs``.  ``blocks = (b0,
+    b1)`` is the range of global block ids this pool holds (local id ``b -
+    b0``; default: all of them); every invalid position, and every block
+    outside the range, goes to the pool's last block, the trash block."""
+    trash, bs = k_pool.shape[0] - 1, k_pool.shape[1]
+    max_blocks = block_tables.shape[1]
+    slot_idx = (positions // bs).clamp(max=max_blocks - 1)
+    blk = block_tables.gather(1, slot_idx)
+    if blocks is None:
+        blk = torch.where(valid, blk.clamp(min=0), trash)
+    else:
+        b0, b1 = blocks
+        blk = torch.where(valid & (blk >= b0) & (blk < b1), blk - b0, trash)
+    off = positions % bs
+    k_pool[blk, off] = k.to(k_pool.dtype)
+    v_pool[blk, off] = v.to(v_pool.dtype)
+
+
+def paged_attention(q: Tensor, k: Tensor, v: Tensor, k_pool: Tensor,
+                    v_pool: Tensor, block_tables: Tensor, positions: Tensor,
+                    valid: Tensor) -> Tensor:
+    """The whole pool's decode attention ``[S, C, H, hd]``: the chunk's k/v
+    are scattered into the pool ``[num_blocks + 1, block_size, kv_heads,
+    hd]`` first (:func:`write_paged_kv`), then each query attends over its
+    slot's whole gathered context under a per-position mask."""
+    S, C = q.shape[:2]
+    bs, hk, hd = k_pool.shape[1:]
+    write_paged_kv(k_pool, v_pool, k, v, block_tables, positions, valid)
+    # gathered index t is global position t; unassigned entries (-1,
+    # read as block 0) cover only positions the mask excludes
+    bt = block_tables.clamp(min=0)
+    T = block_tables.shape[1] * bs
+    k_ctx = k_pool[bt].reshape(S, T, hk, hd)
+    v_ctx = v_pool[bt].reshape(S, T, hk, hd)
+    key_pos = torch.arange(T, device=q.device)
+    mask = (key_pos[None, None, :] <= positions[:, :, None])[:, None]
+    return L.causal_attention(q, k_ctx, v_ctx, causal=False, mask=mask)
 
 
 class Llama(nn.Module):
@@ -222,15 +262,16 @@ class Llama(nn.Module):
 
     @torch.no_grad()
     def apply_cached(self, tokens: Tensor, cache: Dict[str, Tensor],
-                     block_tables: Tensor, lengths: Tensor, n_new: Tensor
-                     ) -> Tensor:
+                     block_tables: Tensor, lengths: Tensor, n_new: Tensor,
+                     pool: Any = None) -> Tensor:
         """Mixed prefill/decode forward over the paged pool (the JAX
         package's ``apply_cached``).  ``tokens [S, C]``: slot s's next
         ``n_new[s]`` tokens (0 = inactive slot), starting at context length
         ``lengths[s]``; ``block_tables [S, max_blocks]`` indexes the pool
         (-1 = unassigned).  Writes the chunk's k/v into ``cache`` in place
         and returns logits ``[S, C, vocab]``; the caller samples at
-        position ``n_new[s] - 1``."""
+        position ``n_new[s] - 1``.  ``pool``: the plan of a pool sharded
+        over ranks, whose shard ``cache`` is (``LlamaLayer._attn_cached``)."""
         cfg = self.cfg
         tokens, block_tables, lengths, n_new = (
             t.long() for t in (tokens, block_tables, lengths, n_new))
@@ -245,7 +286,7 @@ class Llama(nn.Module):
         for i, layer in enumerate(self.layers):
             x = x + layer._attn_cached(
                 layer.attn_norm(x), cos, sin, cache["k"][i], cache["v"][i],
-                block_tables, positions, valid)
+                block_tables, positions, valid, pool)
             x = x + layer._ffn(layer.ffn_norm(x))
         return self.lm_head(self.final_norm(x))
 
@@ -272,17 +313,24 @@ def init(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
 
 def init_cache(cfg: LlamaConfig, num_blocks: int, block_size: int,
                dtype: Optional[torch.dtype] = None,
-               device: Union[str, torch.device, None] = None
-               ) -> Dict[str, Tensor]:
+               device: Union[str, torch.device, None] = None,
+               plan: Any = None) -> Dict[str, Tensor]:
     """The paged KV pool ``{"k", "v"}``, zeros of shape ``[n_layers,
     num_blocks + 1, block_size, n_kv_heads, head_dim]``: blocks ``0 ..
     num_blocks - 1`` are the ones block tables may name, block
     ``num_blocks`` is the trash block that takes dropped writes.  Zeros,
-    so a masked stale value is finite and its softmax weight exactly 0."""
+    so a masked stale value is finite and its softmax weight exactly 0.
+    With ``plan`` (``serve.pool.PoolPlan``) it is this rank's shard,
+    ``[n_layers, b1 - b0 + 1, block_size, h1 - h0, head_dim]`` for the
+    plan's block range ``[b0, b1)`` and kv-head range ``[h0, h1)``, with a
+    trash block of its own."""
     device = _rt.resolve_device(device)
     dtype = dtype if dtype is not None else cfg.dtype
-    shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads,
-             cfg.head_dim)
+    n_blocks, n_heads = num_blocks, cfg.n_kv_heads
+    if plan is not None:
+        (b0, b1), (h0, h1) = plan.blocks, plan.heads
+        n_blocks, n_heads = b1 - b0, h1 - h0
+    shape = (cfg.n_layers, n_blocks + 1, block_size, n_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -304,11 +352,12 @@ def copy_blocks(cache: Dict[str, Tensor], src: Tensor, dst: Tensor) -> None:
 
 
 def apply_cached(model: Llama, tokens: Tensor, cache: Dict[str, Tensor],
-                 block_tables: Tensor, lengths: Tensor, n_new: Tensor
-                 ) -> Tensor:
+                 block_tables: Tensor, lengths: Tensor, n_new: Tensor,
+                 pool: Any = None) -> Tensor:
     """:meth:`Llama.apply_cached` as a function of the model, the JAX
     package's calling shape."""
-    return model.apply_cached(tokens, cache, block_tables, lengths, n_new)
+    return model.apply_cached(tokens, cache, block_tables, lengths, n_new,
+                              pool=pool)
 
 
 def _chunk_nll(weight: Tensor, h: Tensor, t: Tensor) -> Tensor:

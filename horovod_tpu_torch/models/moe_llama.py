@@ -184,14 +184,14 @@ class MoeLlama(nn.Module):
     @torch.no_grad()
     def apply_cached(self, tokens: Tensor, cache: Dict[str, Tensor],
                      block_tables: Tensor, lengths: Tensor, n_new: Tensor,
-                     moe_fn: Optional[Callable] = None
+                     moe_fn: Optional[Callable] = None, pool: Any = None
                      ) -> Tuple[Tensor, Dict[str, Tensor], Tensor]:
         """Mixed prefill/decode forward over the paged pool (the JAX
         package's ``moe_llama.apply_cached``; the slot-table contract of
-        ``Llama.apply_cached``).  Writes the chunk's k/v into ``cache`` in
-        place and returns ``(logits [S, C, vocab], cache, the mean router
-        aux)``.  ``moe_fn`` defaults to :func:`dropfree_moe_fn`, the
-        batch-invariant serving routing."""
+        ``Llama.apply_cached``, ``pool`` included).  Writes the chunk's k/v
+        into ``cache`` in place and returns ``(logits [S, C, vocab], cache,
+        the mean router aux)``.  ``moe_fn`` defaults to
+        :func:`dropfree_moe_fn`, the batch-invariant serving routing."""
         cfg = self.cfg
         self.require_all_experts()
         moe_fn = moe_fn if moe_fn is not None else dropfree_moe_fn(cfg)
@@ -209,7 +209,7 @@ class MoeLlama(nn.Module):
         for i, layer in enumerate(self.layers):
             x = x + layer._attn_cached(
                 layer.attn_norm(x), cos, sin, cache["k"][i], cache["v"][i],
-                block_tables, positions, valid)
+                block_tables, positions, valid, pool)
             y, aux = layer._moe_block(layer.ffn_norm(x), moe_fn)
             x = x + y
             auxes.append(aux)
@@ -231,12 +231,12 @@ def dropfree_moe_fn(cfg: MoeLlamaConfig) -> Callable:
 
 def init_cache(cfg: MoeLlamaConfig, num_blocks: int, block_size: int,
                dtype: Optional[torch.dtype] = None,
-               device: Union[str, torch.device, None] = None
-               ) -> Dict[str, Tensor]:
+               device: Union[str, torch.device, None] = None,
+               plan: Any = None) -> Dict[str, Tensor]:
     """The paged KV pool of the attention half: exactly Llama's layout
-    (``llama.init_cache``)."""
+    (``llama.init_cache``), this rank's shard with ``plan``."""
     return Ll.init_cache(_llama_cfg(cfg), num_blocks, block_size,
-                         dtype=dtype, device=device)
+                         dtype=dtype, device=device, plan=plan)
 
 
 def copy_blocks(cache: Dict[str, Tensor], src: Tensor, dst: Tensor) -> None:
@@ -246,12 +246,12 @@ def copy_blocks(cache: Dict[str, Tensor], src: Tensor, dst: Tensor) -> None:
 
 def apply_cached(model: MoeLlama, tokens: Tensor, cache: Dict[str, Tensor],
                  block_tables: Tensor, lengths: Tensor, n_new: Tensor,
-                 moe_fn: Optional[Callable] = None
+                 moe_fn: Optional[Callable] = None, pool: Any = None
                  ) -> Tuple[Tensor, Dict[str, Tensor], Tensor]:
     """:meth:`MoeLlama.apply_cached` as a function of the model, the JAX
     package's calling shape."""
     return model.apply_cached(tokens, cache, block_tables, lengths, n_new,
-                              moe_fn=moe_fn)
+                              moe_fn=moe_fn, pool=pool)
 
 
 def init(cfg: MoeLlamaConfig, generator: Optional[torch.Generator] = None,

@@ -134,19 +134,23 @@ def put_kv(addr: str, port: int, scope: str, key: str,
 
 def get_kv(addr: str, port: int, scope: str, key: str,
            timeout: Optional[float] = None,
-           poll_interval: float = 0.2) -> Optional[bytes]:
+           poll_interval: float = 0.2,
+           poll_max: Optional[float] = None) -> Optional[bytes]:
     """GET with blocking-until-present semantics (workers wait for the
     launcher to publish).  ``timeout=None`` reads
     HOROVOD_GLOO_TIMEOUT_SECONDS (reference: --gloo-timeout-seconds); pass
     0 for a non-blocking probe.  Transient connection errors are retried
     until the deadline like a 404; at the deadline they RAISE — an
-    unreachable server is not an absent key."""
+    unreachable server is not an absent key.  With ``poll_max`` the wait
+    between probes starts at ``poll_interval`` and doubles up to it: a
+    key expected soon is read soon, one that is late costs few probes."""
     if timeout is None:
         from ..common.knobs import current
         timeout = float(current("HOROVOD_GLOO_TIMEOUT_SECONDS"))
     addr, port, shard = resolve_kv_addr(addr, port, scope)
     url = f"http://{addr}:{port}/{scope}/{key}"
     deadline = time.time() + timeout
+    wait = poll_interval
     while True:
         try:
             _chaos_kv("get", scope)
@@ -157,13 +161,15 @@ def get_kv(addr: str, port: int, scope: str, key: str,
                 raise
             if time.time() >= deadline:
                 return None
-            time.sleep(poll_interval)
+            time.sleep(wait)
         except Exception as e:
             if _transient(e):
                 _count_shard_unavailable(shard)
             if not _transient(e) or time.time() >= deadline:
                 raise
-            time.sleep(poll_interval)
+            time.sleep(wait)
+        if poll_max is not None:
+            wait = min(2 * wait, poll_max)
 
 
 def delete_kv(addr: str, port: int, scope: str, key: str,

@@ -3,6 +3,9 @@
   * the engine (:mod:`.engine`): continuous batching over the paged KV
     pool, mixed or disaggregated prefill/decode roles, ``Llama`` and
     ``MoeLlama``, servable directories;
+  * the pool sharded over a fleet's ranks (:mod:`.pool`):
+    ``cache_shardings``, the plan a rank's engine takes, and the partial
+    attention and its merge;
   * the fleet: the router (:mod:`.router`, ``POST /generate`` and ``GET
     /serve/stats`` on the launcher's rendezvous server), the workers
     (:mod:`.worker`, one engine per rank in lockstep over the plan
@@ -19,6 +22,7 @@ from __future__ import annotations
 from .config import ServeConfig, from_knobs, validate_serve_knobs
 from .engine import (BlockAllocator, HostSpillPool, PrefixCache, Request,
                      Scheduler, ServeEngine)
+from .pool import PoolMesh, PoolPlan, cache_shardings, fleet_pool_plan
 
 _LAZY = {
     "save_servable": ("engine", "save_servable"),
@@ -40,4 +44,5 @@ def __getattr__(name: str):
 
 __all__ = ["ServeConfig", "from_knobs", "validate_serve_knobs",
            "BlockAllocator", "HostSpillPool", "PrefixCache", "Request",
-           "Scheduler", "ServeEngine", *_LAZY.keys()]
+           "Scheduler", "ServeEngine", "PoolMesh", "PoolPlan",
+           "cache_shardings", "fleet_pool_plan", *_LAZY.keys()]

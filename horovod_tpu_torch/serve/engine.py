@@ -45,9 +45,19 @@ SPILL_RELOAD spans on the timeline's ``serve`` lane when one is active.
 The engine registers its ``kv_pool`` as the memory plane's KV-pool
 provider (``perf/memstats.py``) and ``close`` unregisters it.
 
-Departures: each rank holds the whole pool, where the JAX engine shards
-its blocks over the mesh's data axis (``cache_shardings``, ROADMAP queue 1
-item 3.3).
+A fleet's engines share one pool sharded over their ranks when the
+caller hands the engine a plan (``pool=``, :func:`serve.pool.fleet_pool_plan`
+for the fleet; ``launch --serve`` does it): ``cache_shardings``' rule puts
+kv heads over a ``tp`` axis and blocks over the fleet's ranks, each rank
+allocates its shard, and the step, copy-on-write, spill and handoff run
+over the pool's own process groups (``serve/pool.py``).  ``kv_pool()``
+then reports this rank's bytes beside the plan.
+
+Departure: with no plan an engine holds the whole pool, where the JAX
+engine always shards over the mesh it is given.  A port rank's engine may
+run collectives only where its ranks are in lockstep, as a fleet's are
+over the plan stream; the scenario harness (``scenario/harness.py``) and
+an engine built in process are not, so they keep the whole pool.
 """
 
 from __future__ import annotations
@@ -70,6 +80,7 @@ from ..models import llama as _llama
 from ..utils import metrics as M
 from ..models import moe_llama as _moe
 from .config import ServeConfig
+from .pool import PoolPlan
 
 
 # ------------------------------------------------------------ block pool
@@ -116,6 +127,10 @@ class BlockAllocator:
             if left == 0:
                 del self._refs[b]
                 self._free.append(b)
+
+    def used_in(self, b0: int, b1: int) -> int:
+        """Live blocks with ids in ``[b0, b1)``: a pool shard's."""
+        return sum(1 for b in self._refs if b0 <= b < b1)
 
     def occupancy(self) -> Dict[str, int]:
         """Pool occupancy for the memory plane (perf/memstats.py;
@@ -809,13 +824,27 @@ class ServeEngine:
     disaggregation split (:class:`Scheduler`).  The pool and the step live
     on ``device``: the one given, else the runtime's (``hvd.init()``),
     else the current CUDA device.  With no CUDA device and no
-    ``device="cpu"`` construction raises.
+    ``device="cpu"`` construction raises.  ``pool`` is this rank's
+    :class:`serve.pool.PoolPlan` (the port's counterpart of the JAX
+    ``mesh=``): the engine holds its shard of the pool and every rank of
+    the plan's groups must step in lockstep; with none, or a plan that
+    does not shard, it holds the whole pool.
     """
 
     def __init__(self, model, cfg: ServeConfig, role: str = "mixed",
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 pool: Optional[PoolPlan] = None):
         self._mod = _model_module(model)
         cfg.validate(model_max_seq=model.cfg.max_seq)
+        if pool is not None:
+            if (pool.num_blocks, pool.n_kv_heads) != (
+                    cfg.cache_blocks, model.cfg.n_kv_heads):
+                raise ValueError(
+                    f"the pool plan is for {pool.num_blocks} blocks and "
+                    f"{pool.n_kv_heads} kv heads; the engine has "
+                    f"{cfg.cache_blocks} blocks and {model.cfg.n_kv_heads}")
+            pool.check_groups()
+        self.pool = pool if pool is not None and pool.sharded else None
         self.device = _normalize(_rt.resolve_device(device))
         weights = model.embed.table.device
         if _normalize(weights) != self.device:
@@ -825,7 +854,8 @@ class ServeEngine:
         self.cfg = cfg
         self.scheduler = Scheduler(cfg, role=role)
         self.cache = self._mod.init_cache(model.cfg, cfg.cache_blocks,
-                                          cfg.block_size, device=self.device)
+                                          cfg.block_size, device=self.device,
+                                          plan=self.pool)
         self._moe_fn = (_moe.dropfree_moe_fn(model.cfg)
                         if self._mod is _moe else None)
         self._handoffs = 0
@@ -858,10 +888,11 @@ class ServeEngine:
         # Rolling digest of every dispatch's scheduling decisions: equal
         # to the JAX engine's for the same request stream.
         self.sched_digest = ""
-        # the blocks users can hold; the trash block is not counted
-        self._pool_bytes = sum(
-            t[:, :cfg.cache_blocks].numel() * t.element_size()
-            for t in self.cache.values())
+        # this rank's blocks users can hold; the trash block is not counted
+        self._pool_bytes = sum(t[:, :-1].numel() * t.element_size()
+                               for t in self.cache.values())
+        self._peak_live = 0  # this rank's most live blocks at a dispatch
+        self._cross_copies = 0  # CoW pairs whose blocks have two owners
         # the memory plane's kv_pool and kv_spill planes read kv_pool(),
         # through a weak reference: the provider must not keep a dropped
         # engine's pool on the card
@@ -891,14 +922,23 @@ class ServeEngine:
     # ---------------------------------------------------- block transfer
     def _read_block(self, block: int) -> Dict[str, torch.Tensor]:
         """One pool block across all layers as host tensors ``{"k", "v"}``
-        of ``[L, bs, kv_heads, hd]`` (the spill tier's read side)."""
+        of ``[L, bs, kv_heads, hd]`` (the spill tier's read side, the
+        handoff's export).  On a sharded pool a group operation: the
+        spill tier evicts while planning and the handoff exports while
+        harvesting, both on every rank of the fleet at the same tick."""
+        if self.pool is not None:
+            return self.pool.read_block(self.cache, block)
         return {name: pool[:, block].to("cpu", copy=True)
                 for name, pool in self.cache.items()}
 
     def _write_block(self, block: int,
                      payload: Dict[str, torch.Tensor]) -> None:
         """Write one block's host payload into the pool (spill reload,
-        handoff import); stream-ordered before the next step reads it."""
+        handoff import; on a sharded pool the owner writes its heads);
+        stream-ordered before the next step reads it."""
+        if self.pool is not None:
+            self.pool.write_block(self.cache, block, payload)
+            return
         for name, pool in self.cache.items():
             pool[:, block].copy_(payload[name])
 
@@ -1034,6 +1074,15 @@ class ServeEngine:
             lengths[slot] = req.ctx_len
             n_new[slot] = n
         copies = self.scheduler.take_copies()
+        cross = False
+        if self.pool is not None:
+            plan = self.pool
+            n_cross = sum(plan.owner(a) != plan.owner(b) for a, b in copies)
+            self._cross_copies += n_cross
+            cross = n_cross > 0
+            self._peak_live = max(self._peak_live,
+                                  self.scheduler.allocator.used_in(
+                                      *plan.blocks))
         copy_src[:] = 0
         copy_dst[:] = cfg.cache_blocks  # padding: the trash block
         for j, (src, dst) in enumerate(copies):
@@ -1044,7 +1093,7 @@ class ServeEngine:
         d_bt, d_len, d_new, d_tok, d_src, d_dst = dev.split(self._sizes)
         self._tokens_host.copy_(
             self._step(d_bt.view(S, -1), d_len, d_new, d_tok.view(S, C),
-                       d_src, d_dst), non_blocking=True)
+                       d_src, d_dst, cross), non_blocking=True)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -1054,23 +1103,29 @@ class ServeEngine:
         self.tick += 1
 
     def _step(self, block_tables, lengths, n_new, tokens, copy_src,
-              copy_dst) -> torch.Tensor:
+              copy_dst, cross: bool = False) -> torch.Tensor:
         """The device step: CoW clones before this tick's writes (the
         gather reads the pool as it was, so a source block recycled in
-        this tick still copies its old content), the forward over the
-        pool, and greedy sampling in fp32 at every chunk position: row
+        this tick still copies its old content; ``cross``: a pair's
+        source and destination have different owners), the forward over
+        the pool, and greedy sampling in fp32 at every chunk position: row
         ``[s, j]`` is the greedy continuation after tokens ``[s, :j+1]``,
         which prefill reads at its last valid position and speculative
         decode verifies its drafts against.  argmax takes the first
         maximum, as the JAX engine's does."""
-        self._mod.copy_blocks(self.cache, copy_src, copy_dst)
+        if self.pool is not None:
+            self.pool.copy_blocks(self.cache, copy_src, copy_dst, cross)
+        else:
+            self._mod.copy_blocks(self.cache, copy_src, copy_dst)
         if self._moe_fn is not None:
             logits = self.model.apply_cached(tokens, self.cache, block_tables,
                                              lengths, n_new,
-                                             moe_fn=self._moe_fn)[0]
+                                             moe_fn=self._moe_fn,
+                                             pool=self.pool)[0]
         else:
             logits = self.model.apply_cached(tokens, self.cache,
-                                             block_tables, lengths, n_new)
+                                             block_tables, lengths, n_new,
+                                             pool=self.pool)
         return logits.float().argmax(-1).to(torch.int32)
 
     def _fold_sched(self, work, copies) -> None:
@@ -1199,15 +1254,23 @@ class ServeEngine:
 
     # -------------------------------------------------------------- view
     def kv_pool(self) -> Dict[str, Any]:
-        """KV-pool occupancy: the allocator's used/free/shared split,
-        ``pool_bytes`` (the blocks users can hold, resident whether used
-        or not), ``fragmentation`` (1 - tokens written / tokens reserved
-        over active requests) and ``eviction_pressure`` (prefix-cache
-        evictions per admission)."""
+        """KV-pool occupancy: the allocator's used/free/shared split (over
+        every block id of the fleet's pool), ``pool_bytes`` (this rank's
+        blocks users can hold, resident whether used or not),
+        ``block_bytes`` and ``used_bytes`` (this rank's), ``fragmentation``
+        (1 - tokens written / tokens reserved over active requests) and
+        ``eviction_pressure`` (prefix-cache evictions per admission).  On
+        a sharded pool, ``shard`` is the plan with this rank's live blocks
+        now and at their peak over the dispatches, and the copy-on-write
+        pairs that crossed owners."""
         s = self.scheduler
         occ = s.allocator.occupancy()
-        nb = max(occ["num_blocks"], 1)
-        block_bytes = self._pool_bytes // nb
+        plan = self.pool
+        local = plan.blocks[1] - plan.blocks[0] if plan is not None \
+            else occ["num_blocks"]
+        block_bytes = self._pool_bytes // max(local, 1)
+        used = (s.allocator.used_in(*plan.blocks) if plan is not None
+                else occ["used_blocks"])
         reserved_tokens = written_tokens = 0
         for req in s.slots:
             if req is not None:
@@ -1220,15 +1283,21 @@ class ServeEngine:
             "block_size": self.cfg.block_size,
             "block_bytes": block_bytes,
             "pool_bytes": self._pool_bytes,
-            "used_bytes": occ["used_blocks"] * block_bytes,
+            "used_bytes": used * block_bytes,
             "fragmentation": round(frag, 4),
             "evictions": evictions,
             "eviction_pressure": (round(evictions / s.admissions, 4)
                                   if s.admissions else 0.0),
         })
+        if plan is not None:
+            occ["shard"] = dict(plan.describe(), used_blocks=used,
+                                peak_used_blocks=max(self._peak_live, used),
+                                cross_copies=self._cross_copies)
         if self._spill is not None:
             spill = self._spill.counters()
-            spill["held_bytes_est"] = self._spill.blocks_held * block_bytes
+            # the host holds whole blocks, every kv head
+            spill["held_bytes_est"] = (self._spill.blocks_held * block_bytes
+                                       * (plan.head_shards if plan else 1))
             occ["spill"] = spill
         return occ
 

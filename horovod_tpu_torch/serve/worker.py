@@ -5,9 +5,14 @@ the same plan stream, scopes, keys, records and knobs.
 Bring-up mirrors a training worker (``hvd.init()`` from the launcher's
 env, the engine on ``cuda:<local rank>``; on the CPU only when the
 command says ``--device cpu``), then the engine serves instead of
-trains.  Each rank holds a whole engine; the JAX fleet shards the pool's
-blocks over the mesh (ROADMAP queue 1 item 3.3).  Fleet coordination
-rides the existing rendezvous KV:
+trains.  Each rank runs an engine over its shard of the fleet's KV pool
+(``serve/pool.py``, the JAX ``cache_shardings`` rule): with no layout the
+blocks split over the fleet's ranks; under ``HOROVOD_LAYOUT`` kv heads
+split over ``tp`` and blocks over ``dp``.  Under
+``HOROVOD_SERVE_PREFILL_RANKS`` each sub-fleet shards over its own ranks.
+A rank holds ``cache_blocks / ranks`` blocks, so N cards hold N times the
+blocks one card can; a pool that no axis divides stays whole on each
+rank.  Fleet coordination rides the existing rendezvous KV:
 
   * the router (runner/http_server.py + serve/router.py) enqueues
     requests with dense sequence numbers into scope ``serve_req``;
@@ -91,6 +96,12 @@ _DRAIN_POLL_S = 0.25
 # (the elastic driver would misread the death as a rank failure).
 _KV_RETRIES = 8
 _KV_BACKOFF_MS = 50.0
+# A follower's probes for its next plan: the first wait, doubling up to
+# the idle loop's pace.  On a sharded pool every step's collectives wait
+# for the latest rank, so a plan a follower reads late delays the whole
+# fleet's tick by as much; get_kv's fixed 0.2 s poll would stretch every
+# tick toward 0.2 s.
+_PLAN_POLL_S = 0.001
 
 
 def plan_key(tick: int, epoch: int = 0) -> str:
@@ -140,6 +151,12 @@ class FleetFrontend:
             self._drained_key += ".prefill"
         self._dstream = None  # lazy: serve/stream.DirectTokenStream
         self.tick = 0
+        # each engine step that had work: its start (perf_counter) and wall
+        # seconds.  A step waits for the previous tick (the pipeline is one
+        # deep), so the time from one step's start to the next is the
+        # tick's period, collectives of a sharded pool included
+        self.step_t: List[float] = []
+        self.step_s: List[float] = []
         self._next_seq = 0
         self._next_handoff = 0  # decode role: serve_kv drain cursor
         self._handoff_seq = 0   # prefill role: serve_kv publish cursor
@@ -174,11 +191,11 @@ class FleetFrontend:
                     raise
                 time.sleep(delays[attempt])
 
-    def _kv_get(self, scope: str, key: str, timeout: float = 0):
+    def _kv_get(self, scope: str, key: str, timeout: float = 0, **poll):
         kv = self._kv()
         return self._kv_op(
             lambda: kv.get_kv(self.addr, self.port, scope, key,
-                              timeout=timeout),
+                              timeout=timeout, **poll),
             f"get {scope}/{key}")
 
     def _kv_put(self, scope: str, key: str, value: bytes) -> None:
@@ -223,7 +240,9 @@ class FleetFrontend:
         # poll's own timeout still surfaces as the None below.
         raw = self._kv_get(self.plan_scope,
                            plan_key(self.tick, self.epoch),
-                           timeout=self.plan_timeout_s)
+                           timeout=self.plan_timeout_s,
+                           poll_interval=_PLAN_POLL_S,
+                           poll_max=_IDLE_SLEEP_S)
         if raw is None:
             raise TimeoutError(
                 f"rank {self.rank}: no plan "
@@ -438,6 +457,18 @@ class FleetFrontend:
         self._kv_put(self.stats_scope, self._drained_key,
                      json.dumps(payload).encode())
 
+    def tick_ms(self) -> Dict[str, Any]:
+        """The engine steps that had work: their count, the median of their
+        wall ms, and the median ms from one such step's start to the
+        next's (the tick's period; gaps of idle loop iterations between
+        bursts of work fall above it)."""
+        def median(xs):
+            xs = sorted(xs)
+            return round(xs[len(xs) // 2] * 1e3, 3) if xs else None
+        t = self.step_t
+        return {"n": len(t), "p50": median(self.step_s),
+                "period_p50": median([b - a for a, b in zip(t, t[1:])])}
+
     # ----------------------------------------------------- replica/handoff
     def register_replica(self, info: Optional[Dict[str, Any]] = None) \
             -> None:
@@ -594,7 +625,12 @@ class FleetFrontend:
                 # the chaos step clock is the engine's work tick: it
                 # advances only while the fleet prefills or decodes
                 chaos.step(self.engine.tick)
+                busy = self.engine.has_work()
+                t_step = time.perf_counter()
                 report = self.engine.step()
+                if busy:
+                    self.step_t.append(t_step)
+                    self.step_s.append(time.perf_counter() - t_step)
                 if self.rank == 0 and kv_backed:
                     self._publish_report(report)
                     if self.role == "prefill":
@@ -622,6 +658,16 @@ class FleetFrontend:
             if drain_t is not None:
                 self._publish_drained()
         return 0
+
+
+def _device_bytes(device) -> int:
+    """Bytes the caching allocator holds in tensors on a CUDA device (0
+    elsewhere): what an engine's construction adds is its pool."""
+    import torch
+    if device.type != "cuda":
+        return 0
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_allocated(device)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -663,7 +709,25 @@ def main(argv: Optional[List[str]] = None) -> int:
             role, sub_rank, sub_n = "decode", rank - pf, size - pf
     else:
         role, sub_rank, sub_n = "mixed", rank, size
-    engine = ServeEngine(model, scfg, role=role, device=rt.device)
+    # the pool's plan over this rank's fleet: every rank of the launch
+    # makes every fleet's groups (dist.new_group's rule), since the two
+    # sub-fleets tick apart and each needs groups of its own
+    plan = None
+    if size > 1:
+        from .pool import fleet_pool_plan
+        fleets = ([list(range(pf)), list(range(pf, size))]
+                  if role != "mixed" else [list(range(size))])
+        dims = rt.layout.dims if rt.layout is not None else None
+        if dims is not None and role != "mixed":
+            raise ValueError(
+                "HOROVOD_LAYOUT with HOROVOD_SERVE_PREFILL_RANKS: a layout "
+                "spans the whole launch, and the two sub-fleets tick apart")
+        plan = fleet_pool_plan(scfg.cache_blocks, model_cfg.n_kv_heads,
+                               fleets, dims)
+    before = _device_bytes(rt.device)
+    engine = ServeEngine(model, scfg, role=role, device=rt.device,
+                         pool=plan)
+    engine_bytes = _device_bytes(rt.device) - before
     epoch = int(rt.knobs["HOROVOD_ELASTIC_ROUND"])
     frontend = FleetFrontend(
         engine,
@@ -679,7 +743,10 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"({type(model_cfg).__name__}, {model_cfg.dtype}, "
           f"{rt.device}, slots={scfg.max_slots}, "
           f"blocks={scfg.cache_blocks}x{scfg.block_size}, role={role}, "
-          f"replica={scfg.replica_id}/{scfg.replicas})", flush=True)
+          f"replica={scfg.replica_id}/{scfg.replicas}, pool "
+          f"{json.dumps(engine.pool.describe()) if engine.pool else 'whole'}"
+          f", {engine.kv_pool()['pool_bytes']} bytes here; the engine "
+          f"allocated {engine_bytes} device bytes)", flush=True)
     if sub_rank == 0 and frontend.addr and frontend.port:
         if scfg.replicas > 1 and role != "prefill":
             frontend.register_replica({"replicas": scfg.replicas,
@@ -693,9 +760,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         # plain attention over the gathered pool, as the JAX decode path
         # does, so they stay 0)
         from ..ops.flash_attention import LAUNCHES
+        tick_ms = frontend.tick_ms()
         print(f"SERVE-DONE rank {rank} role {role} sub_rank {sub_rank} "
               f"ticks {engine.tick} sched_digest {engine.sched_digest} "
               f"launches {json.dumps(LAUNCHES)} "
+              f"tick_ms {json.dumps(tick_ms)} "
               f"stats {json.dumps(engine.stats())}", flush=True)
         return rc
     except KeyboardInterrupt:
